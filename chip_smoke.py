@@ -1,17 +1,19 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: `python3 chip_smoke.py`.
 
-Drives `mcpt_tpu_torch` (never jax, never mcpt_tpu) through its main path on
-the DEMO Cornell box and checks it. Each phase prints one line; every
-failure raises, so the script exits nonzero and prints no result line.
+Drives `mcpt_tpu_torch` (never jax, never mcpt_tpu) through its main paths
+and checks them. Each phase prints its lines and its seconds; every failure
+raises, so the script exits nonzero and prints no result line.
 
 1. environment: card, torch, CUDA, nvcc, Triton; a CUDA device is required
-2. build: csrc/megakernel.cu with nvcc for sm_90a, from this checkout
-3. the kernel against its plain PyTorch version, both on the card: at 64x48,
-   spp 8, mb 6, seed 11, and at the main path's lane count (384x384x3 lanes,
-   mb 8) with spp 2. Bounds: total rays within 0.5%, per-lane ray counts
-   equal on >= 98% of lanes, radiance off by more than 1e-3 on < 2% of lanes
-   (ULP-level nearest-hit flips) and means within 5e-3
-4. main path: `render_mega` of the native 384x384 DEMO at spp 256, mb 8,
+2. build: csrc/megakernel.cu with nvcc for sm_90a, from this checkout; the
+   registers and spills of every kernel instance
+3. the DEMO kernel (`mega_regen<4, false, false>`) against its plain PyTorch
+   version, both on the card: at 64x48, spp 8, mb 6, seed 11, and at the main
+   path's lane count (384x384x3 lanes, mb 8) with spp 2. Bounds (`agree`):
+   total rays within 0.5%, per-lane ray counts equal on >= 98% of lanes,
+   radiance off by more than 1e-3 on < 2% of lanes (ULP-level nearest-hit
+   flips) and means within 5e-3
+4. DEMO main path: `render_mega` of the native 384x384 DEMO at spp 256, mb 8,
    which must launch the kernel. Tonemapped and block-averaged 4x4 to
    96x96, it is held to tests/data/reference_fresh_demo_spp512.png (the
    reference C++ renderer's output, reduced the same way) with
@@ -25,14 +27,41 @@ failure raises, so the script exits nonzero and prints no result line.
    through the same main path, and its per-channel mean gaps must equal the
    JAX megakernel's recorded gaps within 0.25/255; the 384x384 render's
    channel means are printed and held to the quadrant bound.
-5. throughput: 1920x1080 DEMO at spp 64, mb 8, rays counted as bench.py does
-6. the card, the kernel table as JSON, and the result line
+5. throughput: 1920x1080 DEMO at spp 64, mb 8, rays counted as bench.py does;
+   one more render under torch.profiler: device time by kernel, idle share
+6. (a) the env and BVH kernels against their plain versions on the card:
+   the env instance (`mega_regen<4, true, false>`) on the DEMO under
+   assets/sky.png, and the BVH+env instance (`mega_regen<4, true, true>`)
+   on the x4-scaled Cornell box (tests/test_megakernel.py:207-279) under
+   assets/sky.png with cluster_threshold=8, at 64x48 spp 8 mb 6 and at
+   384x384x3 lanes spp 2 mb 8. Per-lane ray counts equal on every lane,
+   radiance within phase 3's bounds. Then the env instance's main path:
+   `render_mega` of the 384x384 DEMO under assets/sky.png at spp 64, mb 8,
+   which must launch `mega_regen<4, true, false>`
+7. (b) the BVH walk against the shared-memory sweep on the DEMO, both
+   through the kernel (`mega_regen<4, false, true>` vs `<4, false, false>`)
+   at 384x384, spp 4, mb 8: ray counts equal on every lane, radiance within
+   phase 3's bounds
+8. (c) the `--conf conf.json` main path at full width: stand-in OBJ meshes
+   (`write_stand_in_models`, 38,528 triangles in all) in a temp models dir,
+   `config.build_scene` -> `Scene.compile()` -> `render_mega` at 1920x1080,
+   DoF on, assets/sky.png, mb 8, spp CONF_SPP (conf.json asks 32); first the
+   kernel against its plain version on one block of that render, on the
+   same tables: lanes CONF_BLOCK_OFFSET.. (the render's costliest block,
+   rows through the pieces), 384x384x3 of them, spp 1, mb 8, phase 3's
+   bounds with every lane's ray count equal; one more render under
+   torch.profiler as in phase 5
+9. the card, the kernel table as JSON (each row's launches are those of
+   its instance in its own main-path run: the DEMO 384x384 render, the
+   sky-lit DEMO render of (a), the --conf render), and the result line
 """
 
+import collections
 import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -40,20 +69,57 @@ import numpy as np
 import torch
 
 from mcpt_tpu_torch.bench import BASELINE_RAYS_PER_S, card
-from mcpt_tpu_torch.builtin_scenes import demo_scene
+from mcpt_tpu_torch.builtin_scenes import CORNELL_FLOOR, CORNELL_LEFT, CORNELL_LIGHT
+from mcpt_tpu_torch.builtin_scenes import CORNELL_RIGHT, CORNELL_SHORTBOX, CORNELL_TALLBOX
+from mcpt_tpu_torch.builtin_scenes import _mesh, demo_scene
+from mcpt_tpu_torch.camera import Camera
+from mcpt_tpu_torch.config import build_scene, load_config
 from mcpt_tpu_torch.film import tonemap
 from mcpt_tpu_torch.io.png import read_png
 from mcpt_tpu_torch.kernels import megakernel as mk
 from mcpt_tpu_torch.kernels.megakernel_ref import cam_static, trace_block_ref
 from mcpt_tpu_torch.kernels.tables import SceneTables
+from mcpt_tpu_torch.materials import make_light_material, standard_materials
 from mcpt_tpu_torch.render import render_mega
+from mcpt_tpu_torch.scene import Scene, Sphere
 
 ROOT = Path(__file__).resolve().parent
 REFERENCE = ROOT / "tests" / "data" / "reference_fresh_demo_spp512.png"
+SKY = ROOT / "assets" / "sky.png"
 # Per-channel tonemapped mean of mcpt_tpu's render_mega(interpret=True), DEMO
 # 96x96, spp 48, mb 8, seed 0 (MCPT_MEGA_SPLIT=1, MCPT_MEGA_UNROLL=1), minus
 # the reference's, in 1/255 units: the JAX megakernel's own gap.
 JAX_MEGA_GAP_96 = (2.844, 1.153, 1.230)
+# phase 5's median before the env and BVH instances existed (PERF.md, Findings)
+EARLIER_DEMO_RATE = 1.7510e9
+CONF_SPP = 32
+# the 4th of the --conf render's six 2^20-lane blocks, its slowest
+CONF_BLOCK_OFFSET = 3 * 2**20
+
+# Stand-ins for the reference's chess meshes, which are not in the repo:
+# closed surfaces of revolution of 2*S*(R-1) triangles (S segments around,
+# R profile steps between the two poles), in their OBJ's local frame (the
+# config translates king and soldiers; the diamond keeps its file's
+# coordinates). Split: king 2,312 + 14 soldiers x 2,560 + diamond 372 +
+# floor 2 + light 2 = 38,528 triangles, the reference scene's count.
+STAND_INS = {
+    "low_king.obj": (34, 35, 420.0, 110.0, (0.0, 0.0, 0.0), "king"),
+    "low_soldier.obj": (32, 41, 260.0, 80.0, (0.0, 0.0, 0.0), "soldier"),
+    "diamond.obj": (31, 7, 140.0, 90.0, (278.0, 0.0, -700.0), "diamond"),
+}
+
+# float32 operations per unit of tallied work (trace_block_ref's `ops`), counted
+# from csrc/megakernel.cu: a Woop test, a fan triangle predicate and its
+# per-origin terms, a sphere test, a box test with its accept test, an env
+# lookup (normalize, atan2, acos, bilinear), a camera ray, and a shaded
+# vertex (BSDF sample, Fresnel, four light samples each with one BSDF
+# evaluation, the bounce's evaluation and pdf, the clamp fold).
+OPS_PER = {
+    "woop": 47, "fan_tri": 31, "fan_origin": 19, "sph": 25, "slab": 26,
+    "env": 60, "camera": 40, "vertex": 800,
+}
+PEAK_F32 = 67e12  # float32 outside the tensor cores, H100 SXM
+PEAK_BYTES = 3.35e12
 
 
 def phase(name, msg):
@@ -63,6 +129,60 @@ def phase(name, msg):
 def check(ok, what):
     if not ok:
         raise AssertionError(what)
+
+
+def lathe_shape(name, u):
+    """Radius profile (fraction of the base radius) at height fraction u."""
+    if name == "king":
+        return 0.35 + 0.65 * (1 - u) ** 2 + 0.35 * np.exp(-(((u - 0.85) / 0.08) ** 2))
+    if name == "soldier":
+        return 0.3 + 0.7 * (1 - u) ** 3 + 0.5 * np.exp(-(((u - 0.8) / 0.1) ** 2))
+    return 0.2 + 0.8 * np.sin(np.pi * u)
+
+
+def write_lathe_obj(path, segs, steps, height, radius, center, shape):
+    """A closed surface of revolution about the y axis with outward faces:
+    a bottom pole, steps-1 rings from y=0 to y=height, a top pole."""
+    u = np.linspace(0.0, 1.0, steps - 1)
+    ring_y = 0.98 * height * u
+    ring_r = radius * lathe_shape(shape, u)
+    th = 2.0 * np.pi * np.arange(segs) / segs
+    cx, cy, cz = center
+    verts = [(cx, cy, cz)]
+    for y, r in zip(ring_y, ring_r):
+        verts += [(cx + r * np.cos(t), cy + y, cz + r * np.sin(t)) for t in th]
+    verts.append((cx, cy + height, cz))
+    top = len(verts)  # 1-based index of the top pole
+
+    def vid(ring, j):  # 1-based; ring 0 is the first ring
+        return 2 + ring * segs + (j % segs)
+
+    faces = []
+    for j in range(segs):
+        faces.append((1, vid(0, j), vid(0, j + 1)))
+        for k in range(steps - 2):
+            faces.append((vid(k, j), vid(k + 1, j), vid(k + 1, j + 1)))
+            faces.append((vid(k, j), vid(k + 1, j + 1), vid(k, j + 1)))
+        faces.append((vid(steps - 2, j), top, vid(steps - 2, j + 1)))
+    faces = [f for f in faces if len(set(f)) == 3]
+    with open(path, "w") as f:
+        f.writelines(f"v {x:.4f} {y:.4f} {z:.4f}\n" for x, y, z in verts)
+        f.writelines(f"f {a} {b} {c}\n" for a, b, c in faces)
+    return len(faces)
+
+
+def write_stand_in_models(directory, segs_steps=None):
+    """Write the stand-in chess meshes into `directory`; `segs_steps`
+    overrides (S, R) for every piece (smaller meshes for tests). Returns
+    {file name: triangles}."""
+    out = {}
+    for name, (segs, steps, height, radius, center, shape) in STAND_INS.items():
+        if segs_steps is not None:
+            segs, steps = segs_steps
+        out[name] = write_lathe_obj(
+            Path(directory) / name, segs, steps, height, radius, center, shape
+        )
+    return out
 
 
 def environment():
@@ -84,7 +204,9 @@ def build():
     t0 = time.monotonic()
     path = mk.build(verbose=True)
     mk.load_library()
-    phase("build", f"{time.monotonic() - t0:.1f} s -> {path.relative_to(ROOT)}")
+    dt = time.monotonic() - t0
+    phase("build", f"{dt:.1f} s -> {path.relative_to(ROOT)}")
+    return dt
 
 
 def cuda_ms(fn, reps):
@@ -98,59 +220,124 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_vs_plain(tables, width, height, spp, mb, seed, label):
-    cam = dataclasses.replace(demo_scene().camera, width=width, height=height)
-    cs = cam_static(cam)
-    n = width * height * 3
+def bound(tables, ops, n_lanes):
+    """(bound_ms, bound_by): the larger of the tallied float32 operations
+    over the card's float32 peak and of the bytes (every table read once,
+    8 bytes per lane written) over its memory rate."""
+    flops = sum(OPS_PER[k] * v for k, v in ops.items())
+    nbytes = sum(b.numel() * b.element_size() for b in tables.buffers()) + 8 * n_lanes
+    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
-    def kern():
-        return mk.trace_block(tables, cs, seed, 0, spp, n, mb)
 
-    def plain():
-        return trace_block_ref(tables, cs, seed, 0, spp, n, mb)
-
-    kern()  # warm
-    torch.cuda.synchronize()
-    plain_ms = cuda_ms(plain, 1)
-    ms = cuda_ms(kern, 10)
-    r, ry = kern()
-    r2, ry2 = plain()
-    torch.cuda.synchronize()
+def agree(label, r, ry, r2, ry2, every_lane=False):
+    """phase 3's bounds; `every_lane` asks per-lane ray counts equal on all
+    lanes."""
     check(bool(torch.isfinite(r).all()), f"{label}: non-finite radiance")
     tot, tot2 = ry.double().sum().item(), ry2.double().sum().item()
     lane_eq = (ry == ry2).float().mean().item()
     diff = (r - r2).abs()
     off = (diff > 1e-3).float().mean().item()
     dmean = abs(r.double().mean().item() - r2.double().mean().item())
-    phase("kernel", f"{label}: {width}x{height} spp {spp} mb {mb}: kernel {ms:.3f} ms, "
-                    f"plain {plain_ms:.1f} ms; rays {tot:.0f} vs {tot2:.0f}, lanes equal "
-                    f"{lane_eq:.6f}, radiance off>1e-3 {off:.6f}, mean diff {dmean:.3e}, "
-                    f"bitwise-equal lanes {(r == r2).float().mean().item():.4f}, "
-                    f"max abs err {diff.max().item():.4g}")
-    check(abs(tot - tot2) <= 0.005 * tot2, f"{label}: total rays")
-    check(lane_eq >= 0.98, f"{label}: per-lane rays")
-    check(off < 0.02 and dmean < 5e-3, f"{label}: radiance")
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": diff.max().item()}
+    msg = (f"rays {tot:.0f} vs {tot2:.0f}, lanes equal {lane_eq:.6f}, radiance "
+           f"off>1e-3 {off:.6f}, mean diff {dmean:.3e}, bitwise-equal lanes "
+           f"{(r == r2).float().mean().item():.4f}, max abs err {diff.max().item():.4g}")
+    check(abs(tot - tot2) <= 0.005 * tot2, f"{label}: total rays: {msg}")
+    check(lane_eq == 1.0 if every_lane else lane_eq >= 0.98, f"{label}: per-lane rays: {msg}")
+    check(off < 0.02 and dmean < 5e-3, f"{label}: radiance: {msg}")
+    return msg, diff.max().item()
+
+
+def kernel_vs_plain(tables, camera, spp, mb, seed, label, every_lane=False, lane_offset=0,
+                    n_lanes=None):
+    """The kernel and its plain version on the same CUDA tables, over lanes
+    [lane_offset, lane_offset + n_lanes) (default: the whole image):
+    agreement, kernel ms (mean of 10), plain ms (one run, which also
+    tallies the work for the bound)."""
+    cs = cam_static(camera)
+    n = camera.width * camera.height * 3 if n_lanes is None else n_lanes
+
+    def kern():
+        return mk.trace_block(tables, cs, seed, lane_offset, spp, n, mb)
+
+    kern()  # warm
+    torch.cuda.synchronize()
+    ops = collections.Counter()
+    t0 = time.monotonic()
+    r2, ry2 = trace_block_ref(tables, cs, seed, lane_offset, spp, n, mb, ops=ops)
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    ms = cuda_ms(kern, 10)
+    r, ry = kern()
+    torch.cuda.synchronize()
+    msg, err = agree(label, r, ry, r2, ry2, every_lane)
+    bound_ms, bound_by = bound(tables, ops, n)
+    phase("kernel", f"{label} {mk.trace_block.last_instance}: {camera.width}x{camera.height} "
+                    f"lanes {lane_offset}+{n} spp {spp} mb {mb}: kernel {ms:.3f} ms, plain "
+                    f"{plain_ms:.1f} ms, bound "
+                    f"{bound_ms:.4f} ms ({bound_by}; {dict(ops)}); {msg}")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def device_profile(label, fn):
+    """Run fn() twice under torch.profiler, recording the second run (the
+    first lets the tracer start: a later profiler run in a process can miss
+    the launches of its first few hundred milliseconds), and print
+    its wall time, the device time of each kernel and copy, and the
+    device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    events = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: events.extend(p.events())) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+            prof.step()
+    busy = collections.Counter()  # device events run one at a time on one stream
+    launches = []
+    for e in events:  # the step's own device-side range is no device work
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            busy[e.name.replace("(anonymous namespace)::", "")] += ms
+            if "mega_regen" in e.name:
+                launches.append(round(ms, 2))
+    total = sum(busy.values())
+    phase("profile", f"{label}: wall {wall_ms:.1f} ms, device busy {total:.1f} ms, idle share "
+                     f"{1 - total / wall_ms:.4f}; kernel launches {launches} ms; "
+                     + "; ".join(f"{k[:45]} {v:.2f} ms" for k, v in busy.most_common(4)))
 
 
 def golden(img):
     ours = tonemap(img)[:, :, :3].astype(np.float32).reshape(96, 4, 96, 4, 3).mean(axis=(1, 3))
-    ref = read_png(REFERENCE)[:, :, :3].astype(np.float32).reshape(96, 4, 96, 4, 3).mean(axis=(1, 3))
-    d_mean = ours.reshape(-1, 3).mean(0) - ref.reshape(-1, 3).mean(0)
-    corr = float(np.corrcoef(ref.ravel(), ours.ravel())[0, 1])
+    ref_img = read_png(REFERENCE)[:, :, :3].astype(np.float32)
+    ref_img = ref_img.reshape(96, 4, 96, 4, 3).mean(axis=(1, 3))
+    d_mean = ours.reshape(-1, 3).mean(0) - ref_img.reshape(-1, 3).mean(0)
+    corr = float(np.corrcoef(ref_img.ravel(), ours.ravel())[0, 1])
     quad = np.abs(ours.reshape(2, 48, 2, 48, 3).mean(axis=(1, 3))
-                  - ref.reshape(2, 48, 2, 48, 3).mean(axis=(1, 3))).max()
+                  - ref_img.reshape(2, 48, 2, 48, 3).mean(axis=(1, 3))).max()
     tile = np.abs(ours.reshape(12, 8, 12, 8, 3).mean(axis=(1, 3))
-                  - ref.reshape(12, 8, 12, 8, 3).mean(axis=(1, 3))).max()
+                  - ref_img.reshape(12, 8, 12, 8, 3).mean(axis=(1, 3))).max()
     return d_mean, corr, float(quad), float(tile)
+
+
+def reset_counts():
+    mk.trace_block.launches = 0
+    mk.trace_block.by_instance = collections.Counter()
 
 
 def main_path(pack):
     sc = demo_scene()
-    mk.trace_block.launches = 0
+    reset_counts()
     img, stats = render_mega(pack, sc.camera, 256, seed=0, max_bounces=8, device="cuda")
-    launches = mk.trace_block.launches
-    check(launches > 0, "the main path launched no kernel")
+    launches = dict(mk.trace_block.by_instance)
+    check(launches.get("mega_regen<4, false, false>", 0) > 0, "the main path launched no kernel")
     check(img.shape == (384, 384, 3) and bool(np.isfinite(img).all()), "image shape/finite")
     d_mean, corr, quad, tile = golden(img)
     phase("main", f"384x384 spp 256 mb 8: {stats['elapsed_s']:.3f} s, {stats['rays']} rays, "
@@ -172,7 +359,7 @@ def main_path(pack):
                   f"{quad:.3f} (<6.5), tile {tile:.3f} (<24)")
     check(gap_err < 0.25 and corr > 0.9 and quad < 6.5 and tile < 24.0,
           "96x96 image outside the reference bounds")
-    return launches
+    return launches["mega_regen<4, false, false>"]
 
 
 def throughput(tables):
@@ -183,31 +370,169 @@ def throughput(tables):
         rates.append(stats["rays_per_s"])
         phase("perf", f"1080p spp 64 mb 8 render {rep + 1}/3: {stats['elapsed_s']:.4f} s, "
                       f"{stats['rays']} rays, {stats['rays_per_s']:.4e} rays/s")
+    device_profile("1080p DEMO spp 64 mb 8", lambda: render_mega(
+        tables, cam, 64, seed=4, max_bounces=8, device="cuda"))
     med = sorted(rates)[1]
-    phase("perf", f"median {med:.4e} rays/s, vs_baseline {med / BASELINE_RAYS_PER_S:.2f} "
-                  f"(baseline {BASELINE_RAYS_PER_S:.3g}) on {card()}")
+    phase("perf", f"median {med:.4e} rays/s (before the env and BVH instances: "
+                  f"{EARLIER_DEMO_RATE:.4e}), vs_baseline "
+                  f"{med / BASELINE_RAYS_PER_S:.2f} (baseline {BASELINE_RAYS_PER_S:.3g}) "
+                  f"on {card()}")
+
+
+def cornell_x4():
+    """tests/test_megakernel.py:207-279's x4-scaled Cornell box (no small
+    sphere), 48x48, under assets/sky.png."""
+    k = 4.0
+    mats = standard_materials()
+    camera = Camera(width=48, height=48, fov=40.0, position=(278.0 * k, 273.0 * k, -800.0 * k),
+                    target=(278.0 * k, 273.0 * k, 0.0), up=(0.0, 1.0, 0.0))
+    sc = Scene(camera)
+    for quads, m, name in [
+        (CORNELL_FLOOR, mats["rough_white_conductor"], "back"),
+        (CORNELL_SHORTBOX, mats["green_mirror"], "shortbox"),
+        (CORNELL_TALLBOX, mats["rough_plastic"], "tallbox"),
+        (CORNELL_LEFT, mats["rough_red_conductor"], "left"),
+        (CORNELL_RIGHT, mats["gold_conductor"], "right"),
+        (CORNELL_LIGHT, make_light_material(3.9), "light"),
+    ]:
+        sc.add(_mesh(np.asarray(quads) * k, m, name))
+    sc.add(Sphere((400.0 * k, 90.0 * k, 3.0 * k), 80.0 * k, mats["smooth_glass"], "big"))
+    sc.add(Sphere((250.0 * k, 260.0 * k, 230.0 * k), 60.0 * k, mats["clear_rough_plastic"], "mid"))
+    sc.load_env_map(SKY)
+    return sc
+
+
+def env_and_bvh_vs_plain():
+    """(a): the env instance on the sky-lit DEMO, the BVH+env instance on
+    the sky-lit x4 Cornell box; then the env instance's main path. Returns
+    the env instance's measurements and its launches in that render."""
+    t0 = time.monotonic()
+    demo = demo_scene()
+    demo.load_env_map(SKY)
+    env_tables = SceneTables.from_pack(demo.compile(), device="cuda")
+    at_env = kernel_vs_plain(env_tables, dataclasses.replace(demo.camera, width=384, height=384),
+                             2, 8, 3, "(a) DEMO+sky lanes", every_lane=True)
+    sc = cornell_x4()
+    tables = SceneTables.from_pack(sc.compile(cluster_threshold=8), device="cuda")
+    check(tables.use_bvh and tables.use_env, "the x4 Cornell tables lack the BVH or the env map")
+    kernel_vs_plain(tables, dataclasses.replace(sc.camera, width=64, height=48), 8, 6, 11,
+                    "(a) x4 Cornell small", every_lane=True)
+    kernel_vs_plain(tables, dataclasses.replace(sc.camera, width=384, height=384),
+                    2, 8, 3, "(a) x4 Cornell lanes", every_lane=True)
+    reset_counts()
+    img, stats = render_mega(env_tables, demo.camera, 64, seed=0, max_bounces=8, device="cuda")
+    launches = dict(mk.trace_block.by_instance)
+    check(launches.get("mega_regen<4, true, false>", 0) > 0, "the sky-lit DEMO launched no kernel")
+    check(img.shape == (384, 384, 3) and bool(np.isfinite(img).all()), "sky-lit DEMO image")
+    check(0.0 < float(img.mean()) < 10.0, f"sky-lit DEMO image mean {img.mean()}")
+    phase("a", f"sky-lit DEMO 384x384 spp 64 mb 8: {stats['elapsed_s']:.3f} s, {stats['rays']} "
+               f"rays, {stats['rays_per_s']:.4e} rays/s, launches {launches}, image mean "
+               f"{float(img.mean()):.4f}; {time.monotonic() - t0:.1f} s")
+    return at_env, launches["mega_regen<4, true, false>"]
+
+
+def bvh_vs_smem():
+    """(b): the same DEMO through the BVH walk and through the shared-memory
+    sweep."""
+    t0 = time.monotonic()
+    sc = demo_scene()
+    cs = cam_static(sc.camera)
+    n = 384 * 384 * 3
+    smem = SceneTables.from_pack(sc.compile(), device="cuda")
+    bvh = SceneTables.from_pack(sc.compile(cluster_threshold=8), device="cuda")
+    check(bvh.use_bvh and not smem.use_bvh, "BVH flags")
+    mk.trace_block(bvh, cs, 5, 0, 4, n, 8)  # warm
+    ms_bvh = cuda_ms(lambda: mk.trace_block(bvh, cs, 5, 0, 4, n, 8), 5)
+    ms_smem = cuda_ms(lambda: mk.trace_block(smem, cs, 5, 0, 4, n, 8), 5)
+    r, ry = mk.trace_block(bvh, cs, 5, 0, 4, n, 8)
+    r2, ry2 = mk.trace_block(smem, cs, 5, 0, 4, n, 8)
+    torch.cuda.synchronize()
+    msg, _ = agree("(b)", r, ry, r2, ry2, every_lane=True)
+    phase("b", f"DEMO 384x384 spp 4 mb 8: BVH {ms_bvh:.3f} ms, shared-memory sweep "
+               f"{ms_smem:.3f} ms; {msg}; {time.monotonic() - t0:.1f} s")
+
+
+def conf_path(build_s):
+    """(c): the --conf conf.json path at full width on stand-in meshes."""
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as models:
+        counts = write_stand_in_models(models)
+        t_write = time.monotonic() - t0
+        t1 = time.monotonic()
+        scene, opts = build_scene(load_config(ROOT / "conf.json"), models_dir=models)
+        t_scene = time.monotonic() - t1
+    check(scene.env_pixels is not None, "conf.json's assets/sky.png did not load")
+    t1 = time.monotonic()
+    pack = scene.compile()
+    t_compile = time.monotonic() - t1
+    n_tris = sum(m.positions.shape[0] for m in scene.meshes)
+    check(n_tris == 38528, f"stand-in scene has {n_tris} triangles")
+    t1 = time.monotonic()
+    tables = SceneTables.from_pack(pack, device="cuda")
+    torch.cuda.synchronize()
+    t_upload = time.monotonic() - t1
+    cam = scene.camera
+    check(cam.use_dof and (cam.width, cam.height) == (1920, 1080), "conf.json camera")
+    phase("conf", f"stand-ins {counts} + floor 2 + light 2 = {n_tris} triangles; write "
+                  f"{t_write:.2f} s, build_scene {t_scene:.2f} s, compile (BVH "
+                  f"{pack.bvh_min.shape[0]} nodes) {t_compile:.2f} s, upload {t_upload:.2f} s, "
+                  f"kernel build {build_s:.1f} s (phase 2); "
+                  f"conf.json asks spp {opts['spp']}, rendered at {CONF_SPP}")
+    at_conf = kernel_vs_plain(tables, cam, 1, 8, 2, "(c) conf block", every_lane=True,
+                              lane_offset=CONF_BLOCK_OFFSET, n_lanes=384 * 384 * 3)
+    reset_counts()
+    t1 = time.monotonic()
+    img, stats = render_mega(tables, cam, CONF_SPP, seed=0, max_bounces=8, device="cuda")
+    wall = time.monotonic() - t1
+    launches = dict(mk.trace_block.by_instance)
+    check(launches.get("mega_regen<4, true, true>", 0) > 0, "the --conf path launched no kernel")
+    check(img.shape == (1080, 1920, 3) and bool(np.isfinite(img).all()), "conf image")
+    check(0.0 < float(img.mean()) < 10.0, f"conf image mean {img.mean()}")
+    phase("conf", f"1920x1080 spp {CONF_SPP} mb 8 DoF sky: wall {wall:.3f} s, render "
+                  f"{stats['elapsed_s']:.3f} s, {stats['rays']} rays, {stats['rays_per_s']:.4e} "
+                  f"rays/s, launches {launches}, image mean {float(img.mean()):.4f}")
+    device_profile(f"conf 1080p spp {CONF_SPP} mb 8", lambda: render_mega(
+        tables, cam, CONF_SPP, seed=1, max_bounces=8, device="cuda"))
+    phase("conf", f"{time.monotonic() - t0:.1f} s")
+    return launches["mega_regen<4, true, true>"], at_conf
 
 
 def main():
+    t0 = time.monotonic()
     environment()
-    build()
+    build_s = build()
     pack = demo_scene().compile()
     tables = SceneTables.from_pack(pack, device="cuda")
-    kernel_vs_plain(tables, 64, 48, 8, 6, 11, "small")
-    at_main = kernel_vs_plain(tables, 384, 384, 2, 8, 3, "main-path lanes")
+    t1 = time.monotonic()
+    kernel_vs_plain(tables, dataclasses.replace(demo_scene().camera, width=64, height=48),
+                    8, 6, 11, "small")
+    at_main = kernel_vs_plain(tables, demo_scene().camera, 2, 8, 3, "main-path lanes")
+    phase("kernel", f"{time.monotonic() - t1:.1f} s")
+    t1 = time.monotonic()
     launches = main_path(pack)
+    phase("main", f"{time.monotonic() - t1:.1f} s")
+    t1 = time.monotonic()
     throughput(tables)
+    phase("perf", f"{time.monotonic() - t1:.1f} s")
+    at_env, env_launches = env_and_bvh_vs_plain()
+    bvh_vs_smem()
+    conf_launches, at_conf = conf_path(build_s)
+    phase("total", f"{time.monotonic() - t0:.1f} s")
     print(card(), flush=True)
+    src = "mcpt_tpu_torch/csrc/megakernel.cu"
+    rows = [
+        ("mega_regen<4, false, false>", "mcpt_tpu/kernels/megakernel.py:1860", launches, at_main),
+        ("mega_regen<4, true, false> (env lookup)", "mcpt_tpu/kernels/megakernel.py:241",
+         env_launches, at_env),
+        ("mega_regen<4, true, true> (BVH walks)", "mcpt_tpu/kernels/cluster.py:835",
+         conf_launches, at_conf),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "mega_regen",
-        "route": "cuda",
-        "source": "mcpt_tpu_torch/csrc/megakernel.cu",
-        "replaces": "mcpt_tpu/kernels/megakernel.py:1860",
-        "launches": launches,
-        "max_abs_err": at_main["max_abs_err"],
-        "ms": at_main["ms"],
-        "plain_ms": at_main["plain_ms"],
-    }]}), flush=True)
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": n, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+        "library_ms": None,
+    } for name, replaces, n, m in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """mcpt_tpu_torch — the path tracer of `mcpt_tpu`, ported to PyTorch and CUDA.
 
 The JAX package `mcpt_tpu` is the reference; this package mirrors its module
-names. The main path is `Scene.compile()` → `SceneTables` → `render_mega` →
+names. The main path is `config.build_scene` (or a built-in scene) →
+`Scene.compile()` → `SceneTables` → `render_mega` →
 `kernels.megakernel.trace_block`, which launches the hand-written CUDA
 path-regeneration megakernel (`csrc/megakernel.cu`) for tensors on a CUDA
 device and runs its plain PyTorch version (`kernels/megakernel_ref.py`) for

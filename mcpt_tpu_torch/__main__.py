@@ -1,6 +1,7 @@
-"""CLI entry: `python -m mcpt_tpu_torch` (the `--demo` subset of
+"""CLI entry: `python -m mcpt_tpu_torch` (the megakernel engine of
 `python -m mcpt_tpu`).
 
+  python -m mcpt_tpu_torch --conf conf.json --models-dir path/to/models
   python -m mcpt_tpu_torch --demo --spp 64
   python -m mcpt_tpu_torch --demo --width 256 --height 256 --out img.png
   python -m mcpt_tpu_torch --demo --device cpu --width 8 --height 8 --spp 1
@@ -13,6 +14,7 @@ import dataclasses
 import sys
 
 from mcpt_tpu_torch.builtin_scenes import demo_scene
+from mcpt_tpu_torch.config import DEFAULT_MODELS_DIR, build_scene, load_config
 from mcpt_tpu_torch.film import save_png
 from mcpt_tpu_torch.render import render_mega
 
@@ -27,32 +29,48 @@ def format_duration(seconds: float) -> str:
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="mcpt_tpu_torch")
+    p.add_argument("--conf", default=None, help="conf.json path (chess scene)")
     p.add_argument("--demo", action="store_true", help="built-in Cornell DEMO scene")
-    p.add_argument("--spp", type=int, default=2048)
+    p.add_argument("--models-dir", default=DEFAULT_MODELS_DIR)
+    p.add_argument("--spp", type=int, default=None)
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--height", type=int, default=None)
-    p.add_argument("--out", default="./output.png")
+    p.add_argument("--out", default=None)
     p.add_argument("--max-bounces", type=int, default=8)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument(
+        "--no-strict-parity",
+        action="store_true",
+        help="fix the reference's dead-key config quirks (see config.py)",
+    )
     args = p.parse_args(argv)
-    if not args.demo:
-        p.error("only the built-in --demo scene is ported")
 
-    scene = demo_scene()
+    if args.demo:
+        scene = demo_scene()
+        opts = {"spp": 2048, "output": "./output.png"}
+    elif args.conf:
+        scene, opts = build_scene(
+            load_config(args.conf), models_dir=args.models_dir,
+            strict_parity=not args.no_strict_parity,
+        )
+    else:
+        p.error("need --conf or --demo")
     cam = scene.camera
     if args.width:
         cam = dataclasses.replace(cam, width=args.width)
     if args.height:
         cam = dataclasses.replace(cam, height=args.height)
-    print(f"SPP: {args.spp}")
+    spp = args.spp if args.spp is not None else opts["spp"]
+    out = args.out if args.out is not None else opts["output"]
+    print(f"SPP: {spp}")
     fb, stats = render_mega(
-        scene.compile(), cam, args.spp, seed=args.seed,
+        scene.compile(), cam, spp, seed=args.seed,
         max_bounces=args.max_bounces, device=args.device,
     )
-    if args.out:
-        save_png(args.out, fb)
-    print(f"Writing image to {args.out}")
+    if out:
+        save_png(out, fb)
+    print(f"Writing image to {out}")
     print(
         f"Rendering finished in {format_duration(stats['elapsed_s'])} "
         f"({stats['rays_per_s']:.3e} rays/s, "

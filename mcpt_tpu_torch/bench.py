@@ -14,7 +14,9 @@ also builds the kernel) is excluded; the value is the median of the timed
 renders. The card's name and power limit go to stderr beside the number.
 
 Env knobs: BENCH_SPP (default 2048), BENCH_MB (max bounces, default 8),
-BENCH_REPEATS (timed renders, default 3).
+BENCH_REPEATS (timed renders, default 3), BENCH_NDIR (light samples per
+path vertex, default the DEMO's 4; other counts take the kernel's generic
+instances).
 """
 
 import dataclasses
@@ -51,9 +53,11 @@ def main():
     max_bounces = int(os.environ.get("BENCH_MB", "8"))
     n_rep = int(os.environ.get("BENCH_REPEATS", "3"))
     sc = demo_scene()
+    sc.n_dir_sample = int(os.environ.get("BENCH_NDIR", sc.n_dir_sample))
     cam = dataclasses.replace(sc.camera, width=1920, height=1080)
     tables = SceneTables.from_pack(sc.compile(), device=dev)
-    log(f"bench: {torch.cuda.get_device_name(dev)} spp={spp} mb={max_bounces}")
+    log(f"bench: {torch.cuda.get_device_name(dev)} spp={spp} mb={max_bounces} "
+        f"n_dir_sample={sc.n_dir_sample}")
     _, stats = render_mega(tables, cam, spp, seed=7, max_bounces=max_bounces, device=dev)
     log(f"warmup: {stats['elapsed_s']:.2f}s")
     samples = []

@@ -1,8 +1,9 @@
-"""Built-in scene geometry (counterpart of `mcpt_tpu/builtin_scenes.py:1-78,
-116-143`): the DEMO Cornell box of the reference `src/main.cpp:99-129`
-(compile-time ``-DDEMO``), embedded as numpy data. Quads are listed as
-(4, 3) corner arrays and triangulated (0,1,2)+(0,2,3), matching the OBJ face
-order the reference loads.
+"""Built-in scene geometry (counterpart of `mcpt_tpu/builtin_scenes.py`):
+the DEMO Cornell box of the reference `src/main.cpp:99-129` (compile-time
+``-DDEMO``), embedded as numpy data, and the floor, light and backwall quads
+of the config-driven chessboard scene (`config.py`, main.cpp:130-328). Quads
+are listed as (4, 3) corner arrays and triangulated (0,1,2)+(0,2,3),
+matching the OBJ face order the reference loads.
 """
 
 import numpy as np
@@ -73,6 +74,41 @@ CORNELL_TALLBOX = [
     [[314.0, 0.0, 456.0], [314.0, 330.0, 456.0], [265.0, 330.0, 296.0], [265.0, 0.0, 296.0]],
     [[265.0, 0.0, 296.0], [265.0, 330.0, 296.0], [423.0, 330.0, 247.0], [423.0, 0.0, 247.0]],
 ]
+
+# Chessboard-scene quads (models/light.obj, models/backwall.obj data; the
+# floor with its board texcoords is built in chess_floor_mesh below).
+CHESS_LIGHT = [
+    [[278.0, 548.7, -152.5], [278.0, 548.7, 152.5], [-278.0, 548.7, 152.5], [-278.0, 548.7, -152.5]],
+]
+CHESS_BACKWALL = [
+    [[4049.6, -3500.0, 1059.2], [-3500.0, -3500.0, 1059.2], [-3500.0, 4048.8, 1059.2], [4056.0, 4048.8, 1059.2]],
+]
+
+
+def chess_floor_mesh(material: Material) -> TriangleMesh:
+    """The chessboard floor: bottom.obj's two triangles WITH its texcoords
+    (f 1/1 3/3 2/2 ; f 1/1 4/4 3/3 — note the vertex order)."""
+    v = np.asarray(
+        [[2052.8, 0.0, -2212.0], [2049.6, 0.0, 2059.2], [-1500.0, 0.0, 2059.2], [-1500.0, 0.0, -2212.0]],
+        np.float32,
+    )
+    t = np.asarray([[0, 0], [0, 1], [1, 1], [1, 0]], np.float32)
+    faces = [(0, 2, 1), (0, 3, 2)]
+    pos = np.stack([v[list(f)] for f in faces])
+    uv = np.stack([t[list(f)] for f in faces])
+    if not material.textured:
+        uv = np.zeros_like(uv)
+    return TriangleMesh(positions=pos, texcoords=uv, material=material, name="floor")
+
+
+def chess_light_mesh(brightness_scale: float, translation) -> TriangleMesh:
+    return _mesh(
+        CHESS_LIGHT, make_light_material(brightness_scale), "light", translation
+    )
+
+
+def chess_backwall_mesh(material: Material) -> TriangleMesh:
+    return _mesh(CHESS_BACKWALL, material, "backwall")
 
 
 def demo_scene() -> Scene:

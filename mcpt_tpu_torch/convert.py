@@ -4,7 +4,10 @@
 `mcpt_tpu.scene.ScenePack` as numpy arrays (`PACK_FIELDS`) plus its static
 ints (`PACK_STATIC`) and returns the same `SceneTables` that the port's own
 `Scene.compile()` builds — the renderer's counterpart of loading weights.
-This module does not import the JAX package; the caller converts:
+The JAX pack's flat BVH (`bvh_*`, possibly from its native builder) is
+carried as it is, not rebuilt, when the JAX compile chose its clustered path
+(`n_cl_nodes > 0`); the env map is carried at full resolution. This module
+does not import the JAX package; the caller converts:
 
     arrays = {f: np.asarray(getattr(jax_pack, f)) for f in PACK_FIELDS}
     static = {s: getattr(jax_pack, s) for s in PACK_STATIC}
@@ -14,34 +17,37 @@ This module does not import the JAX package; the caller converts:
 import numpy as np
 
 from mcpt_tpu_torch.kernels.tables import SceneTables
-from mcpt_tpu_torch.scene import BIG_SCENES, ScenePack
+from mcpt_tpu_torch.scene import ScenePack
 
 PACK_FIELDS = (
     "tri_sc", "tri_shade", "tri_occ_sc", "sph_geom", "sph_shade", "mat_fat",
     "mat_textured", "emt_fat", "emt_mesh", "emt_intra_cum", "emt_mesh_area",
     "lmesh_cum", "emit_total_area", "background", "rr_rate", "inv_rr",
+    "env_pixels", "bvh_min", "bvh_max", "bvh_miss", "bvh_leaf_start",
+    "bvh_leaf_count", "bvh_prims",
 )
 PACK_STATIC = (
     "n_emitters", "n_sph_emitters", "enable_shadow", "n_dir_sample",
-    "use_env", "n_cl_nodes",
+    "use_env", "n_cl_nodes", "n_tris",
 )
+_INT_FIELDS = ("emt_mesh", "bvh_miss", "bvh_leaf_start", "bvh_leaf_count", "bvh_prims")
 
 
 def tables_from_pack(arrays: dict, static: dict, device=None) -> SceneTables:
-    if static.get("n_cl_nodes", 0) > 0:
-        raise NotImplementedError(f"clustered-BVH scenes are not ported yet: {BIG_SCENES}")
     f32 = np.float32
+    clustered = static["n_cl_nodes"] > 0
     pack = ScenePack(
         **{
             f: (np.asarray(arrays[f], bool) if f == "mat_textured"
-                else np.asarray(arrays[f], np.int32) if f == "emt_mesh"
+                else np.asarray(arrays[f], np.int32) if f in _INT_FIELDS
                 else np.asarray(arrays[f], f32))
-            for f in PACK_FIELDS
+            for f in PACK_FIELDS if clustered or not f.startswith("bvh_")
         },
+        t_pad=int(static["n_tris"]),
         n_emitters=int(static["n_emitters"]),
         n_sph_emitters=int(static["n_sph_emitters"]),
         enable_shadow=bool(static["enable_shadow"]),
         n_dir_sample=int(static["n_dir_sample"]),
-        use_env=bool(static.get("use_env", False)),
+        use_env=bool(static["use_env"]),
     )
     return SceneTables.from_pack(pack, device=device)

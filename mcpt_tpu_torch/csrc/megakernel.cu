@@ -1,10 +1,24 @@
-// Path-regeneration megakernel for Hopper (sm_90a), brute-force / no-env
-// specialization.
+// Path-regeneration megakernel for Hopper (sm_90a).
 //
-// Replaces: mcpt_tpu/kernels/megakernel.py::_mega_kernel_regen on its SMEM
-// brute-force path (the merged `_fan_and_nearest` sweep, `_intersect_tile`,
-// `_occlude_shared_origin`, `_vertex_pre`, `_nee_shade`), launched there by
-// `trace_mega_block` once per block of up to 2^20 lanes.
+// Replaces: mcpt_tpu/kernels/megakernel.py::_mega_kernel_regen (the merged
+// `_fan_and_nearest` sweep, `_intersect_tile`, `_occlude_shared_origin`,
+// `_vertex_pre`, `_nee_shade`), launched there by `trace_mega_block` once per
+// block of up to 2^20 lanes; with its env tier (`_env_mip_lookup` plus the
+// deferred XLA pass `_primary_env_mean`) and, for scenes over 1024
+// triangles, its clustered walks (mcpt_tpu/kernels/cluster.py
+// `cluster_fan_and_near`, `cluster_query_chunk`, `cluster_occlude_fan`).
+//
+// Instances: mega_regen<S, ENV, BVH>. S = 4 is the common light-sample count
+// (its fan arrays stay in registers); S = -16 and S = -32 are generic, for
+// any count up to -S (the smaller cap keeps the per-sample arrays of the
+// usual counts from spilling; 32 is conf.json's count in fixed mode). ENV looks the
+// env map up per lane, at full resolution with bilinear filtering, on a
+// camera miss and for a surviving bounce's pending env-terminal (the TPU
+// kernel's 16x32 nearest-texel mip and deferred primary pass were TPU
+// workarounds: it has no per-lane gather). BVH walks a threaded BVH from
+// global memory, one thread per ray with one int cursor and no stack, for
+// the next ray's nearest hit and for each shadow ray; the brute-force sweeps
+// over shared-memory tables serve scenes of at most 1024 triangles.
 //
 // What it computes: one thread per lane (a (pixel, wavelength channel) pair).
 // The thread runs its lane's `spp` samples in order; per sample: the camera
@@ -30,7 +44,10 @@
 // common S = 4 light-sample count is a template instance so the fan's
 // per-sample arrays stay in registers; the shadow fan and the light pick stop
 // early once their answer is fixed. Coherence (sorting or compacting lanes by
-// path state) is later work.
+// path state) is later work. The BVH instances read nodes, triangle rows and
+// the env map from global memory through L1/L2 (a 38k-triangle scene's tables
+// are ~4 MB, a 1024x512 env map 6.3 MB: both stay in the 50 MB L2); their
+// walks diverge per thread, which is what bounds them.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -47,7 +64,7 @@ constexpr float kFoldBig = 1e30f;
 constexpr float kFoldWCap = 1e30f;
 constexpr float kTwoPi = 6.2831855f;  // float32(2π), folded like the host
 constexpr float kPi = 3.1415927f;
-constexpr int kMaxDir = 16;
+constexpr int kMaxDir = 32;  // the largest generic instance's light-sample cap
 constexpr int kThreads = 128;
 
 // table row widths (kernels/tables.py TABLE_COLS)
@@ -55,17 +72,24 @@ constexpr int kTri = 25, kOcc = 16, kSph = 6, kMat = 13, kEmt = 17, kEmeta = 4;
 
 struct Params {
   const float* tables[8];  // tri, occ, sph, mat, emt, emeta, lcum, par
+  const float* env;        // (env_h, env_w, 3) env map
+  const float* bvh;        // (nodes, 8): min3, max3, miss, start*16 + count
+  const int* prims;        // leaf-ordered triangle rows, -1 = skip
   int rows[6];             // tri, occ, sph, mat, emt (= emeta), lcum
   float* out_rad;
   float* out_rays;
   int seed, lane_offset, n_lanes, spp, width, height, max_bounces, n_dir;
   int enable_shadow, textured, n_sph_emitters, use_dof;
+  int env_h, env_w, use_env, use_bvh;
   float xscale, yscale, om[9], pos[3], focal, aperture, inv_n_dir;
 };
 
 struct Tables {
   const float *tri, *occ, *sph, *mat, *emt, *emeta, *lcum, *par;
   int n_tri, n_occ, n_sph, n_mat, n_emt, n_lcum;
+  const float *env, *bvh;
+  const int* prims;
+  int env_h, env_w;
 };
 
 struct V3 {
@@ -153,41 +177,49 @@ struct Hit {
   bool happened, emissive;
 };
 
-__device__ Hit nearest(const Tables& T, V3 o, V3 d, bool textured) {
-  float t_best = kTMax;
-  float n0 = 0.f, n1 = 0.f, n2 = 0.f, uvx = 0.f, uvy = 0.f, mat = 0.f, em = 0.f;
-  int sph_win = -1;
-  for (int i = 0; i < T.n_tri; ++i) {
-    const float* w = T.tri + i * kTri;
-    float dp2 = d.x * w[6] + d.y * w[7] + d.z * w[8];
-    float op2 = o.x * w[6] + o.y * w[7] + o.z * w[8] - w[11];
-    float det = -(dp2 * w[12]);
-    float det_g = fabsf(det) >= kEps ? det : 1.0f;
-    float t_hit = op2 * w[12] / det_g;
-    float dp0 = d.x * w[0] + d.y * w[1] + d.z * w[2];
-    float op0 = o.x * w[0] + o.y * w[1] + o.z * w[2] - w[9];
-    float u = op0 + t_hit * dp0;
-    float dp1 = d.x * w[3] + d.y * w[4] + d.z * w[5];
-    float op1 = o.x * w[3] + o.y * w[4] + o.z * w[5] - w[10];
-    float v = op1 + t_hit * dp1;
-    // pad rows carry nr2 = 0 and fail the |det| >= ε term: never skip it
-    float m = fminf(fminf(u, v), fminf(fminf(1.0f - (u + v), t_hit), fabsf(det) - kEps));
-    float t_cand = m >= 0.0f ? t_hit : kTMax;
-    if (t_cand < t_best) {
-      t_best = t_cand;
-      n0 = w[14];
-      n1 = w[15];
-      n2 = w[16];
-      if (textured) {
-        float w0 = 1.0f - u - v;
-        uvx = w0 * w[17] + u * w[19] + v * w[21];
-        uvy = w0 * w[18] + u * w[20] + v * w[22];
-      }
-      mat = w[23];
-      em = w[24];
-      sph_win = -1;
-    }
+// The running winner of a nearest-hit query.
+struct Near {
+  float t, n0, n1, n2, uvx, uvy, mat, em;
+  int sph;
+};
+
+// Woop test of ray (o, d) against triangle row w: t, or kTMax on a miss.
+// Pad rows carry nr2 = 0 and fail the |det| >= ε term: never skip it.
+__device__ __forceinline__ float woop(const float* w, V3 o, V3 d, float& u, float& v) {
+  float dp2 = d.x * w[6] + d.y * w[7] + d.z * w[8];
+  float op2 = o.x * w[6] + o.y * w[7] + o.z * w[8] - w[11];
+  float det = -(dp2 * w[12]);
+  float det_g = fabsf(det) >= kEps ? det : 1.0f;
+  float t_hit = op2 * w[12] / det_g;
+  float dp0 = d.x * w[0] + d.y * w[1] + d.z * w[2];
+  float op0 = o.x * w[0] + o.y * w[1] + o.z * w[2] - w[9];
+  u = op0 + t_hit * dp0;
+  float dp1 = d.x * w[3] + d.y * w[4] + d.z * w[5];
+  float op1 = o.x * w[3] + o.y * w[4] + o.z * w[5] - w[10];
+  v = op1 + t_hit * dp1;
+  float m = fminf(fminf(u, v), fminf(fminf(1.0f - (u + v), t_hit), fabsf(det) - kEps));
+  return m >= 0.0f ? t_hit : kTMax;
+}
+
+// Take triangle row w (barycentrics u, v) as the winner at t.
+__device__ __forceinline__ void take_tri(Near& h, const float* w, float t, float u, float v,
+                                         bool textured) {
+  h.t = t;
+  h.n0 = w[14];
+  h.n1 = w[15];
+  h.n2 = w[16];
+  if (textured) {
+    float w0 = 1.0f - u - v;
+    h.uvx = w0 * w[17] + u * w[19] + v * w[21];
+    h.uvy = w0 * w[18] + u * w[20] + v * w[22];
   }
+  h.mat = w[23];
+  h.em = w[24];
+  h.sph = -1;
+}
+
+// Every sphere after the triangles, strict `<`: a tie stays with a triangle.
+__device__ __forceinline__ void near_spheres(const Tables& T, V3 o, V3 d, Near& h) {
   float a = d.x * d.x + d.y * d.y + d.z * d.z;
   bool a_ok = a > 1e-12f;
   float a_safe = fmaxf(a, 1e-12f);
@@ -208,35 +240,128 @@ __device__ Hit nearest(const Tables& T, V3 o, V3 d, bool textured) {
     float t = lo < 0.0f ? hi : lo;
     ok = ok && t >= 0.0f;
     float t_cand = ok ? t : kTMax;
-    if (t_cand < t_best) {
-      t_best = t_cand;
-      n0 = n1 = n2 = 0.f;
-      uvx = uvy = 0.f;
-      mat = S[4];
-      em = S[5];
-      sph_win = s;
+    if (t_cand < h.t) {
+      h.t = t_cand;
+      h.n0 = h.n1 = h.n2 = 0.f;
+      h.uvx = h.uvy = 0.f;
+      h.mat = S[4];
+      h.em = S[5];
+      h.sph = s;
     }
   }
+}
+
+__device__ __forceinline__ Hit finish(const Tables& T, V3 o, V3 d, const Near& w) {
   Hit h;
-  h.happened = t_best < kTMax;
-  float t_eff = h.happened ? t_best : 0.0f;
+  h.happened = w.t < kTMax;
+  float t_eff = h.happened ? w.t : 0.0f;
   h.p = mk(o.x + d.x * t_eff, o.y + d.y * t_eff, o.z + d.z * t_eff);
-  if (sph_win >= 0) {
-    const float* S = T.sph + sph_win * kSph;
+  if (w.sph >= 0) {
+    const float* S = T.sph + w.sph * kSph;
     h.n = normalize(mk(h.p.x - S[0], h.p.y - S[1], h.p.z - S[2]));
   } else {
-    h.n = mk(n0, n1, n2);
+    h.n = mk(w.n0, w.n1, w.n2);
   }
-  h.uvx = uvx;
-  h.uvy = uvy;
-  h.mat = mat;
-  h.emissive = em > 0.5f;
+  h.uvx = w.uvx;
+  h.uvy = w.uvy;
+  h.mat = w.mat;
+  h.emissive = w.em > 0.5f;
   return h;
 }
 
+__device__ Hit nearest(const Tables& T, V3 o, V3 d, bool textured) {
+  Near h = {kTMax, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1};
+  for (int i = 0; i < T.n_tri; ++i) {
+    const float* w = T.tri + i * kTri;
+    float u, v;
+    float t_cand = woop(w, o, d, u, v);
+    if (t_cand < h.t) take_tri(h, w, t_cand, u, v, textured);
+  }
+  near_spheres(T, o, d, h);
+  return finish(T, o, d, h);
+}
+
+// ---- the BVH walks (replacing mcpt_tpu/kernels/cluster.py:257, 547, 835) --
+
+// Entry and exit t of the ray (o, 1/d) through node box nd.
+__device__ __forceinline__ void slab(const float* nd, V3 o, V3 inv, float& tmin, float& tmax) {
+  float a0 = (__ldg(nd + 0) - o.x) * inv.x, b0 = (__ldg(nd + 3) - o.x) * inv.x;
+  float a1 = (__ldg(nd + 1) - o.y) * inv.y, b1 = (__ldg(nd + 4) - o.y) * inv.y;
+  float a2 = (__ldg(nd + 2) - o.z) * inv.z, b2 = (__ldg(nd + 5) - o.z) * inv.z;
+  tmin = fmaxf(fmaxf(fminf(a0, b0), fminf(a1, b1)), fminf(a2, b2));
+  tmax = fminf(fminf(fmaxf(a0, b0), fmaxf(a1, b1)), fmaxf(a2, b2));
+}
+
+// Nearest hit through the BVH: the brute sweep's answer, ties included
+// (equal t goes to the lower triangle row, triangles beat spheres).
+__device__ Hit nearest_bvh(const Tables& T, V3 o, V3 d, bool textured) {
+  const V3 inv = mk(1.0f / d.x, 1.0f / d.y, 1.0f / d.z);
+  float t_best = kTMax, bu = 0.0f, bv = 0.0f;
+  int best = -1;
+  int node = 0;
+  while (node >= 0) {
+    const float* nd = T.bvh + node * 8;
+    float tmin, tmax;
+    slab(nd, o, inv, tmin, tmax);
+    const bool hit = tmin - kEps <= tmax && tmax >= -kEps && tmin - kEps <= t_best;
+    const float code = __ldg(nd + 7);
+    if (hit && code >= 0.0f) {
+      const int c = static_cast<int>(code), start = c >> 4, cnt = c & 15;
+      for (int j = 0; j < cnt; ++j) {
+        const int prim = __ldg(T.prims + start + j);
+        if (prim < 0) continue;
+        float u, v;
+        const float t_cand = woop(T.tri + prim * kTri, o, d, u, v);
+        if (t_cand < kTMax && (t_cand < t_best || (t_cand == t_best && prim < best))) {
+          t_best = t_cand;
+          best = prim;
+          bu = u;
+          bv = v;
+        }
+      }
+    }
+    node = (hit && code < 0.0f) ? node + 1 : static_cast<int>(__ldg(nd + 6));
+  }
+  Near h = {kTMax, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1};
+  if (best >= 0) take_tri(h, T.tri + best * kTri, t_best, bu, bv, textured);
+  near_spheres(T, o, d, h);
+  return finish(T, o, d, h);
+}
+
+// The shadow fan's division-free blocked-visibility predicate for one
+// triangle: every Möller-Trumbore condition multiplied through by |det|,
+// blocking at t < xs. op0, op1 and q = op2·nr2 are the origin's terms.
+__device__ __forceinline__ bool tri_blocks(const float* w, float op0, float op1, float q, V3 e,
+                                           float xs) {
+  float dp2 = e.x * w[6] + e.y * w[7] + e.z * w[8];
+  float det = -(dp2 * w[12]);
+  float dets = fabsf(det);
+  float qs = det < 0.0f ? -q : q;
+  float dp0 = e.x * w[0] + e.y * w[1] + e.z * w[2];
+  float u_s = op0 * dets + qs * dp0;
+  float dp1 = e.x * w[3] + e.y * w[4] + e.z * w[5];
+  float v_s = op1 * dets + qs * dp1;
+  float m = fminf(fminf(qs, dets - kEps), fminf(fminf(u_s, v_s), dets - (u_s + v_s)));
+  return m >= 0.0f && xs * dets - qs > 0.0f;
+}
+
+// The same for one sphere (l = o - c, cq = |l|² - r²), a = 1 q-form roots.
+__device__ __forceinline__ bool sph_blocks(float l0, float l1, float l2, float cq, bool r_ok, V3 e,
+                                           float xs) {
+  float hb = e.x * l0 + e.y * l1 + e.z * l2;
+  float disc = hb * hb - cq;
+  bool ok = disc >= 0.0f && r_ok;
+  float sq = sqrtf(fmaxf(disc, 0.0f));
+  float qq = hb > 0.0f ? -(hb + sq) : -(hb - sq);
+  float qs = fabsf(qq) > 1e-10f ? qq : 1.0f;
+  float x1 = cq / qs;
+  float lo = fminf(qq, x1), hi = fmaxf(qq, x1);
+  float t = lo < 0.0f ? hi : lo;
+  return ok && t >= 0.0f && t < xs;
+}
+
 // Shared-origin S-ray shadow fan: vis[si] is true when nothing blocks ray si
-// at t < dist − max(ε, REL_EPS·dist). Every Möller-Trumbore condition is
-// multiplied through by |det|; spheres use the a = 1 q-form roots.
+// at t < dist − max(ε, REL_EPS·dist).
 template <int NS>
 __device__ void occlude_fan(const Tables& T, V3 o, const V3* ws, const float* dists,
                             int ns, bool* vis) {
@@ -252,25 +377,14 @@ __device__ void occlude_fan(const Tables& T, V3 o, const V3* ws, const float* di
   }
   for (int i = 0; i < T.n_occ && n_open > 0; ++i) {
     const float* w = T.occ + i * kOcc;
-    float nr2 = w[12];
     float op2 = o.x * w[6] + o.y * w[7] + o.z * w[8] - w[11];
     float op0 = o.x * w[0] + o.y * w[1] + o.z * w[2] - w[9];
     float op1 = o.x * w[3] + o.y * w[4] + o.z * w[5] - w[10];
-    float q = op2 * nr2;
+    float q = op2 * w[12];
 #pragma unroll
     for (int si = 0; si < NS; ++si) {
       if (si >= ns || blocked[si]) continue;
-      V3 e = ws[si];
-      float dp2 = e.x * w[6] + e.y * w[7] + e.z * w[8];
-      float det = -(dp2 * nr2);
-      float dets = fabsf(det);
-      float qs = det < 0.0f ? -q : q;
-      float dp0 = e.x * w[0] + e.y * w[1] + e.z * w[2];
-      float u_s = op0 * dets + qs * dp0;
-      float dp1 = e.x * w[3] + e.y * w[4] + e.z * w[5];
-      float v_s = op1 * dets + qs * dp1;
-      float m = fminf(fminf(qs, dets - kEps), fminf(fminf(u_s, v_s), dets - (u_s + v_s)));
-      if (m >= 0.0f && xs[si] * dets - qs > 0.0f) {
+      if (tri_blocks(w, op0, op1, q, ws[si], xs[si])) {
         blocked[si] = true;
         --n_open;
       }
@@ -285,17 +399,7 @@ __device__ void occlude_fan(const Tables& T, V3 o, const V3* ws, const float* di
 #pragma unroll
     for (int si = 0; si < NS; ++si) {
       if (si >= ns || blocked[si]) continue;
-      V3 e = ws[si];
-      float hb = e.x * l0 + e.y * l1 + e.z * l2;
-      float disc = hb * hb - cq;
-      bool ok = disc >= 0.0f && r_ok;
-      float sq = sqrtf(fmaxf(disc, 0.0f));
-      float qq = hb > 0.0f ? -(hb + sq) : -(hb - sq);
-      float qs = fabsf(qq) > 1e-10f ? qq : 1.0f;
-      float x1 = cq / qs;
-      float lo = fminf(qq, x1), hi = fmaxf(qq, x1);
-      float t = lo < 0.0f ? hi : lo;
-      if (ok && t >= 0.0f && t < xs[si]) {
+      if (sph_blocks(l0, l1, l2, cq, r_ok, ws[si], xs[si])) {
         blocked[si] = true;
         --n_open;
       }
@@ -305,6 +409,85 @@ __device__ void occlude_fan(const Tables& T, V3 o, const V3* ws, const float* di
   for (int si = 0; si < NS; ++si) {
     if (si < ns) vis[si] = !blocked[si];
   }
+}
+
+// Does any triangle block the unit ray (o, e) before xs? An any-hit walk of
+// the BVH over the whole triangle table.
+__device__ bool bvh_blocked(const Tables& T, V3 o, V3 e, float xs) {
+  const V3 inv = mk(1.0f / e.x, 1.0f / e.y, 1.0f / e.z);
+  int node = 0;
+  while (node >= 0) {
+    const float* nd = T.bvh + node * 8;
+    float tmin, tmax;
+    slab(nd, o, inv, tmin, tmax);
+    const bool hit = tmin - kEps <= tmax && tmax >= -kEps && tmin - kEps <= xs;
+    const float code = __ldg(nd + 7);
+    if (hit && code >= 0.0f) {
+      const int c = static_cast<int>(code), start = c >> 4, cnt = c & 15;
+      for (int j = 0; j < cnt; ++j) {
+        const int prim = __ldg(T.prims + start + j);
+        if (prim < 0) continue;
+        const float* w = T.tri + prim * kTri;
+        float op2 = o.x * w[6] + o.y * w[7] + o.z * w[8] - w[11];
+        float op0 = o.x * w[0] + o.y * w[1] + o.z * w[2] - w[9];
+        float op1 = o.x * w[3] + o.y * w[4] + o.z * w[5] - w[10];
+        if (tri_blocks(w, op0, op1, op2 * w[12], e, xs)) return true;
+      }
+    }
+    node = (hit && code < 0.0f) ? node + 1 : static_cast<int>(__ldg(nd + 6));
+  }
+  return false;
+}
+
+// The fan through the BVH: each shadow ray walks on its own, then meets
+// the spheres by brute force.
+template <int NS>
+__device__ void occlude_fan_bvh(const Tables& T, V3 o, const V3* ws, const float* dists,
+                                int ns, bool* vis) {
+#pragma unroll
+  for (int si = 0; si < NS; ++si) {
+    if (si >= ns) break;
+    const float xs = dists[si] - fmaxf(kRelEps * dists[si], kEps);
+    bool blocked = bvh_blocked(T, o, ws[si], xs);
+    for (int s = 0; s < T.n_sph && !blocked; ++s) {
+      const float* S = T.sph + s * kSph;
+      float r = S[3];
+      float l0 = o.x - S[0], l1 = o.y - S[1], l2 = o.z - S[2];
+      float cq = l0 * l0 + l1 * l1 + l2 * l2 - r * r;
+      blocked = sph_blocks(l0, l1, l2, cq, r > 0.0f, ws[si], xs);
+    }
+    vis[si] = !blocked;
+  }
+}
+
+// ---- the env map (mcpt_tpu/envmap.py:14, Scene.hpp:60-99) ------------------
+
+// Channel `chan` of the env radiance along d: phi = atan2(z, x), theta =
+// acos(y), u wraps, v clamps, bilinear over texel centres at -0.5.
+__device__ float env_lookup(const Tables& T, V3 d, int chan) {
+  const int h = T.env_h, w = T.env_w;
+  float n2 = dot(d, d);
+  float inv = n2 > 1e-12f ? 1.0f / sqrtf(n2) : 0.0f;
+  float phi = atan2f(d.z * inv, d.x * inv);
+  float theta = acosf(clampf(d.y * inv, -1.0f, 1.0f));
+  float u = (phi + kPi) / kTwoPi;
+  float v = theta / kPi;
+  u = u - floorf(u);
+  v = clampf(v, 0.0f, 1.0f);
+  float x = u * static_cast<float>(w) - 0.5f;
+  float y = v * static_cast<float>(h) - 0.5f;
+  float x0 = floorf(x), y0 = floorf(y);
+  float sx = x - x0, sy = y - y0;
+  int x0i = static_cast<int>(x0), y0i = static_cast<int>(y0);
+  int x0w = ((x0i % w) + w) % w, x1w = (((x0i + 1) % w) + w) % w;
+  int y0c = min(max(y0i, 0), h - 1), y1c = min(max(y0i + 1, 0), h - 1);
+  float c00 = __ldg(T.env + (y0c * w + x0w) * 3 + chan);
+  float c10 = __ldg(T.env + (y0c * w + x1w) * 3 + chan);
+  float c01 = __ldg(T.env + (y1c * w + x0w) * 3 + chan);
+  float c11 = __ldg(T.env + (y1c * w + x1w) * 3 + chan);
+  float c0 = c00 * (1.0f - sx) + c10 * sx;
+  float c1 = c01 * (1.0f - sx) + c11 * sx;
+  return c0 * (1.0f - sy) + c1 * sy;
 }
 
 // ---- materials and the BSDF (megakernel.py:867-1137) -----------------------
@@ -504,18 +687,32 @@ __device__ __forceinline__ float path_draw(uint32_t base, uint32_t use) {
   return unit(murmur(base + use * 0x632BE59Bu));
 }
 
-template <int S>
+template <bool BVH>
+__device__ __forceinline__ Hit trace(const Tables& T, V3 o, V3 d, bool textured) {
+  if constexpr (BVH) {
+    return nearest_bvh(T, o, d, textured);
+  } else {
+    return nearest(T, o, d, textured);
+  }
+}
+
+template <int S, bool ENV, bool BVH>
 __global__ void __launch_bounds__(kThreads) mega_regen(Params P) {
-  constexpr int NS = S > 0 ? S : kMaxDir;
+  constexpr int NS = S > 0 ? S : -S;
   extern __shared__ float smem[];
   // stage the scene tables into shared memory (a few KB for DEMO; at most
-  // ~165 KB at the 1024-triangle bound)
+  // ~165 KB at the 1024-triangle bound). The BVH instances leave the
+  // triangle table (and the unused occluder table) in global memory.
   const int cols[8] = {kTri, kOcc, kSph, kMat, kEmt, kEmeta, 1, 8};
   const int rows[8] = {P.rows[0], P.rows[1], P.rows[2], P.rows[3],
                        P.rows[4], P.rows[4], P.rows[5], 1};
   const float* stab[8];
   int off = 0;
   for (int k = 0; k < 8; ++k) {
+    if (BVH && k < 2) {
+      stab[k] = P.tables[k];
+      continue;
+    }
     int n = rows[k] * cols[k];
     for (int i = threadIdx.x; i < n; i += blockDim.x) smem[off + i] = P.tables[k][i];
     stab[k] = smem + off;
@@ -523,7 +720,8 @@ __global__ void __launch_bounds__(kThreads) mega_regen(Params P) {
   }
   __syncthreads();
   const Tables T = {stab[0], stab[1], stab[2], stab[3], stab[4], stab[5], stab[6], stab[7],
-                    P.rows[0], P.rows[1], P.rows[2], P.rows[3], P.rows[4], P.rows[5]};
+                    P.rows[0], P.rows[1], P.rows[2], P.rows[3], P.rows[4], P.rows[5],
+                    P.env, P.bvh, P.prims, P.env_h, P.env_w};
 
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= P.n_lanes) return;
@@ -546,7 +744,7 @@ __global__ void __launch_bounds__(kThreads) mega_regen(Params P) {
     rays += 1;  // the camera ray
     V3 o, d;
     cam_ray(P, pix, fi, fj, static_cast<uint32_t>(s), o, d);
-    Hit hit = nearest(T, o, d, P.textured);
+    Hit hit = trace<BVH>(T, o, d, P.textured);
     // min-affine prefix of the nested clamp fold, identity map first
     float f_c = kFoldBig, f_b = 0.0f, f_w = 1.0f, pend = 0.0f;
     for (int depth = 0;; ++depth) {
@@ -555,8 +753,8 @@ __global__ void __launch_bounds__(kThreads) mega_regen(Params P) {
         rad = rad + pend;
         break;
       }
-      if (!hit.happened) {  // camera miss: background, unclamped
-        rad = rad + bg_l;
+      if (!hit.happened) {  // camera miss: env or background, unclamped
+        rad = rad + (ENV ? env_lookup(T, d, chan) : bg_l);
         break;
       }
       const V3 wo = neg(d);
@@ -642,7 +840,13 @@ __global__ void __launch_bounds__(kThreads) mega_regen(Params P) {
       bool vis[NS];
 #pragma unroll
       for (int si = 0; si < NS; ++si) vis[si] = true;
-      if (P.enable_shadow && ns > 0) occlude_fan<NS>(T, p_dl, ws, dist, ns, vis);
+      if (P.enable_shadow && ns > 0) {
+        if constexpr (BVH) {
+          occlude_fan_bvh<NS>(T, p_dl, ws, dist, ns, vis);
+        } else {
+          occlude_fan<NS>(T, p_dl, ws, dist, ns, vis);
+        }
+      }
 
       float l_dir = 0.0f;
 #pragma unroll
@@ -676,7 +880,9 @@ __global__ void __launch_bounds__(kThreads) mega_regen(Params P) {
       } else {
         w = fabsf(pv) > 1e-10f ? ev * fabsf(dot(wo, n)) / pv * inv_rr : 0.0f;
       }
-      const float env_ind = bg_l * ev * inv_rr;
+      // the pending env-terminal: env radiance along wi, fetched here only
+      const float env_wi = ENV ? env_lookup(T, wi, chan) : bg_l;
+      const float env_ind = env_wi * ev * inv_rr;
       const float a_t = clampf(l_dir, 0.0f, kClampDirect);
       const float new_pend = a_t + clampf(env_ind, 0.0f, kClampIndirect);
       pend = depth == 0 ? new_pend : fminf(f_c, f_b + f_w * new_pend);
@@ -688,39 +894,61 @@ __global__ void __launch_bounds__(kThreads) mega_regen(Params P) {
       f_w = c_w;
       rays += 1;  // the bounce ray
       d = wi;
-      hit = nearest(T, p_new, wi, P.textured);
+      hit = trace<BVH>(T, p_new, wi, P.textured);
     }
   }
   P.out_rad[idx] = rad / static_cast<float>(P.spp);
   P.out_rays[idx] = static_cast<float>(rays);
 }
 
-template <int S>
+template <int S, bool ENV, bool BVH>
 cudaError_t launch(const Params& P, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mega_regen<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    cudaError_t e = cudaFuncSetAttribute(mega_regen<S, ENV, BVH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const int blocks = (P.n_lanes + kThreads - 1) / kThreads;
-  mega_regen<S><<<blocks, kThreads, smem, stream>>>(P);
+  mega_regen<S, ENV, BVH><<<blocks, kThreads, smem, stream>>>(P);
   return cudaGetLastError();
+}
+
+template <int S>
+cudaError_t dispatch(const Params& P, size_t smem, cudaStream_t stream, int* launched) {
+  launched[0] = S;
+  launched[1] = P.use_env != 0;
+  launched[2] = P.use_bvh != 0;
+  if (P.use_env) {
+    return P.use_bvh ? launch<S, true, true>(P, smem, stream)
+                     : launch<S, true, false>(P, smem, stream);
+  }
+  return P.use_bvh ? launch<S, false, true>(P, smem, stream)
+                   : launch<S, false, false>(P, smem, stream);
 }
 
 }  // namespace
 
 // C interface (loaded with ctypes by kernels/megakernel.py).
-//   tables: 8 device pointers (tri, occ, sph, mat, emt, emeta, lcum, par)
+//   tables: 11 device pointers (tri, occ, sph, mat, emt, emeta, lcum, par
+//           float32 tables; env float32 (env_h, env_w, 3); bvh float32
+//           (nodes, 8); prims int32)
 //   rows:   6 ints (tri, occ, sph, mat, emt, lcum)
 //   fpar:   17 floats: xscale, yscale, om[9], pos[3], focal, aperture, 1/S
-//   ipar:   12 ints: seed, lane_offset, n_lanes, spp, width, height,
-//           max_bounces, n_dir, enable_shadow, textured, n_sph_emitters, use_dof
+//   ipar:   16 ints: seed, lane_offset, n_lanes, spp, width, height,
+//           max_bounces, n_dir, enable_shadow, textured, n_sph_emitters,
+//           use_dof, env_h, env_w, use_env, use_bvh
+//   launched: 3 ints out: the instance's S, ENV and BVH (set when it launches)
 // Returns the cudaError_t of the launch (0 on success). Launches on `stream`
 // and does not synchronize.
 extern "C" int mcpt_mega_trace(const void* const* tables, const int* rows, const float* fpar,
-                               const int* ipar, void* out_rad, void* out_rays, void* stream) {
+                               const int* ipar, void* out_rad, void* out_rays, void* stream,
+                               int* launched) {
   Params P;
   for (int k = 0; k < 8; ++k) P.tables[k] = static_cast<const float*>(tables[k]);
+  P.env = static_cast<const float*>(tables[8]);
+  P.bvh = static_cast<const float*>(tables[9]);
+  P.prims = static_cast<const int*>(tables[10]);
   for (int k = 0; k < 6; ++k) P.rows[k] = rows[k];
   P.out_rad = static_cast<float*>(out_rad);
   P.out_rays = static_cast<float*>(out_rays);
@@ -743,14 +971,22 @@ extern "C" int mcpt_mega_trace(const void* const* tables, const int* rows, const
   P.textured = ipar[9];
   P.n_sph_emitters = ipar[10];
   P.use_dof = ipar[11];
+  P.env_h = ipar[12];
+  P.env_w = ipar[13];
+  P.use_env = ipar[14];
+  P.use_bvh = ipar[15];
   if (P.n_lanes <= 0) return 0;
-  if (P.n_dir < 0 || P.n_dir > kMaxDir || P.spp <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (P.n_dir < 0 || P.n_dir > kMaxDir || P.spp <= 0 || P.env_h <= 0 || P.env_w <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int cols[8] = {kTri, kOcc, kSph, kMat, kEmt, kEmeta, 1, 8};
   const int trows[8] = {rows[0], rows[1], rows[2], rows[3], rows[4], rows[4], rows[5], 1};
   size_t floats = 0;
-  for (int k = 0; k < 8; ++k) floats += static_cast<size_t>(trows[k]) * cols[k];
+  for (int k = P.use_bvh ? 2 : 0; k < 8; ++k) floats += static_cast<size_t>(trows[k]) * cols[k];
   const size_t smem = floats * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = P.n_dir == 4 ? launch<4>(P, smem, s) : launch<0>(P, smem, s);
+  cudaError_t e = P.n_dir == 4    ? dispatch<4>(P, smem, s, launched)
+                  : P.n_dir <= 16 ? dispatch<-16>(P, smem, s, launched)
+                                  : dispatch<-32>(P, smem, s, launched);
   return static_cast<int>(e);
 }

@@ -8,9 +8,11 @@ with nvcc at first use into `mcpt_tpu_torch/_build/<source hash>/` as a
 shared library with a plain C interface and loaded with ctypes.
 """
 
+import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,16 +25,16 @@ from mcpt_tpu_torch.kernels.megakernel_ref import (
     MAX_BOUNCES_LIMIT,
     trace_block_ref,
 )
-from mcpt_tpu_torch.kernels.tables import TABLE_COLS
+from mcpt_tpu_torch.kernels.tables import EXTRA, TABLE_COLS
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "megakernel.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
 )
-MAX_DIR = 16  # csrc/megakernel.cu kMaxDir
+MAX_DIR = 32  # csrc/megakernel.cu kMaxDir
 _LIB_NAME = "libmcpt_megakernel.so"
 _lock = threading.Lock()
 _lib = None
@@ -54,8 +56,26 @@ def library_path() -> Path:
     return BUILD_DIR / h.hexdigest()[:16] / _LIB_NAME
 
 
+def ptxas_summary(log: str) -> list:
+    """One line per kernel instance from nvcc's `-Xptxas -v` output: its
+    template arguments, registers and spill bytes."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"entry function '[^']*mega_regenILi(n?\d+)ELb(\d)ELb(\d)E", line)
+        if m:  # the mangled name writes a negative S as n<digits>
+            name = instance_name(int(m[1].replace("n", "-")), int(m[2]), int(m[3]))
+            spill = ""
+        elif name and "spill stores" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/megakernel.cu if no library for this source exists.
+    """Compile csrc/megakernel.cu if no library for this source exists;
+    with `verbose`, print each instance's registers and spills.
     Raises CalledProcessError (with nvcc's output) when the build fails."""
     out = library_path()
     if out.exists():
@@ -71,7 +91,7 @@ def build(verbose: bool = False) -> Path:
                 res.returncode, cmd, res.stdout, res.stderr
             )
         if verbose:
-            print(res.stderr.strip())
+            print("\n".join(ptxas_summary(res.stderr + res.stdout)) or res.stderr.strip())
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -86,7 +106,7 @@ def load_library():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             fn = lib.mcpt_mega_trace
-            fn.argtypes = [ctypes.c_void_p] * 7
+            fn.argtypes = [ctypes.c_void_p] * 8
             fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -94,20 +114,60 @@ def load_library():
 
 def _check_tables(tables):
     dev = tables.device
-    for name, cols in TABLE_COLS.items():
+    for name in (*TABLE_COLS, *EXTRA):
         t = getattr(tables, name)
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"table {name}: need contiguous float32 on {dev}")
-        if t.ndim != 2 or t.shape[1] != cols:
+        dtype = torch.int32 if name == "prims" else torch.float32
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"table {name}: need contiguous {dtype} on {dev}")
+        if name in TABLE_COLS and (t.ndim != 2 or t.shape[1] != TABLE_COLS[name]):
             raise ValueError(f"table {name}: shape {tuple(t.shape)}")
     if tables.emeta.shape[0] != tables.emt.shape[0] or tables.par.shape[0] != 1:
         raise ValueError("emeta rows must equal emt rows and par must be (1, 8)")
 
 
+def kernel_args(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces, rad, rays):
+    """The C interface's argument list for one launch (see the comment on
+    `mcpt_mega_trace` in csrc/megakernel.cu), pointers from `data_ptr()`;
+    each ctypes array stays alive through the cast that points at it."""
+    n_dir = tables.n_dir_sample if tables.n_emitters else 0
+    ptrs = (ctypes.c_void_p * 11)(
+        *(getattr(tables, k).data_ptr() for k in (*TABLE_COLS, *EXTRA))
+    )
+    rows = (ctypes.c_int * 6)(
+        *(getattr(tables, k).shape[0] for k in ("tri", "occ", "sph", "mat", "emt", "lcum"))
+    )
+    om = [v for r in cam["om"] for v in r]
+    fpar = (ctypes.c_float * 17)(
+        cam["xscale"], cam["yscale"], *om, *cam["pos"], cam["focal"],
+        cam["aperture"], (1.0 / n_dir) if n_dir else 0.0,
+    )
+    ipar = (ctypes.c_int * 16)(
+        int(seed), int(lane_offset), int(n_lanes), int(spp), cam["width"],
+        cam["height"], int(max_bounces), n_dir, int(tables.enable_shadow),
+        int(tables.any_textured), int(tables.n_sph_emitters), int(cam["use_dof"]),
+        tables.env.shape[0], tables.env.shape[1], int(tables.use_env),
+        int(tables.use_bvh),
+    )
+    return [
+        ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(rows, ctypes.c_void_p),
+        ctypes.cast(fpar, ctypes.c_void_p), ctypes.cast(ipar, ctypes.c_void_p),
+        rad.data_ptr(), rays.data_ptr(),
+    ]
+
+
+def instance_name(s: int, env: int, bvh: int) -> str:
+    """`mega_regen<S, ENV, BVH>` as the C++ source writes the instance."""
+    flag = ("false", "true")
+    return f"mega_regen<{s}, {flag[env]}, {flag[bvh]}>"
+
+
 def trace_block(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8):
     """One kernel launch over lanes [lane_offset, lane_offset + n_lanes) of
     the camera `cam` (`megakernel_ref.cam_static`). Returns (mean radiance,
-    ray count), two float32 (n_lanes,) tensors on the tables' device."""
+    ray count), two float32 (n_lanes,) tensors on the tables' device.
+    Each launch adds one to `trace_block.launches` and to the count, in
+    `trace_block.by_instance`, of the template instance the C side reports
+    it launched; `trace_block.last_instance` names that instance."""
     if not 1 <= max_bounces <= MAX_BOUNCES_LIMIT:
         raise ValueError(f"max_bounces must be in [1, {MAX_BOUNCES_LIMIT}]")
     if spp < 1 or n_lanes < 0:
@@ -128,32 +188,23 @@ def trace_block(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8):
     lib = load_library()
     rad = torch.empty(n_lanes, dtype=torch.float32, device=dev)
     rays = torch.empty(n_lanes, dtype=torch.float32, device=dev)
-    names = list(TABLE_COLS)
-    ptrs = (ctypes.c_void_p * 8)(*(getattr(tables, k).data_ptr() for k in names))
-    rows = (ctypes.c_int * 6)(
-        *(getattr(tables, k).shape[0] for k in ("tri", "occ", "sph", "mat", "emt", "lcum"))
+    args = kernel_args(
+        tables, cam, seed, lane_offset, spp, n_lanes, max_bounces, rad, rays
     )
-    om = [v for r in cam["om"] for v in r]
-    fpar = (ctypes.c_float * 17)(
-        cam["xscale"], cam["yscale"], *om, *cam["pos"], cam["focal"],
-        cam["aperture"], (1.0 / n_dir) if n_dir else 0.0,
-    )
-    ipar = (ctypes.c_int * 12)(
-        int(seed), int(lane_offset), int(n_lanes), int(spp), cam["width"],
-        cam["height"], int(max_bounces), n_dir, int(tables.enable_shadow),
-        int(tables.any_textured), int(tables.n_sph_emitters), int(cam["use_dof"]),
-    )
+    launched = (ctypes.c_int * 3)(0, 0, 0)  # S stays 0 if nothing launched
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.mcpt_mega_trace(
-            ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(rows, ctypes.c_void_p),
-            ctypes.cast(fpar, ctypes.c_void_p), ctypes.cast(ipar, ctypes.c_void_p),
-            rad.data_ptr(), rays.data_ptr(), stream,
-        )
+        status = lib.mcpt_mega_trace(*args, stream, ctypes.cast(launched, ctypes.c_void_p))
     if status != 0:
         raise RuntimeError(f"megakernel launch failed: cudaError {status}")
-    trace_block.launches += 1
+    if launched[0]:
+        trace_block.last_instance = instance_name(*launched)
+        trace_block.launches += 1
+        trace_block.by_instance[trace_block.last_instance] += 1
     return rad, rays
 
 
+# launches of the kernel, in all and by template instance
 trace_block.launches = 0
+trace_block.by_instance = collections.Counter()
+trace_block.last_instance = None

@@ -1,8 +1,9 @@
 """Plain PyTorch version of the path-regeneration megakernel.
 
 Counterpart of `mcpt_tpu/kernels/megakernel.py` (`_mega_kernel_regen`, its
-SMEM brute-force sweeps and the per-vertex shading helpers), in the
-brute-force, no-env specialization that scenes of at most 1024 triangles take.
+SMEM brute-force sweeps and the per-vertex shading helpers), with the env
+lookup of `mcpt_tpu/envmap.py` in place of its TPU mip, and stackless BVH
+walks in place of the clustered walks of `mcpt_tpu/kernels/cluster.py`.
 Every function keeps the JAX helper's name without the leading underscore and
 computes the same float32 expressions in the same order, so a CUDA tensor run
 through this module and through `csrc/megakernel.cu` agree to the bit except
@@ -32,8 +33,16 @@ from mcpt_tpu_torch.constants import (
     T_MAX,
     WAVELEN_UM,
 )
+from mcpt_tpu_torch.envmap import sample_env_chan
 
 T_MAX_F = float(T_MAX)
+
+
+def _tally(ops, key, n):
+    """Add n to ops[key] when the caller asked for a tally (`ops` a
+    `collections.Counter`, see `trace_block_ref`)."""
+    if ops is not None:
+        ops[key] += int(n)
 # Forward-fold constants (megakernel.py:90-91): identity map C and W cap.
 FOLD_BIG = 1.0e30
 FOLD_W_CAP = 1.0e30
@@ -238,15 +247,15 @@ def cam_ray(cam, seed: int, pix_u, fi, fj, s_act):
 
 
 def _col(table, c):
-    return table[:, c]
+    return table[..., c]
 
 
-def _tri_candidates(tri, o, d):
-    """Per-(ray, triangle) (t_cand, u, v) of the Woop test
-    (megakernel.py:343-381); pad rows carry nr2 = 0 and fail |det| >= ε."""
-    o0, o1, o2 = (x[..., None] for x in o)
-    d0, d1, d2 = (x[..., None] for x in d)
-    w = [_col(tri, c) for c in range(13)]
+def _woop(w, o, d):
+    """(t_cand, u, v) of the Woop test (megakernel.py:343-381) for rays
+    (o, d) against triangle columns `w` (13 tensors broadcastable with the
+    ray components); pad rows carry nr2 = 0 and fail |det| >= ε."""
+    o0, o1, o2 = o
+    d0, d1, d2 = d
     dp2 = d0 * w[6] + d1 * w[7] + d2 * w[8]
     op2 = o0 * w[6] + o1 * w[7] + o2 * w[8] - w[11]
     det = -(dp2 * w[12])
@@ -266,6 +275,15 @@ def _tri_candidates(tri, o, d):
         ),
     )
     return torch.where(m >= 0.0, t_hit, T_MAX_F), u, v
+
+
+def _tri_candidates(tri, o, d):
+    """Per-(ray, triangle) (t_cand, u, v) over the whole table."""
+    return _woop(
+        [_col(tri, c) for c in range(13)],
+        tuple(x[..., None] for x in o),
+        tuple(x[..., None] for x in d),
+    )
 
 
 def _sph_candidates(sph, o, d):
@@ -300,24 +318,15 @@ def _take(x, idx):
     return torch.gather(x, -1, idx[..., None])[..., 0]
 
 
-def intersect_tile(tri, sph, o, d, occlusion=False, textured=True):
-    """Nearest hit of each ray against every triangle, then every sphere,
-    with the strict-`<` table-order winner of megakernel.py:420-471 (the
-    first minimum wins). Returns t only (occlusion=True) or
-    (t, happened, p, n, (uvx, uvy), mat, emissive)."""
-    t_tri, u, v = _tri_candidates(tri, o, d)
-    t_sph = _sph_candidates(sph, o, d)
-    t_all = torch.cat([t_tri, t_sph], dim=-1)
-    if occlusion:
-        return t_all.min(dim=-1).values
-    n_t = tri.shape[0]
-    idx = torch.argmin(t_all, dim=-1)
-    t_best = _take(t_all, idx)
+def _surface(tri, sph, o, d, t_best, ti, si, uw, vw, textured):
+    """The hit record of a nearest-hit winner: triangle row `ti` (with its
+    barycentrics uw, vw) where ti >= 0, else sphere `si` where si >= 0, else
+    a miss (megakernel.py:420-471)."""
     happened = t_best < T_MAX_F
-    is_tri = happened & (idx < n_t)
-    is_sph = happened & (idx >= n_t)
-    ti = idx.clamp(max=n_t - 1)
-    si = (idx - n_t).clamp(min=0)
+    is_tri = happened & (ti >= 0)
+    is_sph = happened & (si >= 0) & ~is_tri
+    ti = ti.clamp(min=0)
+    si = si.clamp(min=0)
     zero = torch.zeros_like(t_best)
 
     def tri_col(c):
@@ -327,8 +336,6 @@ def intersect_tile(tri, sph, o, d, occlusion=False, textured=True):
         return torch.where(is_sph, sph[si, c], zero)
 
     if textured:
-        uw = _take(u, ti)
-        vw = _take(v, ti)
         w0 = 1.0 - uw - vw
         uvx = w0 * tri[ti, 17] + uw * tri[ti, 19] + vw * tri[ti, 21]
         uvy = w0 * tri[ti, 18] + uw * tri[ti, 20] + vw * tri[ti, 22]
@@ -344,56 +351,94 @@ def intersect_tile(tri, sph, o, d, occlusion=False, textured=True):
     return t_best, happened, p, n, uv, mat, em > 0.5
 
 
+def intersect_tile(tri, sph, o, d, occlusion=False, textured=True):
+    """Nearest hit of each ray against every triangle, then every sphere,
+    with the strict-`<` table-order winner of megakernel.py:420-471 (the
+    first minimum wins). Returns t only (occlusion=True) or
+    (t, happened, p, n, (uvx, uvy), mat, emissive)."""
+    t_tri, u, v = _tri_candidates(tri, o, d)
+    t_sph = _sph_candidates(sph, o, d)
+    t_all = torch.cat([t_tri, t_sph], dim=-1)
+    if occlusion:
+        return t_all.min(dim=-1).values
+    n_t = tri.shape[0]
+    idx = torch.argmin(t_all, dim=-1)
+    t_best = _take(t_all, idx)
+    ti = torch.where(idx < n_t, idx, -1)
+    si = torch.where(idx >= n_t, idx - n_t, -1)
+    tc = ti.clamp(min=0)
+    return _surface(tri, sph, o, d, t_best, ti, si, _take(u, tc), _take(v, tc), textured)
+
+
 def _fan_xs(dist):
     return dist - torch.clamp_min(REL_EPS * dist, EPSILON)
 
 
-def occlude_shared_origin(occ, sph, o, ds, dists):
-    """Visibility of S shadow rays sharing origin `o` (the NEE fan,
-    megakernel.py:487-591): True when no primitive blocks the ray at
-    t < dist − max(ε, REL_EPS·dist). Every Möller-Trumbore condition is
-    multiplied through by |det|; spheres use the a = 1 q-form roots."""
-    o0, o1, o2 = (x[..., None] for x in o)
-    w = [_col(occ, c) for c in range(13)]
+def _tri_blocks(w, op0, op1, q, e, xs):
+    """The division-free blocked-visibility predicate of the shadow fan
+    (megakernel.py:487-591): every Möller-Trumbore condition multiplied
+    through by |det|, blocking at t < xs. `op0`, `op1`, `q` are the
+    origin's terms against the triangle columns `w`."""
+    e0, e1, e2 = e
+    dp2 = e0 * w[6] + e1 * w[7] + e2 * w[8]
+    det = -(dp2 * w[12])
+    dets = torch.abs(det)
+    qs = torch.where(det < 0.0, -q, q)
+    dp0 = e0 * w[0] + e1 * w[1] + e2 * w[2]
+    u_s = op0 * dets + qs * dp0
+    dp1 = e0 * w[3] + e1 * w[4] + e2 * w[5]
+    v_s = op1 * dets + qs * dp1
+    m = torch.minimum(
+        torch.minimum(qs, dets - EPSILON),
+        torch.minimum(torch.minimum(u_s, v_s), dets - (u_s + v_s)),
+    )
+    return (m >= 0.0) & (xs * dets - qs > 0.0)
+
+
+def _origin_terms(w, o):
+    o0, o1, o2 = o
     op2 = o0 * w[6] + o1 * w[7] + o2 * w[8] - w[11]
     op0 = o0 * w[0] + o1 * w[1] + o2 * w[2] - w[9]
     op1 = o0 * w[3] + o1 * w[4] + o2 * w[5] - w[10]
-    q = op2 * w[12]
+    return op0, op1, op2 * w[12]
+
+
+def _sph_blocks(sph, o, e, xs):
+    """Per ray: does any sphere block the unit ray (o, e) before xs (the
+    a = 1 q-form roots)?"""
+    o0, o1, o2 = (x[..., None] for x in o)
+    e0, e1, e2 = (x[..., None] for x in e)
     cx, cy, cz, r = (_col(sph, c) for c in range(4))
     l0 = o0 - cx
     l1 = o1 - cy
     l2 = o2 - cz
     cq = l0 * l0 + l1 * l1 + l2 * l2 - r * r
-    r_ok = r > 0.0
+    hb = e0 * l0 + e1 * l1 + e2 * l2
+    disc = hb * hb - cq
+    ok = (disc >= 0.0) & (r > 0.0)
+    sq = _sqrt(torch.clamp_min(disc, 0.0))
+    qq = torch.where(hb > 0.0, -(hb + sq), -(hb - sq))
+    qs_ = torch.where(torch.abs(qq) > 1e-10, qq, 1.0)
+    x1 = cq / qs_
+    lo = torch.minimum(qq, x1)
+    hi = torch.maximum(qq, x1)
+    t = torch.where(lo < 0.0, hi, lo)
+    return (ok & (t >= 0.0) & (t < xs[..., None])).any(dim=-1)
+
+
+def occlude_shared_origin(occ, sph, o, ds, dists):
+    """Visibility of S shadow rays sharing origin `o` (the NEE fan,
+    megakernel.py:487-591): True when no primitive blocks the ray at
+    t < dist − max(ε, REL_EPS·dist)."""
+    w = [_col(occ, c) for c in range(13)]
+    op0, op1, q = _origin_terms(w, tuple(x[..., None] for x in o))
     vis = []
-    for (e0, e1, e2), dist in zip(ds, dists):
-        e0, e1, e2 = e0[..., None], e1[..., None], e2[..., None]
-        xs = _fan_xs(dist)[..., None]
-        dp2 = e0 * w[6] + e1 * w[7] + e2 * w[8]
-        det = -(dp2 * w[12])
-        dets = torch.abs(det)
-        qs = torch.where(det < 0.0, -q, q)
-        dp0 = e0 * w[0] + e1 * w[1] + e2 * w[2]
-        u_s = op0 * dets + qs * dp0
-        dp1 = e0 * w[3] + e1 * w[4] + e2 * w[5]
-        v_s = op1 * dets + qs * dp1
-        m = torch.minimum(
-            torch.minimum(qs, dets - EPSILON),
-            torch.minimum(torch.minimum(u_s, v_s), dets - (u_s + v_s)),
-        )
-        blocked = ((m >= 0.0) & (xs * dets - qs > 0.0)).any(dim=-1)
-        hb = e0 * l0 + e1 * l1 + e2 * l2
-        disc = hb * hb - cq
-        ok = (disc >= 0.0) & r_ok
-        sq = _sqrt(torch.clamp_min(disc, 0.0))
-        qq = torch.where(hb > 0.0, -(hb + sq), -(hb - sq))
-        qs_ = torch.where(torch.abs(qq) > 1e-10, qq, 1.0)
-        x1 = cq / qs_
-        lo = torch.minimum(qq, x1)
-        hi = torch.maximum(qq, x1)
-        t = torch.where(lo < 0.0, hi, lo)
-        ok = ok & (t >= 0.0) & (t < xs)
-        vis.append(~(blocked | ok.any(dim=-1)))
+    for e, dist in zip(ds, dists):
+        xs = _fan_xs(dist)
+        blocked = _tri_blocks(
+            w, op0, op1, q, tuple(x[..., None] for x in e), xs[..., None]
+        ).any(dim=-1)
+        vis.append(~(blocked | _sph_blocks(sph, o, e, xs)))
     return vis
 
 
@@ -406,6 +451,126 @@ def fan_and_nearest(tri, occ, sph, fans, nexts, textured=True):
         vis_out.append(occlude_shared_origin(occ, sph, o_f, ds, dists))
         hit_out.append(intersect_tile(tri, sph, o, d, textured=textured))
     return vis_out, hit_out
+
+
+# ---------------------------------------------------------------------------
+# The BVH walks (replacing mcpt_tpu/kernels/cluster.py:257, 547, 835 for
+# scenes over 1024 triangles): stackless over the miss links, vectorized
+# over the rays still walking. Triangles use the brute sweep's tests;
+# spheres are tested by brute force after the walk, as the cluster kernels
+# do (cluster.py:18).
+# ---------------------------------------------------------------------------
+
+
+def _slab(node, o, inv):
+    """Entry and exit t of rays (o, 1/d) through node boxes (k, 8); fmin /
+    fmax drop the NaN of 0·inf like CUDA's fminf / fmaxf."""
+    ta = [(node[:, k] - o[k]) * inv[k] for k in range(3)]
+    tb = [(node[:, 3 + k] - o[k]) * inv[k] for k in range(3)]
+    tmin = torch.fmax(
+        torch.fmax(torch.fmin(ta[0], tb[0]), torch.fmin(ta[1], tb[1])),
+        torch.fmin(ta[2], tb[2]),
+    )
+    tmax = torch.fmin(
+        torch.fmin(torch.fmax(ta[0], tb[0]), torch.fmax(ta[1], tb[1])),
+        torch.fmax(ta[2], tb[2]),
+    )
+    return tmin, tmax
+
+
+def _walk(bvh, prims, o, d, live, bound, leaf_fn, done=None, ops=None, tests=("woop",)):
+    """Walk the threaded BVH for the rays where `live`, pruning nodes whose
+    box the ray enters after `bound()` (a per-ray tensor, read afresh each
+    step). `leaf_fn(lanes, prim_rows)` tests the rays `lanes` against their
+    leaf's triangle rows `prim_rows`, one slot at a time (tallied under each
+    key of `tests`); rays with `done` set stop early."""
+    inv = [1.0 / x for x in d]
+    lanes = torch.nonzero(live).flatten()
+    cur = torch.zeros_like(lanes)
+    codes = bvh[:, 7]
+    max_leaf = int((codes[codes >= 0] % 16).max().item()) if bool((codes >= 0).any()) else 0
+    while lanes.numel():
+        _tally(ops, "slab", lanes.numel())
+        node = bvh[cur]
+        tmin, tmax = _slab(node, [x[lanes] for x in o], [x[lanes] for x in inv])
+        b = bound()[lanes]
+        hit = (tmin - EPSILON <= tmax) & (tmax >= -EPSILON) & (tmin - EPSILON <= b)
+        code = node[:, 7]
+        leaf = hit & (code >= 0)
+        if bool(leaf.any()):
+            ll = lanes[leaf]
+            c = code[leaf].to(torch.int64)
+            start, cnt = c // 16, c % 16
+            for j in range(max_leaf):
+                m = j < cnt
+                prim = prims[(start[m] + j)].to(torch.int64)
+                ok = prim >= 0
+                if bool(ok.any()):
+                    for key in tests:
+                        _tally(ops, key, ok.sum())
+                    leaf_fn(ll[m][ok], prim[ok])
+        nxt = torch.where(hit & (code < 0), cur + 1, node[:, 6].to(torch.int64))
+        keep = nxt >= 0
+        if done is not None:
+            keep = keep & ~done[lanes]
+        lanes, cur = lanes[keep], nxt[keep]
+
+
+def bvh_nearest(tables, o, d, live, textured=True, ops=None):
+    """Nearest hit through the BVH: the brute sweep's answer, ties included
+    (equal t goes to the lower triangle row, triangles beat spheres)."""
+    tri, sph = tables.tri, tables.sph
+    n = o[0].shape
+    best_t = torch.full(n, T_MAX_F, dtype=torch.float32, device=tri.device)
+    best_i = torch.full(n, -1, dtype=torch.int64, device=tri.device)
+    best_u = torch.zeros_like(best_t)
+    best_v = torch.zeros_like(best_t)
+
+    def leaf_fn(lanes, prim):
+        rows = tri[prim]
+        t_c, u, v = _woop(
+            [rows[:, c] for c in range(13)],
+            tuple(x[lanes] for x in o), tuple(x[lanes] for x in d),
+        )
+        bt = best_t[lanes]
+        better = (t_c < T_MAX_F) & ((t_c < bt) | ((t_c == bt) & (prim < best_i[lanes])))
+        sel = lanes[better]
+        best_t[sel] = t_c[better]
+        best_i[sel] = prim[better]
+        best_u[sel] = u[better]
+        best_v[sel] = v[better]
+
+    _walk(tables.bvh, tables.prims, o, d, live, lambda: best_t, leaf_fn, ops=ops)
+    t_sph = _sph_candidates(sph, o, d)
+    best_s = torch.full_like(best_i, -1)
+    for k in range(sph.shape[0]):
+        better = t_sph[..., k] < best_t
+        best_t = torch.where(better, t_sph[..., k], best_t)
+        best_s = torch.where(better, k, best_s)
+    ti = torch.where(best_s >= 0, -1, best_i)
+    return _surface(tri, sph, o, d, best_t, ti, best_s, best_u, best_v, textured)
+
+
+def bvh_fan(tables, o, ds, dists, live, ops=None):
+    """Visibility of the shadow fan through the BVH: per ray an any-hit
+    walk with the brute fan's predicate over every triangle, then the
+    spheres."""
+    tri, sph = tables.tri, tables.sph
+    vis = []
+    for e, dist in zip(ds, dists):
+        xs = _fan_xs(dist)
+        blocked = torch.zeros_like(live)
+
+        def leaf_fn(lanes, prim, e=e, xs=xs, blocked=blocked):
+            w = [tri[prim, c] for c in range(13)]
+            op0, op1, q = _origin_terms(w, tuple(x[lanes] for x in o))
+            hit = _tri_blocks(w, op0, op1, q, tuple(x[lanes] for x in e), xs[lanes])
+            blocked[lanes[hit]] = True
+
+        _walk(tables.bvh, tables.prims, o, e, live, lambda xs=xs: xs, leaf_fn,
+              done=blocked, ops=ops, tests=("fan_tri", "fan_origin"))
+        vis.append(~(blocked | _sph_blocks(sph, o, e, xs)))
+    return vis
 
 
 # ---------------------------------------------------------------------------
@@ -660,7 +825,20 @@ def make_ctx(tables, chan) -> dict:
         "rr_rate": par[3],
         "inv_rr": par[4],
         "total_area": par[5],
+        "env": tables.env,
+        "use_env": tables.use_env,
     }
+
+
+def env_where(ctx, mask, d):
+    """The env radiance of direction `d` for the lanes in `mask` (zero on
+    the others, which never read it): full-resolution bilinear, fetched
+    only where it is used."""
+    out = torch.zeros_like(d[0])
+    out[mask] = sample_env_chan(
+        ctx["env"], ctx["bg"], True, tuple(x[mask] for x in d), ctx["chan"][mask]
+    )
+    return out
 
 
 def _pick_light(ctx, v0_, v1_):
@@ -773,6 +951,7 @@ def vertex_pre(ctx, draw_fn, d, p, n, uv, mat_id, happened, emissive, depth0):
     env_ind = bg_l * ev * ctx["inv_rr"]
     return {
         "w": w,
+        "ev": ev,
         "p_new": p_new,
         "wi": wi,
         "rr_kill": rr_kill,
@@ -818,7 +997,7 @@ def nee_shade(ctx, n, V, vis):
 # ---------------------------------------------------------------------------
 
 
-def trace_block_ref(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8):
+def trace_block_ref(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8, ops=None):
     """Plain version of one kernel launch over lanes
     [lane_offset, lane_offset + n_lanes): returns (mean radiance, ray count),
     two float32 (n_lanes,) tensors on the tables' device.
@@ -828,7 +1007,22 @@ def trace_block_ref(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8)
     ray missed or reached an emitter) or shades its vertex, folds the
     firefly clamps forward through the min-affine prefix (C, B, W), and on
     termination accumulates and respawns its next camera sample. One nearest
-    hit per iteration serves bounce rays and fresh camera rays alike."""
+    hit per iteration serves bounce rays and fresh camera rays alike.
+
+    Scenes with a BVH (`tables.use_bvh`) take the BVH walks instead of the
+    brute sweeps; env-map scenes (`tables.use_env`) shade a camera miss with
+    env(d), unclamped, and a surviving bounce's pending env-terminal with
+    env(wi)·eval·invRr (`mcpt_tpu/integrator.py:20-27`), both looked up at
+    full resolution per lane.
+
+    `ops`, a `collections.Counter`, receives a tally of the work this
+    launch's data needs, from which `chip_smoke.py` reckons the kernel's
+    operation bound: camera rays, shaded vertices, env lookups, Woop tests
+    (`woop`), sphere tests (`sph`, nearest and fan), box tests (`slab`),
+    shadow-fan triangle tests (`fan_tri`) and the fan's per-origin triangle
+    terms (`fan_origin`). Only live rays count. A brute-force fan counts a
+    visible shadow ray's whole sweep and one test for a blocked ray (the
+    kernel stops at its blocker)."""
     if max_bounces > MAX_BOUNCES_LIMIT:
         raise ValueError(f"max_bounces {max_bounces} > {MAX_BOUNCES_LIMIT}")
     dev = tables.device
@@ -841,10 +1035,37 @@ def trace_block_ref(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8)
     shadow = ctx["enable_shadow"] and n_dir > 0
     tri, occ, sph = tables.tri, tables.occ, tables.sph
 
+    use_bvh = tables.use_bvh
+    use_env = ctx["use_env"]
+
+    def nearest(o, d, live):
+        if use_bvh:
+            return bvh_nearest(tables, o, d, live, textured=textured, ops=ops)
+        return intersect_tile(tri, sph, o, d, textured=textured)
+
+    def tally_fan(at_vertex, vis):
+        if ops is None or vis is None:
+            return
+        for v in vis:
+            seen = (at_vertex & v).sum()
+            _tally(ops, "sph", seen * sph.shape[0])
+            if not use_bvh:
+                _tally(ops, "fan_tri", seen * occ.shape[0] + (at_vertex & ~v).sum())
+        if not use_bvh:
+            _tally(ops, "fan_origin", at_vertex.sum() * occ.shape[0])
+
+    def tally_near(live):
+        _tally(ops, "sph", live.sum() * sph.shape[0])
+        if not use_bvh:
+            _tally(ops, "woop", live.sum() * tri.shape[0])
+
     zero_i = torch.zeros(n_lanes, dtype=torch.int64, device=dev)
     zero_f = torch.zeros(n_lanes, dtype=torch.float32, device=dev)
     o, d = cam_ray(cam, seed, pix, fi, fj, zero_i)
-    hit = intersect_tile(tri, sph, o, d, textured=textured)
+    all_lanes = torch.ones(n_lanes, dtype=torch.bool, device=dev)
+    hit = nearest(o, d, all_lanes)
+    _tally(ops, "camera", n_lanes)
+    tally_near(all_lanes)
     s_lane = zero_i
     d_lane = zero_i
     has_pend = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
@@ -883,7 +1104,13 @@ def trace_block_ref(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8)
 
         fans = [(V["p_dl"], [s_[0] for s_ in V["samples"]],
                  [s_[1] for s_ in V["samples"]])]
-        if shadow and V["samples"]:
+        if use_bvh:
+            vis = None
+            if shadow and V["samples"]:
+                vis = bvh_fan(tables, *fans[0], at_vertex, ops=ops)
+            hit_n = bvh_nearest(tables, o_n, d_n, need_spawn | survive, textured=textured,
+                                ops=ops)
+        elif shadow and V["samples"]:
             vis_l, hit_l = fan_and_nearest(
                 tri, occ, sph, fans, [(o_n, d_n)], textured=textured
             )
@@ -892,9 +1119,21 @@ def trace_block_ref(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8)
             vis = None
             hit_n = intersect_tile(tri, sph, o_n, d_n, textured=textured)
         l_dir = nee_shade(ctx, n, V, vis)
+        if ops is not None:
+            _tally(ops, "camera", need_spawn.sum())
+            _tally(ops, "vertex", at_vertex.sum())
+            tally_near(need_spawn | survive)
+            tally_fan(at_vertex, vis if shadow and V["samples"] else None)
+            if use_env:
+                _tally(ops, "env", (proc & ~happened).sum() + survive.sum())
+        if use_env:
+            miss_leaf = env_where(ctx, proc & ~happened, d)
+            env_ind = env_where(ctx, survive, V["wi"]) * V["ev"] * ctx["inv_rr"]
+        else:
+            miss_leaf, env_ind = V["bg_l"], V["env_ind"]
         leaf_now = torch.where(
             ~happened,
-            V["bg_l"],
+            miss_leaf,
             torch.where(
                 V["is_b"],
                 V["b_leaf"],
@@ -902,7 +1141,7 @@ def trace_block_ref(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8)
             ),
         )
         a_t = torch.clamp(l_dir, 0.0, CLAMP_DIRECT)
-        new_pend = a_t + torch.clamp(V["env_ind"], 0.0, CLAMP_INDIRECT)
+        new_pend = a_t + torch.clamp(env_ind, 0.0, CLAMP_INDIRECT)
 
         # terminal contributions through the composed prefix map; depth-0
         # terminals bypass it (the raw, possibly negative, value)

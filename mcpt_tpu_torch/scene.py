@@ -4,11 +4,15 @@
 `TriangleMesh` / `Sphere` / `Scene` mirror the reference's object graph
 (`src/Triangle.hpp:83-135`, `src/Sphere.hpp`, `src/Scene.hpp:24-152`).
 `Scene.compile()` builds the `ScenePack` fields that the megakernel's tables
-are cut from (`kernels/tables.py::mega_tables`), with the same arithmetic as
-`mcpt_tpu.scene.Scene.compile` so the tables are bitwise equal: the Woop
-transform `w` comes from a float64 `np.linalg.inv`, the occluder cull uses the
-same float64 plane test. No BVH and no cluster tables are built: scenes above
-`MEGA_MAX_TRIS` triangles and env-map scenes raise `NotImplementedError`.
+are cut from (`kernels/tables.py::mega_tables`, `bvh_tables`), with the same
+arithmetic as `mcpt_tpu.scene.Scene.compile` so the tables are bitwise equal:
+the Woop transform `w` comes from a float64 `np.linalg.inv`, the occluder
+cull uses the same float64 plane test. Scenes above `cluster_threshold`
+triangles also get a BVH over all primitives (`bvh.build_bvh`), which the
+megakernel walks per thread; the JAX package's
+cluster tables (`mcpt_tpu/kernels/cluster.py:65-211`) are a TPU memory
+layout and have no counterpart here. The env map is kept at full
+resolution.
 """
 
 from dataclasses import dataclass, field
@@ -16,15 +20,16 @@ from typing import Optional
 
 import numpy as np
 
+from mcpt_tpu_torch.bvh import build_bvh
 from mcpt_tpu_torch.camera import Camera
 from mcpt_tpu_torch.constants import EPSILON, REL_EPS
+from mcpt_tpu_torch.io.obj import load_obj
+from mcpt_tpu_torch.io.png import read_png
 from mcpt_tpu_torch.materials import Material
 
-MEGA_MAX_TRIS = 1024  # brute-force table budget of the megakernel
-
-# Where ROADMAP.md queues what is not ported yet (NotImplementedError texts)
-BIG_SCENES = "ROADMAP.md Queue 1 item 7 (big scenes, over 1024 triangles)"
-ENV_SCENES = "ROADMAP.md Queue 1 item 6 (env maps)"
+# Above this many triangles the megakernel walks a BVH from global memory;
+# at or below it, it brute-forces the tables from shared memory.
+MEGA_MAX_TRIS = 1024
 
 
 @dataclass
@@ -36,6 +41,30 @@ class TriangleMesh:
     texcoords: np.ndarray
     material: Material = field(default_factory=Material)
     name: str = ""
+
+    @classmethod
+    def from_obj(
+        cls,
+        path,
+        material: Optional[Material] = None,
+        translation=(0.0, 0.0, 0.0),
+        zoom: float = 1.0,
+        name: str = "",
+    ) -> "TriangleMesh":
+        """An OBJ mesh instance: world pos = zoom * v + translation
+        (Triangle.hpp:106); texcoords kept only for a textured material
+        (Triangle.hpp:115-122)."""
+        mesh = load_obj(path)
+        material = material if material is not None else Material()
+        pos = mesh["positions"] * np.float32(zoom) + np.asarray(
+            translation, dtype=np.float32
+        )
+        tc = (
+            mesh["texcoords"]
+            if material.textured
+            else np.zeros_like(mesh["texcoords"])
+        )
+        return cls(positions=pos, texcoords=tc, material=material, name=name or str(path))
 
     @property
     def areas(self) -> np.ndarray:
@@ -79,6 +108,11 @@ class ScenePack:
                        textured, dirac, emissive
       emt_fat (E, 17): emitter rows (tri v0/e1/e2/n | sphere c/r), emission,
                        1/mesh_area, is_sphere
+      env_pixels (H, W, 3): the env map, a (1, 1, 3) dummy without one
+      bvh_* : the flat BVH over triangles then spheres (`bvh.FlatBVH`
+              fields; prims -1-padded to a multiple of 8, sphere ids moved
+              to >= t_pad), None when the scene brute-forces
+      t_pad: the triangle count rounded up to 128 (the JAX pack's n_tris)
     """
 
     tri_sc: np.ndarray
@@ -102,6 +136,18 @@ class ScenePack:
     enable_shadow: bool = True
     n_dir_sample: int = 4
     use_env: bool = False
+    env_pixels: Optional[np.ndarray] = None
+    t_pad: int = 128
+    bvh_min: Optional[np.ndarray] = None
+    bvh_max: Optional[np.ndarray] = None
+    bvh_miss: Optional[np.ndarray] = None
+    bvh_leaf_start: Optional[np.ndarray] = None
+    bvh_leaf_count: Optional[np.ndarray] = None
+    bvh_prims: Optional[np.ndarray] = None
+
+    @property
+    def use_bvh(self) -> bool:
+        return self.bvh_min is not None
 
 
 def _round_up(x: int, m: int) -> int:
@@ -136,14 +182,21 @@ class Scene:
         # min(rr, 0.99) like Scene::setRrRate (Scene.hpp:110-113).
         self.rr_rate = min(float(rr), 0.99)
 
+    def load_env_map(self, path) -> None:
+        """Equirect PNG → float RGB in [0,1] (Scene.hpp:39-57)."""
+        img = read_png(path)
+        if img.shape[2] == 1:
+            img = np.repeat(img, 3, axis=2)
+        self.env_pixels = img[:, :, :3].astype(np.float32) / 255.0
+
     def set_background(self, color) -> None:
         self.background = np.asarray(color, dtype=np.float32)
 
-    def compile(self) -> ScenePack:
-        if self.env_pixels is not None:
-            raise NotImplementedError(
-                f"env-map scenes are not ported yet: {ENV_SCENES}"
-            )
+    def compile(self, cluster_threshold: int = MEGA_MAX_TRIS) -> ScenePack:
+        """`cluster_threshold` has the JAX argument's meaning: above it the
+        scene gets a BVH, binned SAH with leaves of at most 4 primitives as
+        the JAX default builds it (tests set it low to force the BVH walk on
+        small scenes)."""
         # Material table: dedupe by object identity.
         mats: list[Material] = []
         mat_index: dict[int, int] = {}
@@ -182,12 +235,8 @@ class Scene:
                 lmesh_areas.append(sph.area)
 
         n_tris = tri_cursor
-        if n_tris > MEGA_MAX_TRIS:
-            raise NotImplementedError(
-                f"{n_tris} triangles > {MEGA_MAX_TRIS}: scenes that need the "
-                f"clustered BVH are not ported yet: {BIG_SCENES}"
-            )
         t8 = _round_up(n_tris, 8)
+        t_pad = _round_up(n_tris, 128)
         pos = (
             np.concatenate(pos_list, axis=0)
             if pos_list
@@ -341,8 +390,10 @@ class Scene:
 
         # Static occluder cull for the NEE shadow fan: a triangle whose plane
         # has every primitive surface on one side can never block a
-        # (vertex → light sample) segment (mcpt_tpu/scene.py:519-561).
-        if n_tris:
+        # (vertex → light sample) segment (mcpt_tpu/scene.py:519-561). Only
+        # brute-force-sized scenes get it, as in JAX; BVH scenes' fans walk
+        # the whole triangle table.
+        if 0 < n_tris <= MEGA_MAX_TRIS:
             pts = pos.reshape(-1, 3).astype(np.float64)
             diag = float(np.linalg.norm(pts.max(0) - pts.min(0)))
             coord_max = float(np.abs(pts).max()) if pts.size else 0.0
@@ -368,6 +419,35 @@ class Scene:
             tri_occ_sc = np.zeros((8, 16), np.float32)
 
         sph_geom = np.concatenate([sph_c, sph_r[:, None]], axis=1).astype(np.float32)
+
+        # One BVH over triangles then spheres (mcpt_tpu/scene.py:419-447);
+        # sphere ids move to >= t_pad like the JAX pack's.
+        bvh = {}
+        if n_tris > cluster_threshold:
+            prim_min = np.concatenate([
+                np.minimum(np.minimum(v0, v0 + e1), v0 + e2)[:n_tris],
+                sph_c[:n_spheres] - sph_r[:n_spheres, None],
+            ])
+            prim_max = np.concatenate([
+                np.maximum(np.maximum(v0, v0 + e1), v0 + e2)[:n_tris],
+                sph_c[:n_spheres] + sph_r[:n_spheres, None],
+            ])
+            flat = build_bvh(prim_min, prim_max, leaf_size=4, method="sah")
+            prim_ids = flat.prim_ids.copy()
+            prim_ids[prim_ids >= n_tris] += t_pad - n_tris
+            a_prims = np.full(_round_up(prim_ids.shape[0], 8), -1, np.int32)
+            a_prims[: prim_ids.shape[0]] = prim_ids
+            bvh = dict(
+                bvh_min=flat.node_min, bvh_max=flat.node_max,
+                bvh_miss=flat.node_miss, bvh_leaf_start=flat.leaf_start,
+                bvh_leaf_count=flat.leaf_count, bvh_prims=a_prims,
+            )
+        use_env = self.env_pixels is not None
+        env = (
+            np.ascontiguousarray(self.env_pixels, np.float32)
+            if use_env
+            else np.zeros((1, 1, 3), np.float32)
+        )
         return ScenePack(
             tri_sc=tri_sc,
             tri_shade=tri_shade,
@@ -389,5 +469,8 @@ class Scene:
             n_sph_emitters=len(sph_emit_rows),
             enable_shadow=bool(self.enable_shadow),
             n_dir_sample=int(self.n_dir_sample),
-            use_env=False,
+            use_env=use_env,
+            env_pixels=env,
+            t_pad=t_pad,
+            **bvh,
         )

@@ -5,11 +5,13 @@ a GPU machine without them; tests/conftest.py imports jax, so there run
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m gpu
 
 Bounds as in chip_smoke.py: per-lane ray counts equal on at least 98% of
-lanes, radiance off by more than 1e-3 on under 2% of lanes (ULP-level
-nearest-hit flips), means within 5e-3.
+lanes (on every lane for the env and BVH instances), radiance off by more
+than 1e-3 on under 2% of lanes (ULP-level nearest-hit flips), means within
+5e-3.
 """
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from mcpt_tpu_torch.kernels.tables import SceneTables
 from mcpt_tpu_torch.render import render_mega
 
 W, H = 32, 24
+SKY = Path(__file__).resolve().parent.parent / "assets" / "sky.png"
 
 
 @pytest.fixture
@@ -75,3 +78,52 @@ def test_trace_block_rejects_what_the_kernel_does_not_take(cuda_tables):
     cuda_tables.tri = cuda_tables.tri.double()
     with pytest.raises(ValueError, match="table tri"):
         K.trace_block(cuda_tables, cs, 0, 0, 1, 96, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env,bvh", [(True, False), (False, True), (True, True)])
+def test_cuda_env_and_bvh_instances_match_plain_version(env, bvh):
+    """The env-map and BVH-walk instances of the kernel against the plain
+    version, on the DEMO under assets/sky.png and forced onto the BVH walk
+    with cluster_threshold=8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    sc = demo_scene()
+    if env:
+        sc.load_env_map(SKY)
+    pack = sc.compile(cluster_threshold=8 if bvh else 1024)
+    tables = SceneTables.from_pack(pack, device="cuda")
+    assert (tables.use_env, tables.use_bvh) == (env, bvh)
+    cs = cam_static(dataclasses.replace(demo_scene().camera, width=W, height=H))
+    n = W * H * 3
+    name = f"mega_regen<4, {str(env).lower()}, {str(bvh).lower()}>"
+    before = K.trace_block.by_instance[name]
+    r, ry = K.trace_block(tables, cs, 7, 0, 4, n, 6)
+    torch.cuda.synchronize()
+    assert K.trace_block.last_instance == name
+    assert K.trace_block.by_instance[name] == before + 1
+    r2, ry2 = trace_block_ref(tables, cs, 7, 0, 4, n, 6)
+    assert torch.equal(ry, ry2)
+    _agree(r, ry, r2, ry2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_dir,cap", [(32, 32), (8, 16)])
+def test_cuda_generic_light_count_matches_plain_version(n_dir, cap):
+    """The generic-S instances on the BVH walk under the sky map: at 32
+    light samples, the count conf.json asks for in fixed mode, and at 8,
+    which the instance capped at 16 takes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    sc = demo_scene()
+    sc.load_env_map(SKY)
+    sc.n_dir_sample = n_dir
+    tables = SceneTables.from_pack(sc.compile(cluster_threshold=8), device="cuda")
+    cs = cam_static(dataclasses.replace(demo_scene().camera, width=W, height=H))
+    n = W * H * 3
+    r, ry = K.trace_block(tables, cs, 9, 0, 2, n, 4)
+    torch.cuda.synchronize()
+    assert K.trace_block.last_instance == f"mega_regen<-{cap}, true, true>"
+    r2, ry2 = trace_block_ref(tables, cs, 9, 0, 2, n, 4)
+    assert torch.equal(ry, ry2)
+    _agree(r, ry, r2, ry2)

@@ -27,6 +27,7 @@ import torch
 from mcpt_tpu.builtin_scenes import demo_scene as jax_demo_scene
 from mcpt_tpu.kernels import megakernel as J
 
+from chip_smoke import write_stand_in_models
 from mcpt_tpu_torch.builtin_scenes import demo_scene
 from mcpt_tpu_torch.io.png import read_png
 from mcpt_tpu_torch.kernels import megakernel as K
@@ -107,14 +108,11 @@ def test_cuda_device_without_gpu_raises():
         render_mega(demo_scene().compile(), cam, 1, device="cuda")
 
 
-@pytest.fixture(scope="module")
-def cli_run(tmp_path_factory):
-    """`python -m mcpt_tpu_torch --demo --device cpu ...` in a fresh
-    interpreter (run as `-m` does, through runpy), which then reports every
-    jax/flax/optax/mcpt_tpu module the port's imports loaded."""
-    out = tmp_path_factory.mktemp("cli") / "demo.png"
-    argv = ["mcpt_tpu_torch", "--demo", "--device", "cpu", "--width", "8",
-            "--height", "8", "--spp", "1", "--max-bounces", "2", "--out", str(out)]
+def _run_cli(argv):
+    """`python -m mcpt_tpu_torch <argv>` in a fresh interpreter (run as `-m`
+    does, through runpy), which then reports every jax/flax/optax/mcpt_tpu
+    module the port's imports loaded. Returns its standard output."""
+    argv = ["mcpt_tpu_torch", *argv]
     code = (
         "import runpy, sys\n"
         "import mcpt_tpu_torch, mcpt_tpu_torch.bench, mcpt_tpu_torch.convert\n"
@@ -132,7 +130,28 @@ def cli_run(tmp_path_factory):
         timeout=120, env=dict(os.environ, PYTHONPATH=str(ROOT)),
     )
     assert res.returncode == 0, res.stdout + res.stderr
-    return res.stdout, out
+    return res.stdout
+
+
+@pytest.fixture(scope="module")
+def cli_run(tmp_path_factory):
+    """`python -m mcpt_tpu_torch --demo --device cpu ...`"""
+    out = tmp_path_factory.mktemp("cli") / "demo.png"
+    return _run_cli(["--demo", "--device", "cpu", "--width", "8", "--height", "8",
+                     "--spp", "1", "--max-bounces", "2", "--out", str(out)]), out
+
+
+@pytest.fixture(scope="module")
+def conf_cli_run(tmp_path_factory):
+    """`python -m mcpt_tpu_torch --conf conf.json --device cpu ...` on stand-in
+    chess meshes of 112 triangles each (1,796 triangles with floor and light,
+    so the BVH walk runs) and conf.json's assets/sky.png."""
+    models = tmp_path_factory.mktemp("models")
+    write_stand_in_models(models, segs_steps=(8, 8))
+    out = tmp_path_factory.mktemp("cli") / "conf.png"
+    return _run_cli(["--conf", "conf.json", "--models-dir", str(models), "--device", "cpu",
+                     "--width", "8", "--height", "8", "--spp", "1", "--max-bounces", "2",
+                     "--out", str(out)]), out
 
 
 def test_import_loads_no_jax(cli_run):
@@ -145,3 +164,16 @@ def test_cli_demo_writes_png(cli_run):
     img = read_png(out)
     assert img.shape == (8, 8, 4) and img.dtype == np.uint8
     assert "rays/s" in stdout
+
+
+def test_conf_cli_loads_no_jax(conf_cli_run):
+    stdout, _ = conf_cli_run
+    assert "FOREIGN_MODULES []" in stdout, stdout
+
+
+def test_cli_conf_writes_png(conf_cli_run):
+    stdout, out = conf_cli_run
+    img = read_png(out)
+    assert img.shape == (8, 8, 4) and img.dtype == np.uint8
+    assert "SPP: 1" in stdout and "rays/s" in stdout
+    assert img[:, :, :3].mean() > 0  # the sky map lights the view

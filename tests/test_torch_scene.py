@@ -5,10 +5,8 @@ give tables BITWISE equal to `mcpt_tpu.kernels.megakernel.mega_tables` (the
 eight the brute-force regen kernel reads) and equal static ints, for the
 DEMO scene and for the textured chessboard-floor scene of
 tests/test_megakernel.py:150-176; `convert.tables_from_pack` must carry a JAX
-`ScenePack` across to the same `SceneTables`.
+`ScenePack` across to the same `SceneTables`, env map and BVH included.
 """
-
-import dataclasses
 
 import numpy as np
 import pytest
@@ -23,7 +21,7 @@ import mcpt_tpu_torch.builtin_scenes as TB
 import mcpt_tpu_torch.materials as TM
 import mcpt_tpu_torch.scene as TS
 from mcpt_tpu_torch.convert import PACK_FIELDS, PACK_STATIC, tables_from_pack
-from mcpt_tpu_torch.kernels.tables import TABLE_COLS, SceneTables, mega_tables
+from mcpt_tpu_torch.kernels.tables import EXTRA, TABLE_COLS, SceneTables, mega_tables
 
 STATIC = ("n_emitters", "n_sph_emitters", "n_dir_sample", "enable_shadow", "use_env")
 
@@ -76,51 +74,61 @@ def test_tables_from_pack_matches_own_compile(name):
     static = {s: getattr(jpack, s) for s in PACK_STATIC}
     carried = tables_from_pack(arrays, static)
     own = SceneTables.from_pack(SCENES[name](TB, TM, TS).compile())
-    assert carried.static() == own.static()
-    for k in TABLE_COLS:
-        assert torch.equal(getattr(carried, k), getattr(own, k)), k
+    _assert_same_tables(carried, own)
     assert own.tri.device.type == "cpu"
-    assert set(dict(own.named_buffers())) == set(TABLE_COLS)
+    assert set(dict(own.named_buffers())) == set(TABLE_COLS) | set(EXTRA)
+    assert not own.use_env and not own.use_bvh
 
 
-def _many_triangles(n):
+def _assert_same_tables(a, b):
+    assert a.static() == b.static()
+    for k in (*TABLE_COLS, *EXTRA):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+
+
+def _many_triangles(S, M, n):
     rng = np.random.default_rng(0)
     v0 = rng.uniform(0.0, 500.0, (n, 1, 3)).astype(np.float32)
     pos = v0 + rng.uniform(1.0, 5.0, (n, 3, 3)).astype(np.float32) * np.eye(3, dtype=np.float32)
-    return TS.TriangleMesh(pos, np.zeros((n, 3, 2), np.float32), TM.Material(), "many")
+    sc = S.Scene()
+    sc.add(S.TriangleMesh(pos, np.zeros((n, 3, 2), np.float32), M.Material(), "many"))
+    sc.add(S.TriangleMesh(pos[:2] + 600.0, np.zeros((2, 3, 2), np.float32),
+                          M.make_light_material(1.0), "light"))
+    return sc
 
 
-@pytest.mark.parametrize(
-    "case", ["1025_triangles", "1032_table_rows", "env_map", "carried_env_map"]
-)
-def test_unsupported_scenes_raise(case):
-    if case == "1025_triangles":
-        sc = TS.Scene()
-        sc.add(_many_triangles(1025))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-            sc.compile()
-    elif case == "1032_table_rows":
-        pack = TB.demo_scene().compile()
-        big = dataclasses.replace(pack, tri_sc=np.zeros((1032, 16), np.float32))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-            SceneTables.from_pack(big)
-    elif case == "env_map":
-        sc = TB.demo_scene()
-        sc.env_pixels = np.zeros((4, 8, 3), np.float32)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-            sc.compile()
-    else:
-        jsc = JB.demo_scene()
-        jsc.env_pixels = np.zeros((4, 8, 3), np.float32)
-        jpack = jsc.compile()
-        arrays = {f: np.asarray(getattr(jpack, f)) for f in PACK_FIELDS}
-        static = {s: getattr(jpack, s) for s in PACK_STATIC}
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-            tables_from_pack(arrays, static)
+def _env_demo(B, M, S):
+    sc = B.demo_scene()
+    sc.env_pixels = np.random.default_rng(3).uniform(0.0, 1.0, (4, 8, 3)).astype(np.float32)
+    return sc
+
+
+FORMERLY_UNSUPPORTED = {
+    # scene builder from either package, compile kwargs, uses the BVH, env
+    "1025_triangles": (lambda B, M, S: _many_triangles(S, M, 1023), {}, True, False),
+    "1032_table_rows": (lambda B, M, S: _many_triangles(S, M, 1030), {}, True, False),
+    "env_map": (_env_demo, {}, False, True),
+    "carried_env_map": (_env_demo, {"cluster_threshold": 8}, True, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FORMERLY_UNSUPPORTED))
+def test_formerly_unsupported_scenes_compile(case):
+    """Scenes over 1024 triangles (here with two light triangles added) and
+    env-map scenes compile, and their tables equal the JAX pack's carried
+    across by `tables_from_pack` (its BVH and env map as they are)."""
+    build, kw, bvh, env = FORMERLY_UNSUPPORTED[case]
+    own = SceneTables.from_pack(build(TB, TM, TS).compile(**kw))
+    jpack = build(JB, JM, JS).compile(**kw)
+    assert (jpack.n_cl_nodes > 0) == bvh
+    carried = tables_from_pack(
+        {f: np.asarray(getattr(jpack, f)) for f in PACK_FIELDS},
+        {s: getattr(jpack, s) for s in PACK_STATIC},
+    )
+    assert (own.use_bvh, own.use_env) == (bvh, env)
+    _assert_same_tables(carried, own)
 
 
 def test_1024_triangles_compile():
-    sc = TS.Scene()
-    sc.add(_many_triangles(1024))
-    pack = sc.compile()
-    assert pack.tri_sc.shape == (1024, 16)
+    pack = _many_triangles(TS, TM, 1022).compile()
+    assert pack.tri_sc.shape == (1024, 16) and not pack.use_bvh
