@@ -5,7 +5,8 @@ and checks them. Each phase prints its lines and its seconds; every failure
 raises, so the script exits nonzero and prints no result line.
 
 1. environment: card, torch, CUDA, nvcc, Triton; a CUDA device is required
-2. build: csrc/megakernel.cu with nvcc for sm_90a, from this checkout; the
+2. build: csrc/megakernel.cu and csrc/intersect_prims.cu with nvcc for
+   sm_90a (one nvcc each, started together), from this checkout; the
    registers and spills of every kernel instance
 3. the DEMO kernel (`mega_regen<4, false, false>`) against its plain PyTorch
    version, both on the card: at 64x48, spp 8, mb 6, seed 11, and at the main
@@ -51,12 +52,36 @@ raises, so the script exits nonzero and prints no result line.
    rows through the pieces), 384x384x3 of them, spp 1, mb 8, phase 3's
    bounds with every lane's ray count equal; one more render under
    torch.profiler as in phase 5
-9. the card, the kernel table as JSON (each row's launches are those of
-   its instance in its own main-path run: the DEMO 384x384 render, the
-   sky-lit DEMO render of (a), the --conf render), and the result line
+9. (d) the wavefront intersector `csrc/intersect_prims.cu` in its K2 form
+   (at most 1024 triangle rows, one shared-memory tile) on the DEMO's
+   tables, at one wavefront tile's NEE batch: the 1920x1080 camera rays of
+   the first 65,536-pixel tile (three channel lanes each) and three shadow
+   rays per lane toward light samples, 786,432 rays. Nearest and occlusion
+   modes against the plain version on the same CUDA tensors: t, prim, u, v
+   bitwise equal on every ray; kernel ms, plain ms, bound, and the dense
+   method's ms on the same rays
+10. (e) K3's range: the DEMO plus one stand-in soldier (2,560 triangles) on
+   the floor, 2,592 triangles (more than 1024 rows, padded table <= 4096),
+   which the kernel walks tile by tile; the same checks as (d)
+11. (f) K4: the triangles-only entry `intersect_tris` on the DEMO's
+   triangles at 786,432 (B, 3) rays, bitwise against its plain version
+12. (g) the wavefront main path: `render_radiance` of the DEMO at 1920x1080,
+   spp WF_SPP, mb 8, method auto, tiles of 65,536 pixels, spp chunks of 8,
+   which must launch the kernel in nearest and occlusion modes; one tile's
+   render (256x256, spp 1) under torch.profiler for the idle share; the
+   384x384 DEMO through the wavefront at spp 64 (in one tile) against
+   phase 4's megakernel render (spp 256), two independent estimates of one
+   image: whole-image means within 3%, correlation of 12x12 block means >
+   0.95; and (e)'s scene through the wavefront at 384x384, spp 8, which
+   must launch the tiled modes
+13. the card, the kernel table as JSON (each row's launches are those of
+   its kernel in its own main-path run: the DEMO 384x384 render, the
+   sky-lit DEMO render of (a), the --conf render, the wavefront renders of
+   (g); none launches the triangles-only entry), and the result line
 """
 
 import collections
+import concurrent.futures
 import dataclasses
 import json
 import subprocess
@@ -68,20 +93,27 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from mcpt_tpu_torch import prng
 from mcpt_tpu_torch.bench import BASELINE_RAYS_PER_S, card
 from mcpt_tpu_torch.builtin_scenes import CORNELL_FLOOR, CORNELL_LEFT, CORNELL_LIGHT
 from mcpt_tpu_torch.builtin_scenes import CORNELL_RIGHT, CORNELL_SHORTBOX, CORNELL_TALLBOX
 from mcpt_tpu_torch.builtin_scenes import _mesh, demo_scene
-from mcpt_tpu_torch.camera import Camera
+from mcpt_tpu_torch.camera import Camera, generate_rays_c
 from mcpt_tpu_torch.config import build_scene, load_config
+from mcpt_tpu_torch.constants import EPSILON, REL_EPS, T_MAX
 from mcpt_tpu_torch.film import tonemap
+from mcpt_tpu_torch.intersect import intersect_dense, surface_at_c
 from mcpt_tpu_torch.io.png import read_png
+from mcpt_tpu_torch.kernels import build as kbuild
+from mcpt_tpu_torch.kernels import intersect_prims as ip
 from mcpt_tpu_torch.kernels import megakernel as mk
+from mcpt_tpu_torch.kernels.intersect_prims_ref import intersect_prims_ref
 from mcpt_tpu_torch.kernels.megakernel_ref import cam_static, trace_block_ref
 from mcpt_tpu_torch.kernels.tables import SceneTables
+from mcpt_tpu_torch.lights import sample_light_c
 from mcpt_tpu_torch.materials import make_light_material, standard_materials
-from mcpt_tpu_torch.render import render_mega
-from mcpt_tpu_torch.scene import Scene, Sphere
+from mcpt_tpu_torch.render import render_mega, render_radiance
+from mcpt_tpu_torch.scene import Scene, Sphere, TriangleMesh, pack_to
 
 ROOT = Path(__file__).resolve().parent
 REFERENCE = ROOT / "tests" / "data" / "reference_fresh_demo_spp512.png"
@@ -95,6 +127,16 @@ EARLIER_DEMO_RATE = 1.7510e9
 CONF_SPP = 32
 # the 4th of the --conf render's six 2^20-lane blocks, its slowest
 CONF_BLOCK_OFFSET = 3 * 2**20
+# (g): the wavefront render's samples per pixel at 1920x1080, cut from 8 to
+# keep it under a minute: on an H100 it took 10.8 s at spp 1 and 17.9 s at
+# spp 2 (host-bound; PERF.md)
+WF_SPP = 2
+# pixels of one wavefront tile (render_radiance's default tile_pixels)
+TILE_PX = 65536
+# the device of phases (d)-(g)
+DEV = "cuda"
+# where (e) stands the stand-in soldier on the DEMO's floor (free of the boxes)
+SOLDIER_AT = (140.0, 0.0, 440.0)
 
 # Stand-ins for the reference's chess meshes, which are not in the repo:
 # closed surfaces of revolution of 2*S*(R-1) triangles (S segments around,
@@ -189,7 +231,7 @@ def environment():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "mcpt_tpu") for m in sys.modules),
           "a jax or mcpt_tpu module is loaded")
-    nvcc = subprocess.run([mk._nvcc(), "--version"], capture_output=True, text=True, check=True)
+    nvcc = subprocess.run([kbuild.nvcc(), "--version"], capture_output=True, text=True, check=True)
     try:
         import triton
         tri = triton.__version__
@@ -201,11 +243,15 @@ def environment():
 
 
 def build():
+    """Both CUDA sources, one nvcc each, started together."""
     t0 = time.monotonic()
-    path = mk.build(verbose=True)
-    mk.load_library()
+    modules = (mk, ip)
+    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
+        paths = list(pool.map(lambda m: m.build(verbose=True), modules))
+    for m in modules:
+        m.load_library()
     dt = time.monotonic() - t0
-    phase("build", f"{dt:.1f} s -> {path.relative_to(ROOT)}")
+    phase("build", f"{dt:.1f} s -> {[str(p.relative_to(ROOT)) for p in paths]}")
     return dt
 
 
@@ -280,7 +326,7 @@ def kernel_vs_plain(tables, camera, spp, mb, seed, label, every_lane=False, lane
             "bound_by": bound_by}
 
 
-def device_profile(label, fn):
+def device_profile(label, fn, kernel="mega_regen"):
     """Run fn() twice under torch.profiler, recording the second run (the
     first lets the tracer start: a later profiler run in a process can miss
     the launches of its first few hundred milliseconds), and print
@@ -306,11 +352,13 @@ def device_profile(label, fn):
         if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
             ms = (e.time_range.end - e.time_range.start) / 1e3
             busy[e.name.replace("(anonymous namespace)::", "")] += ms
-            if "mega_regen" in e.name:
-                launches.append(round(ms, 2))
+            if kernel in e.name:
+                launches.append(round(ms, 3))
     total = sum(busy.values())
+    shown = launches if len(launches) <= 8 else (
+        f"{len(launches)} launches, {sum(launches):.2f} ms in all, longest {max(launches)}")
     phase("profile", f"{label}: wall {wall_ms:.1f} ms, device busy {total:.1f} ms, idle share "
-                     f"{1 - total / wall_ms:.4f}; kernel launches {launches} ms; "
+                     f"{1 - total / wall_ms:.4f}; {kernel} launches {shown} ms; "
                      + "; ".join(f"{k[:45]} {v:.2f} ms" for k, v in busy.most_common(4)))
 
 
@@ -330,6 +378,8 @@ def golden(img):
 def reset_counts():
     mk.trace_block.launches = 0
     mk.trace_block.by_instance = collections.Counter()
+    ip.intersect_prims_c.launches = 0
+    ip.intersect_prims_c.by_mode = collections.Counter()
 
 
 def main_path(pack):
@@ -359,7 +409,7 @@ def main_path(pack):
                   f"{quad:.3f} (<6.5), tile {tile:.3f} (<24)")
     check(gap_err < 0.25 and corr > 0.9 and quad < 6.5 and tile < 24.0,
           "96x96 image outside the reference bounds")
-    return launches["mega_regen<4, false, false>"]
+    return launches["mega_regen<4, false, false>"], img
 
 
 def throughput(tables):
@@ -497,6 +547,192 @@ def conf_path(build_s):
     return launches["mega_regen<4, true, true>"], at_conf
 
 
+def nee_batch(pack, camera, seed=0, shadow=3):
+    """One wavefront tile's NEE-sized ray batch on the card: the camera rays
+    of `camera`'s first TILE_PX pixels, three channel lanes each (B lanes),
+    then `shadow` rays per lane from its first hit (offset as the integrator
+    offsets it; the camera position where it missed) toward light samples:
+    (1 + shadow)·B rays as component tuples (o, d)."""
+    ids = torch.arange(TILE_PX, device=DEV)
+    k1, k2 = prng.split(prng.key(seed, DEV))
+    o, d = generate_rays_c(camera, ids, k1)
+    o3 = tuple(x.repeat_interleave(3) for x in o)
+    d3 = tuple(x.repeat_interleave(3) for x in d)
+    b = 3 * TILE_PX
+    chan = torch.arange(3, device=DEV).repeat(TILE_PX)
+    surf = surface_at_c(pack, o3, d3, intersect_dense(pack, torch.stack(o3, 1),
+                                                       torch.stack(d3, 1)))
+    p = surf.p
+    off = torch.clamp_min(REL_EPS * torch.stack(p, 1).abs().amax(1), EPSILON)
+    p = tuple((p[k] + surf.n[k] * off).repeat(shadow) for k in range(3))
+    ls = sample_light_c(pack, prng.uniform(k2, (shadow * b, 4)), chan.repeat(shadow))
+    delta = tuple(ls.p[k] - p[k] for k in range(3))
+    dist = torch.sqrt(delta[0] * delta[0] + delta[1] * delta[1] + delta[2] * delta[2])
+    ws = tuple(x / dist for x in delta)
+    return (tuple(torch.cat([o3[k], p[k]]) for k in range(3)),
+            tuple(torch.cat([d3[k], ws[k]]) for k in range(3)))
+
+
+def intersect_vs_plain(label, kernel, plain, mode, n_rays, n_tris, n_sph, table_bytes, out_bytes):
+    """`kernel()` (one launch of csrc/intersect_prims.cu) against `plain()`
+    (its plain version on the same CUDA tensors): every output bitwise
+    equal, the launch reported as `mode`; kernel ms (mean of 10), plain ms
+    (one run) and the bound: n_rays x (n_tris Woop tests + n_sph sphere
+    tests) float32 operations, or 24 bytes in per ray, `out_bytes` out and
+    the tables read once."""
+    kernel()
+    torch.cuda.synchronize()
+    check(ip.intersect_prims_c.last_mode == mode,
+          f"{label}: the kernel reported {ip.intersect_prims_c.last_mode!r}, not {mode!r}")
+    t0 = time.monotonic()
+    want = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    ms = cuda_ms(kernel, 10)
+    got = kernel()
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(("t", "prim", "u", "v"), got, want):
+        if w is None:
+            check(g is None, f"{label}: {name} returned in occlusion mode")
+            continue
+        check(g.dtype == w.dtype and g.shape == w.shape, f"{label}: {name} dtype/shape")
+        err = max(err, (g.double() - w.double()).abs().max().item())
+        check(torch.equal(g, w), f"{label}: {name} differs from the plain version on "
+                                 f"{(g != w).sum().item()} of {g.numel()} rays")
+    flops = n_rays * (n_tris * OPS_PER["woop"] + n_sph * OPS_PER["sph"])
+    nbytes = n_rays * (24 + out_bytes) + table_bytes
+    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    hits = (got[0] < T_MAX).float().mean().item()
+    phase("kernel", f"{label} [{mode}]: {n_rays} rays x ({n_tris} triangles + {n_sph} spheres), "
+                    f"hit share {hits:.4f}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+                    f"{bound_ms:.4f} ms ({bound_by}); bitwise equal on every ray, max abs err "
+                    f"{err}")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def prims_vs_plain(label, pack, oc, dc, tiled):
+    """Nearest and occlusion modes of `intersect_prims_c` on `pack`'s
+    tables, and the dense method's ms on the same rays for reference."""
+    tri, sph = pack.tri_sc, pack.sph_geom
+    n = oc[0].numel()
+    n_tris = int(pack.tri_valid.sum().item())
+    n_sph = int((sph[:, 3] > 0).sum().item())
+    table_bytes = (tri.numel() + sph.numel()) * 4
+    out = {}
+    for occ in (False, True):
+        mode = ("occlusion" if occ else "nearest") + (" tiled" if tiled else "")
+        out[mode] = intersect_vs_plain(
+            label, lambda: ip.intersect_prims_c(tri, sph, pack.n_tris, oc, dc, occlusion=occ),
+            lambda: intersect_prims_ref(tri, sph, pack.n_tris, oc, dc, occlusion=occ),
+            mode, n, n_tris, n_sph, table_bytes, 4 if occ else 16)
+    o, d = torch.stack(oc, 1), torch.stack(dc, 1)
+    dense_ms = cuda_ms(lambda: intersect_dense(pack, o, d), 3)
+    phase("kernel", f"{label}: the dense method (torch.matmul) on the same rays {dense_ms:.3f} ms")
+    return out
+
+
+def soldier_demo(directory):
+    """The DEMO plus one stand-in soldier (2,560 triangles) standing on its
+    floor."""
+    sc = demo_scene()
+    path = Path(directory) / "low_soldier.obj"
+    segs, steps, height, radius, center, shape = STAND_INS["low_soldier.obj"]
+    write_lathe_obj(path, segs, steps, height, radius, center, shape)
+    sc.add(TriangleMesh.from_obj(path, standard_materials()["rough_plastic"],
+                                 translation=SOLDIER_AT, name="soldier"))
+    return sc
+
+
+def intersect_kernels(soldier):
+    """(d), (e) and (f): every mode of the wavefront intersector against its
+    plain version at the NEE batch of one 1080p tile."""
+    t0 = time.monotonic()
+    cam = dataclasses.replace(demo_scene().camera, width=1920, height=1080)
+    demo = pack_to(demo_scene().compile(), DEV)
+    oc, dc = nee_batch(demo, cam)
+    check(oc[0].numel() == 4 * 3 * TILE_PX, "NEE batch size")
+    out = prims_vs_plain("(d) K2 DEMO", demo, oc, dc, tiled=False)
+    phase("d", f"{time.monotonic() - t0:.1f} s")
+
+    t0 = time.monotonic()
+    pack = pack_to(soldier.compile(), DEV)
+    n_tris = sum(m.positions.shape[0] for m in soldier.meshes)
+    check(pack.tri_sc.shape[0] > 1024 and pack.n_tris <= 4096,
+          f"(e) table {tuple(pack.tri_sc.shape)}, padded {pack.n_tris}")
+    phase("e", f"DEMO + soldier: {n_tris} triangles, table rows {pack.tri_sc.shape[0]}, "
+               f"padded {pack.n_tris}")
+    oc_e, dc_e = nee_batch(pack, cam, seed=1)
+    out.update(prims_vs_plain("(e) K3 range", pack, oc_e, dc_e, tiled=True))
+    phase("e", f"{time.monotonic() - t0:.1f} s")
+
+    t0 = time.monotonic()
+    rows = demo.tri_sc
+    o, d = torch.stack(oc, 1), torch.stack(dc, 1)
+    no_sph = torch.zeros((0, 4), dtype=torch.float32, device=DEV)
+    out["tris"] = intersect_vs_plain(
+        "(f) K4 DEMO triangles", lambda: ip.intersect_tris(rows, o, d),
+        lambda: intersect_prims_ref(rows, no_sph, 0, oc, dc), "tris", o.shape[0],
+        int(demo.tri_valid.sum().item()), 0, rows.numel() * 4, 16)
+    phase("f", f"{time.monotonic() - t0:.1f} s; no render launches the triangles-only entry "
+               f"(K4 has no render path), so its row's launches are 0")
+    return out
+
+
+def wavefront_path(mega_img, soldier):
+    """(g): the wavefront engine end to end on the card."""
+    t0 = time.monotonic()
+    sc = demo_scene()
+    cam = dataclasses.replace(sc.camera, width=1920, height=1080)
+    reset_counts()
+    t1 = time.monotonic()
+    img, stats = render_radiance(sc, cam, WF_SPP, 0, max_bounces=8, device=DEV)
+    wall = time.monotonic() - t1
+    by_mode = dict(ip.intersect_prims_c.by_mode)
+    check(by_mode.get("nearest", 0) > 0 and by_mode.get("occlusion", 0) > 0,
+          f"the wavefront render launched {by_mode}")
+    check(img.shape == (1080, 1920, 3) and bool(np.isfinite(img).all()), "wavefront image")
+    check(0.0 < float(img.mean()) < 10.0, f"wavefront image mean {img.mean()}")
+    phase("g", f"wavefront 1920x1080 spp {WF_SPP} mb 8: wall {wall:.3f} s, render "
+               f"{stats['elapsed_s']:.3f} s, {stats['rays']} rays, {stats['rays_per_s']:.4e} "
+               f"rays/s, {stats['wavelength_paths_per_s']:.4e} wavelength-paths/s, "
+               f"launches {by_mode}, megakernel launches {mk.trace_block.launches}")
+    # one tile's work (65,536 pixels, spp 1) under the profiler: a whole
+    # 1080p render is 32 such tiles, about 1.5M launches to trace
+    tile_cam = dataclasses.replace(sc.camera, width=256, height=256)
+    device_profile("wavefront one 65,536-pixel tile, spp 1 mb 8", lambda: render_radiance(
+        sc, tile_cam, 1, 5, max_bounces=8, device=DEV), kernel="intersect_prims")
+
+    # 384x384 renders in one tile of 147,456 pixels (the default 65,536
+    # would pad the third tile to a full one)
+    one_tile = 384 * 384
+    img384, st = render_radiance(sc, sc.camera, 64, 0, max_bounces=8, tile_pixels=one_tile,
+                                 device=DEV)
+    check(bool(np.isfinite(img384).all()), "384x384 wavefront image")
+    m_wf, m_mega = float(img384.mean()), float(mega_img.mean())
+    rel = abs(m_wf - m_mega) / m_mega
+    blocks = lambda x: x.reshape(12, 32, 12, 32, 3).mean(axis=(1, 3)).ravel()
+    corr = float(np.corrcoef(blocks(img384), blocks(mega_img))[0, 1])
+    phase("g", f"384x384 wavefront spp 64 ({st['elapsed_s']:.3f} s) vs megakernel spp 256: "
+               f"means {m_wf:.5f} vs {m_mega:.5f}, relative diff {rel:.4f} (<0.03), "
+               f"12x12 block-mean correlation {corr:.4f} (>0.95)")
+    check(rel < 0.03 and corr > 0.95, "wavefront and megakernel images disagree")
+
+    reset_counts()
+    img_s, st_s = render_radiance(soldier, soldier.camera, 8, 0, max_bounces=8,
+                                  tile_pixels=one_tile, device=DEV)
+    tiled = dict(ip.intersect_prims_c.by_mode)
+    check(tiled.get("nearest tiled", 0) > 0 and tiled.get("occlusion tiled", 0) > 0,
+          f"the DEMO + soldier render launched {tiled}")
+    check(bool(np.isfinite(img_s).all()) and float(img_s.mean()) > 0.0, "DEMO + soldier image")
+    phase("g", f"DEMO + soldier 384x384 spp 8 mb 8: {st_s['elapsed_s']:.3f} s, {st_s['rays']} "
+               f"rays, {st_s['rays_per_s']:.4e} rays/s, launches {tiled}; "
+               f"{time.monotonic() - t0:.1f} s")
+    return by_mode, tiled
+
+
 def main():
     t0 = time.monotonic()
     environment()
@@ -509,7 +745,7 @@ def main():
     at_main = kernel_vs_plain(tables, demo_scene().camera, 2, 8, 3, "main-path lanes")
     phase("kernel", f"{time.monotonic() - t1:.1f} s")
     t1 = time.monotonic()
-    launches = main_path(pack)
+    launches, mega_img = main_path(pack)
     phase("main", f"{time.monotonic() - t1:.1f} s")
     t1 = time.monotonic()
     throughput(tables)
@@ -517,22 +753,38 @@ def main():
     at_env, env_launches = env_and_bvh_vs_plain()
     bvh_vs_smem()
     conf_launches, at_conf = conf_path(build_s)
+    with tempfile.TemporaryDirectory() as models:
+        soldier = soldier_demo(models)
+    at_prims = intersect_kernels(soldier)
+    wf_launches, tiled_launches = wavefront_path(mega_img, soldier)
     phase("total", f"{time.monotonic() - t0:.1f} s")
     print(card(), flush=True)
     src = "mcpt_tpu_torch/csrc/megakernel.cu"
     rows = [
-        ("mega_regen<4, false, false>", "mcpt_tpu/kernels/megakernel.py:1860", launches, at_main),
-        ("mega_regen<4, true, false> (env lookup)", "mcpt_tpu/kernels/megakernel.py:241",
+        ("mega_regen<4, false, false>", src, "mcpt_tpu/kernels/megakernel.py:1860", launches,
+         at_main),
+        ("mega_regen<4, true, false> (env lookup)", src, "mcpt_tpu/kernels/megakernel.py:241",
          env_launches, at_env),
-        ("mega_regen<4, true, true> (BVH walks)", "mcpt_tpu/kernels/cluster.py:835",
+        ("mega_regen<4, true, true> (BVH walks)", src, "mcpt_tpu/kernels/cluster.py:835",
          conf_launches, at_conf),
     ]
+    src = "mcpt_tpu_torch/csrc/intersect_prims.cu"
+    k2 = "mcpt_tpu/kernels/intersect_pallas.py:326"
+    k3 = "mcpt_tpu/kernels/intersect_pallas.py:135"
+    for mode, replaces, counts in (("nearest", k2, wf_launches), ("occlusion", k2, wf_launches),
+                                   ("nearest tiled", k3, tiled_launches),
+                                   ("occlusion tiled", k3, tiled_launches)):
+        rows.append((f"intersect_prims<{mode}>", src, replaces, counts.get(mode, 0),
+                     at_prims[mode]))
+    # no render launches the triangles-only entry (K4 has no render path)
+    rows.append(("intersect_prims<tris>", src, "mcpt_tpu/kernels/intersect_pallas.py:53", 0,
+                 at_prims["tris"]))
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": n, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
         "library_ms": None,
-    } for name, replaces, n, m in rows]}), flush=True)
+    } for name, source, replaces, n, m in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

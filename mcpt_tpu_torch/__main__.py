@@ -1,12 +1,15 @@
-"""CLI entry: `python -m mcpt_tpu_torch` (the megakernel engine of
-`python -m mcpt_tpu`).
+"""CLI entry: `python -m mcpt_tpu_torch` (counterpart of `python -m mcpt_tpu`).
 
   python -m mcpt_tpu_torch --conf conf.json --models-dir path/to/models
   python -m mcpt_tpu_torch --demo --spp 64
   python -m mcpt_tpu_torch --demo --width 256 --height 256 --out img.png
+  python -m mcpt_tpu_torch --demo --engine wavefront --spp 8 --checkpoint state.npz
   python -m mcpt_tpu_torch --demo --device cpu --width 8 --height 8 --spp 1
 
-Prints the render wall-clock as H:M:S.ms like main.cpp:336-348.
+`--engine auto` (the default) renders through the megakernel unless
+`--checkpoint` asks for a resumable render, which only the wavefront engine
+gives; `--engine mega --checkpoint` is an error. Prints the render
+wall-clock as H:M:S.ms like main.cpp:336-348, and the engine it took.
 """
 
 import argparse
@@ -16,15 +19,8 @@ import sys
 from mcpt_tpu_torch.builtin_scenes import demo_scene
 from mcpt_tpu_torch.config import DEFAULT_MODELS_DIR, build_scene, load_config
 from mcpt_tpu_torch.film import save_png
-from mcpt_tpu_torch.render import render_mega
-
-
-def format_duration(seconds: float) -> str:
-    ms = int(round(seconds * 1000.0))
-    hrs, ms = divmod(ms, 3600_000)
-    mins, ms = divmod(ms, 60_000)
-    secs, ms = divmod(ms, 1000)
-    return f"{hrs}:{mins}:{secs}.{ms}"
+from mcpt_tpu_torch.render import render, render_mega
+from mcpt_tpu_torch.utils.progress import format_duration
 
 
 def main(argv=None):
@@ -40,11 +36,30 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument(
+        "--engine",
+        default="auto",
+        choices=["auto", "mega", "wavefront"],
+        help="auto takes the megakernel unless --checkpoint is given; wavefront "
+        "is the tile-based engine (resumable with --checkpoint)",
+    )
+    p.add_argument(
+        "--method",
+        default="auto",
+        choices=["auto", "kernel", "dense", "bvh"],
+        help="the wavefront engine's intersector",
+    )
+    p.add_argument("--checkpoint", default=None, help="resumable render state file")
+    p.add_argument(
         "--no-strict-parity",
         action="store_true",
         help="fix the reference's dead-key config quirks (see config.py)",
     )
     args = p.parse_args(argv)
+    if args.engine == "mega" and args.checkpoint:
+        p.error(
+            "--engine mega does not support --checkpoint "
+            "(use --engine wavefront for resumable renders)"
+        )
 
     if args.demo:
         scene = demo_scene()
@@ -64,18 +79,26 @@ def main(argv=None):
     spp = args.spp if args.spp is not None else opts["spp"]
     out = args.out if args.out is not None else opts["output"]
     print(f"SPP: {spp}")
-    fb, stats = render_mega(
-        scene.compile(), cam, spp, seed=args.seed,
-        max_bounces=args.max_bounces, device=args.device,
-    )
-    if out:
-        save_png(out, fb)
+    engine = "wavefront" if args.engine == "wavefront" or args.checkpoint else "mega"
+    if engine == "mega":
+        fb, stats = render_mega(
+            scene.compile(), cam, spp, seed=args.seed,
+            max_bounces=args.max_bounces, device=args.device,
+        )
+        if out:
+            save_png(out, fb)
+    else:
+        fb, stats = render(
+            scene, cam, spp, key=args.seed, out_path=out, max_bounces=args.max_bounces,
+            method=args.method, progress=True, checkpoint_path=args.checkpoint,
+            device=args.device,
+        )
     print(f"Writing image to {out}")
     print(
         f"Rendering finished in {format_duration(stats['elapsed_s'])} "
         f"({stats['rays_per_s']:.3e} rays/s, "
         f"{stats['wavelength_paths'] / max(stats['elapsed_s'], 1e-9):.3e} "
-        f"wavelength-paths/s, device={args.device})"
+        f"wavelength-paths/s, engine={engine}, device={args.device})"
     )
     return 0
 

@@ -1,0 +1,129 @@
+"""Launch wrapper of the wavefront intersectors (counterpart of
+`mcpt_tpu/kernels/intersect_pallas.py` `intersect_prims_pallas_c`,
+`intersect_tris_pallas_mm` and `intersect_tris_pallas`).
+
+`intersect_prims_c` and `intersect_tris` take the plain PyTorch version
+(`intersect_prims_ref`) for tensors on the CPU and launch the CUDA kernel
+`csrc/intersect_prims.cu` for tensors on a CUDA device; there is no fallback
+between the two. One kernel serves K2 (at most 1024 triangle rows, one
+shared-memory tile), K3's range (longer tables, walked tile by tile) and K4
+(triangles only).
+"""
+
+import collections
+import ctypes
+
+import torch
+
+from mcpt_tpu_torch.kernels import build as _build
+from mcpt_tpu_torch.kernels.intersect_prims_ref import intersect_prims_ref
+
+SOURCE = _build.CSRC / "intersect_prims.cu"
+MODES = ("nearest", "occlusion", "tris")  # csrc/intersect_prims.cu `Mode`
+MAX_SPHERES = 4096  # csrc/intersect_prims.cu kMaxSph
+
+
+def build(verbose: bool = False):
+    """Compile csrc/intersect_prims.cu if no library for this source
+    exists; with `verbose`, print each kernel's registers and spills."""
+    return _build.build(SOURCE, verbose)
+
+
+def _bind(lib):
+    fn = lib.mcpt_intersect_prims
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+
+
+def load_library():
+    """Build (if needed) and load the kernel library once per process."""
+    return _build.load(SOURCE, _bind)
+
+
+def mode_name(mode: int, tiled: int) -> str:
+    """The launch-count key of a launch the C side reports."""
+    return MODES[mode] + (" tiled" if tiled else "")
+
+
+def _launch(tri, sph, sph_base, oc, dc, occlusion):
+    dev = tri.device
+    b = oc[0].shape[0]
+    tri = tri.contiguous()
+    sph = sph.contiguous()
+    rays = [x.contiguous() for x in (*oc, *dc)]
+    for name, x in (("tri", tri), ("sph", sph), *zip(("o0", "o1", "o2", "d0", "d1", "d2"), rays)):
+        if x.device != dev or x.dtype != torch.float32:
+            raise ValueError(f"{name}: need float32 on {dev}, got {x.dtype} on {x.device}")
+    if tri.ndim != 2 or tri.shape[1] != 16 or sph.ndim != 2 or sph.shape[1] != 4:
+        raise ValueError(f"tri {tuple(tri.shape)} must be (T, 16), sph {tuple(sph.shape)} (S, 4)")
+    if any(x.shape != (b,) for x in rays):
+        raise ValueError("the six ray components must be (B,) tensors")
+    if sph.shape[0] > MAX_SPHERES:
+        raise ValueError(f"{sph.shape[0]} spheres > {MAX_SPHERES}")
+    t = torch.empty(b, dtype=torch.float32, device=dev)
+    if occlusion:
+        prim = u = v = None
+        outs = (t.data_ptr(), 0, 0, 0)
+    else:
+        prim = torch.empty(b, dtype=torch.int32, device=dev)
+        u = torch.empty_like(t)
+        v = torch.empty_like(t)
+        outs = (t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr())
+    lib = load_library()
+    ray_ptrs = (ctypes.c_void_p * 6)(*(x.data_ptr() for x in rays))
+    out_ptrs = (ctypes.c_void_p * 4)(*outs)
+    launched = (ctypes.c_int * 2)(-1, 0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.mcpt_intersect_prims(
+            ctypes.cast(ray_ptrs, ctypes.c_void_p), tri.data_ptr(), tri.shape[0],
+            sph.data_ptr(), sph.shape[0], int(sph_base), b, int(bool(occlusion)),
+            ctypes.cast(out_ptrs, ctypes.c_void_p), stream, ctypes.cast(launched, ctypes.c_void_p),
+        )
+    if status != 0:
+        raise RuntimeError(f"intersect_prims launch failed: cudaError {status}")
+    if launched[0] >= 0:
+        name = mode_name(launched[0], launched[1])
+        intersect_prims_c.launches += 1
+        intersect_prims_c.by_mode[name] += 1
+        intersect_prims_c.last_mode = name
+    return t, prim, u, v
+
+
+def _run(tri, sph, sph_base, oc, dc, occlusion):
+    dev = tri.device
+    if dev.type == "cpu":
+        return intersect_prims_ref(tri, sph, sph_base, oc, dc, occlusion=occlusion)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _launch(tri, sph, sph_base, oc, dc, occlusion)
+
+
+def intersect_prims_c(tri_sc, sph_geom, sph_base, oc, dc, occlusion=False):
+    """Nearest hit over all primitives (triangles, then spheres) of the
+    rays (oc, dc), 3-tuples of (B,) float32 tensors: `tri_sc` (T8, 16) rows
+    (any T8: above 1024 the kernel tiles the table, K3's range), `sph_geom`
+    (S, 4) [c, r], `sph_base` the prim id of sphere 0. Returns (t, prim, u,
+    v) as `intersect_prims_pallas_c` does; occlusion=True returns t and
+    three Nones. Each kernel launch adds one to `intersect_prims_c.launches`
+    and to `intersect_prims_c.by_mode[<mode the C side reports>]`."""
+    return _run(tri_sc, sph_geom, sph_base, oc, dc, occlusion)
+
+
+def intersect_tris(tri_rows, o, d):
+    """Nearest triangle hit of (B, 3) rays against `tri_rows` (T, 16), the
+    transposed (16, T) table of `intersect_tris_pallas` (K4). Returns (t,
+    prim int32 (-1 miss), u, v)."""
+    no_sph = torch.zeros((0, 4), dtype=torch.float32, device=tri_rows.device)
+    # one transposing copy each gives three contiguous component planes
+    return _run(tri_rows, no_sph, 0, tuple(o.t().contiguous()), tuple(d.t().contiguous()), False)
+
+
+# launches of the kernel, in all and by the mode the C side reports
+intersect_prims_c.launches = 0
+intersect_prims_c.by_mode = collections.Counter()
+intersect_prims_c.last_mode = None

@@ -4,56 +4,25 @@
 `trace_block` takes the plain PyTorch version (`megakernel_ref`) for tensors
 on the CPU and launches the CUDA kernel `csrc/megakernel.cu` for tensors on a
 CUDA device; there is no fallback between the two. The kernel is compiled
-with nvcc at first use into `mcpt_tpu_torch/_build/<source hash>/` as a
-shared library with a plain C interface and loaded with ctypes.
+with nvcc at first use (`kernels/build.py`) as a shared library with a plain
+C interface and loaded with ctypes.
 """
 
 import collections
 import ctypes
-import hashlib
-import os
 import re
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 
 import torch
 
+from mcpt_tpu_torch.kernels import build as _build
 from mcpt_tpu_torch.kernels.megakernel_ref import (
     MAX_BOUNCES_LIMIT,
     trace_block_ref,
 )
 from mcpt_tpu_torch.kernels.tables import EXTRA, TABLE_COLS
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "megakernel.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCE = _build.CSRC / "megakernel.cu"
 MAX_DIR = 32  # csrc/megakernel.cu kMaxDir
-_LIB_NAME = "libmcpt_megakernel.so"
-_lock = threading.Lock()
-_lib = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    found = str(cand) if cand.exists() else shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-def library_path() -> Path:
-    """Where the library for the current source is (or will be) built."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / h.hexdigest()[:16] / _LIB_NAME
 
 
 def ptxas_summary(log: str) -> list:
@@ -73,43 +42,21 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False):
     """Compile csrc/megakernel.cu if no library for this source exists;
-    with `verbose`, print each instance's registers and spills.
-    Raises CalledProcessError (with nvcc's output) when the build fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise subprocess.CalledProcessError(
-                res.returncode, cmd, res.stdout, res.stderr
-            )
-        if verbose:
-            print("\n".join(ptxas_summary(res.stderr + res.stdout)) or res.stderr.strip())
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+    with `verbose`, print each instance's registers and spills."""
+    return _build.build(SOURCE, verbose, ptxas_summary)
+
+
+def _bind(lib):
+    fn = lib.mcpt_mega_trace
+    fn.argtypes = [ctypes.c_void_p] * 8
+    fn.restype = ctypes.c_int
 
 
 def load_library():
     """Build (if needed) and load the kernel library once per process."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.mcpt_mega_trace
-            fn.argtypes = [ctypes.c_void_p] * 8
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+    return _build.load(SOURCE, _bind)
 
 
 def _check_tables(tables):

@@ -149,11 +149,14 @@ def _cross(a, b):
     )
 
 
-def _sqrt(x):
+def sqrt_f32(x):
     """Correctly rounded float32 sqrt on every device: torch's CPU kernel
     is not (it misses on ~0.7% of inputs), XLA's and CUDA's sqrtf are. The
     float64 sqrt rounded once to float32 is exact (53 >= 2*24 + 2 bits)."""
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+_sqrt = sqrt_f32
 
 
 def _normalize(a):
@@ -286,20 +289,12 @@ def _tri_candidates(tri, o, d):
     )
 
 
-def _sph_candidates(sph, o, d):
-    """Per-(ray, sphere) t with the q-form roots, general a
-    (megakernel.py:383-404)."""
-    o0, o1, o2 = (x[..., None] for x in o)
-    d0, d1, d2 = (x[..., None] for x in d)
-    a = d0 * d0 + d1 * d1 + d2 * d2
+def sph_roots(a, bq, cq, r):
+    """The sphere hit t (T_MAX on a miss) from the quadratic a·t² + bq·t +
+    cq of a ray against a sphere of radius r, with the stable q-form roots
+    q/a and cq/q (global.hpp:20-35); a ray with a = |d|² <= 1e-12 misses."""
     a_ok = a > 1e-12
     a_safe = torch.clamp_min(a, 1e-12)
-    cx, cy, cz, r = (_col(sph, c) for c in range(4))
-    l0 = o0 - cx
-    l1 = o1 - cy
-    l2 = o2 - cz
-    bq = 2.0 * (d0 * l0 + d1 * l1 + d2 * l2)
-    cq = l0 * l0 + l1 * l1 + l2 * l2 - r * r
     disc = bq * bq - 4.0 * a_safe * cq
     ok = (disc >= 0.0) & a_ok & (r > 0.0)
     sq = _sqrt(torch.clamp_min(disc, 0.0))
@@ -312,6 +307,21 @@ def _sph_candidates(sph, o, d):
     t = torch.where(lo < 0.0, hi, lo)
     ok = ok & (t >= 0.0)
     return torch.where(ok, t, T_MAX_F)
+
+
+def _sph_candidates(sph, o, d):
+    """Per-(ray, sphere) t with the q-form roots, general a
+    (megakernel.py:383-404)."""
+    o0, o1, o2 = (x[..., None] for x in o)
+    d0, d1, d2 = (x[..., None] for x in d)
+    a = d0 * d0 + d1 * d1 + d2 * d2
+    cx, cy, cz, r = (_col(sph, c) for c in range(4))
+    l0 = o0 - cx
+    l1 = o1 - cy
+    l2 = o2 - cz
+    bq = 2.0 * (d0 * l0 + d1 * l1 + d2 * l2)
+    cq = l0 * l0 + l1 * l1 + l2 * l2 - r * r
+    return sph_roots(a, bq, cq, r)
 
 
 def _take(x, idx):
@@ -700,10 +710,8 @@ def tangent_frame(n):
     return tx, _cross(n, tx)
 
 
-def sample_mfn(m, n, xi1, xi2):
-    """GGX NDF half-vector sample for rough lanes, n for smooth
-    (Material.hpp:111-123, 268-281)."""
-    alpha = m["rough"]
+def sample_ggx_h(n, alpha, xi1, xi2):
+    """GGX NDF importance sample of the half vector (Material.hpp:111-123)."""
     phi = TWO_PI * xi1
     a2 = alpha * alpha
     cos_t = _ssqrt(
@@ -714,7 +722,13 @@ def sample_mfn(m, n, xi1, xi2):
     hx = sin_t * torch.cos(phi)
     hy = sin_t * torch.sin(phi)
     t, b = tangent_frame(n)
-    h = _normalize(_add(_add(_scale(t, hx), _scale(b, hy)), _scale(n, cos_t)))
+    return _normalize(_add(_add(_scale(t, hx), _scale(b, hy)), _scale(n, cos_t)))
+
+
+def sample_mfn(m, n, xi1, xi2):
+    """GGX NDF half-vector sample for rough lanes, n for smooth
+    (Material.hpp:111-123, 268-281)."""
+    h = sample_ggx_h(n, m["rough"], xi1, xi2)
     return _where3(is_rough(m["mtype"]), h, n)
 
 

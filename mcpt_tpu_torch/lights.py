@@ -1,0 +1,72 @@
+"""Area-light sampling over the emitter rows (counterpart of
+`mcpt_tpu/lights.py:40-106`).
+
+The reference's two-stage pick: an emitter mesh with probability ∝ its area
+(`Scene::sampleLight`, Scene.cpp:23-37), then a triangle of that mesh by the
+BVH area descent with its √u warp (BVH.cpp:131-135), then a point with the
+x = √u barycentric warp (Triangle.hpp:71-76); pdf = 1/mesh_area. Emissive
+spheres get a uniform point on their surface.
+"""
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from mcpt_tpu_torch.kernels.megakernel_ref import sqrt_f32 as _sqrt
+
+
+class LightSampleC(NamedTuple):
+    p: tuple  # 3 x (B,) point on the light
+    n: tuple  # 3 x (B,) light normal
+    emit: torch.Tensor  # (B,) emission at the lane's channel
+    pdf: torch.Tensor  # (B,) area pdf (1/mesh_area)
+
+
+def _sphere_point(row, u2, u3):
+    """Uniform point on an emissive sphere row (c = cols 0:3, r = col 3):
+    y = 1 - 2a, azimuth 2πb."""
+    ys = 1.0 - 2.0 * u2
+    s = _sqrt(torch.clamp_min(1.0 - ys * ys, 0.0))
+    ph = 2.0 * math.pi * u3
+    dv = (s * torch.cos(ph), ys, s * torch.sin(ph))
+    r = row[:, 3]
+    p = tuple(row[:, k] + r * dv[k] for k in range(3))
+    return p, dv
+
+
+def _pick(pack, u):
+    """The two-stage emitter pick: (fat row, mesh_area, x, y)."""
+    e = pack.emt_mesh.shape[0]
+    target = u[:, 0] * float(pack.emit_total_area)
+    mesh = torch.searchsorted(pack.lmesh_cum, target, right=False)
+    mesh = mesh.clamp(0, pack.lmesh_cum.shape[0] - 1)
+    idx = torch.arange(e, device=u.device)
+    same_mesh = pack.emt_mesh[None, :] == mesh[:, None]  # (B, E)
+    mesh_area = torch.amax(torch.where(same_mesh, pack.emt_mesh_area[None, :], 0.0), dim=1)
+    p_tgt = _sqrt(u[:, 1]) * mesh_area
+    hit = same_mesh & (p_tgt[:, None] < pack.emt_intra_cum[None, :])
+    sel = torch.amin(torch.where(hit, idx[None, :], e), dim=1)
+    last = torch.amax(torch.where(same_mesh, idx[None, :], -1), dim=1)
+    sel = torch.where(sel >= e, last, sel).clamp(0, e - 1)
+    row = pack.emt_fat[sel]
+    return row, mesh_area, _sqrt(u[:, 2]), u[:, 3]
+
+
+def sample_light_c(pack, u, chan) -> LightSampleC:
+    """u: (B, 4) uniforms, chan (B,) → a light sample per lane. Requires
+    pack.n_emitters > 0."""
+    row, mesh_area, x, y = _pick(pack, u)
+    wx = x * (1.0 - y)
+    wy = x * y
+    # p = v0 + e1·x(1-y) + e2·xy
+    p = tuple(row[:, k] + row[:, 3 + k] * wx + row[:, 6 + k] * wy for k in range(3))
+    n = (row[:, 9], row[:, 10], row[:, 11])
+    if pack.n_sph_emitters:
+        is_se = row[:, 16] > 0.5
+        ps, ns = _sphere_point(row, u[:, 2], u[:, 3])
+        p = tuple(torch.where(is_se, ps[k], p[k]) for k in range(3))
+        n = tuple(torch.where(is_se, ns[k], n[k]) for k in range(3))
+    emit = torch.where(chan == 0, row[:, 12], torch.where(chan == 1, row[:, 13], row[:, 14]))
+    pdf = 1.0 / torch.clamp_min(mesh_area, 1e-20)
+    return LightSampleC(p=p, n=n, emit=emit, pdf=pdf)

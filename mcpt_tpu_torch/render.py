@@ -1,14 +1,34 @@
-"""Full-image render through the megakernel (counterpart of
-`mcpt_tpu/kernels/megakernel.py:3301-3387` `render_mega`)."""
+"""Full-image renders: through the megakernel (`render_mega`, counterpart
+of `mcpt_tpu/kernels/megakernel.py:3301-3387`) and through the wavefront
+engine (`render_radiance` and `render`, counterparts of
+`mcpt_tpu/render.py:35-178`).
 
+The wavefront render walks tiles of `tile_pixels` pixels × chunks of
+`spp_chunk` camera samples; each (tile, chunk) runs `_render_tile` with the
+key `fold_in(fold_in(key, tile), chunk)`, split into one key per sample and
+each of those into a camera key and a path key, as the JAX function does, so
+the draws are `jax.random`'s (`prng`). The framebuffer accumulates in
+float64 on the host and a checkpoint `.npz` (fb, chunk_weights, start_chunk,
+total_rays) is written every 16 chunks and removed on completion.
+"""
+
+import os
 import time
 
 import numpy as np
 import torch
 
+from mcpt_tpu_torch import prng
+from mcpt_tpu_torch.camera import generate_rays_c
+from mcpt_tpu_torch.constants import WAVELEN_UM
+from mcpt_tpu_torch.integrator import trace_paths_c
+from mcpt_tpu_torch.intersect import resolve_method
+from mcpt_tpu_torch.kernels import intersect_prims
 from mcpt_tpu_torch.kernels.megakernel import load_library, trace_block
 from mcpt_tpu_torch.kernels.megakernel_ref import cam_static
 from mcpt_tpu_torch.kernels.tables import SceneTables
+from mcpt_tpu_torch.scene import ScenePack, pack_to
+from mcpt_tpu_torch.utils.progress import ProgressBar
 
 # Lanes per kernel launch: bounds the plain version's (lanes, primitives)
 # temporaries on the CPU; on the card each launch is one kernel.
@@ -63,3 +83,134 @@ def render_mega(scene, camera, spp, seed=0, *, max_bounces=8, device="cuda"):
         "wavelength_paths": lanes * spp,
     }
     return img, stats
+
+
+def _render_tile(pack, camera, pixel_ids, key, n_sub, max_bounces, method):
+    """Mean radiance over n_sub camera samples for one pixel tile: ((P, 3)
+    float32 radiance, total ray count as a 0-dim tensor)."""
+    p = pixel_ids.shape[0]
+    dev = pixel_ids.device
+    chan = torch.arange(3, device=dev).repeat(p)
+    lam = torch.tensor(WAVELEN_UM, device=dev)[chan]
+    fb = torch.zeros((p, 3), dtype=torch.float32, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    for k in prng.split(key, n_sub):
+        k1, k2 = prng.split(k)
+        o, d = generate_rays_c(camera, pixel_ids, k1)
+        o3 = tuple(x.repeat_interleave(3) for x in o)
+        d3 = tuple(x.repeat_interleave(3) for x in d)
+        rad, stats = trace_paths_c(
+            pack, o3, d3, lam, chan, k2, max_bounces=max_bounces, method=method
+        )
+        fb = fb + rad.reshape(p, 3)
+        rays = rays + stats.rays
+    return fb / torch.full_like(fb, n_sub), rays
+
+
+@torch.inference_mode()
+def render_radiance(
+    scene_or_pack,
+    camera,
+    spp: int,
+    key=None,
+    *,
+    max_bounces: int = 8,
+    method: str = "auto",
+    tile_pixels: int = 65536,
+    spp_chunk: int = 8,
+    progress: bool = False,
+    checkpoint_path=None,
+    device="cuda",
+):
+    """Full-image linear radiance through the wavefront engine: an (H, W, 3)
+    float32 numpy array and the JAX function's stats dict. `scene_or_pack`
+    is a `Scene` or a `ScenePack`; `key` a `prng` key or an int seed
+    (default `prng.key(0)`). `method` is the intersector (`intersect.
+    resolve_method`): on a CUDA device `auto` launches the CUDA kernel for
+    scenes of at most 4096 padded triangles."""
+    dev = resolve_device(device)
+    host = scene_or_pack if isinstance(scene_or_pack, ScenePack) else scene_or_pack.compile()
+    pack = pack_to(host, dev)
+    method = resolve_method(pack, method)
+    if method == "bvh":
+        pack = pack_to(host, dev, bvh=True)
+    if method == "kernel" and dev.type == "cuda":
+        intersect_prims.load_library()  # build outside the timed region
+    if key is None or isinstance(key, int):
+        key = prng.key(key or 0, dev)
+    key = key.to(dev)
+    w, h = camera.width, camera.height
+    n_pix = w * h
+    tile_pixels = min(tile_pixels, n_pix)
+    n_tiles = (n_pix + tile_pixels - 1) // tile_pixels
+    spp_chunk = max(1, min(spp_chunk, spp))
+    n_chunks = (spp + spp_chunk - 1) // spp_chunk
+
+    fb = np.zeros((n_pix, 3), np.float64)
+    chunk_weights = np.zeros(n_tiles, np.float64)
+    total_rays = 0
+    start_chunk = np.zeros(n_tiles, np.int64)
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        ckpt = np.load(checkpoint_path)
+        fb = ckpt["fb"].astype(np.float64)
+        chunk_weights = ckpt["chunk_weights"]
+        start_chunk = ckpt["start_chunk"]
+        total_rays = int(ckpt["total_rays"])
+
+    bar = ProgressBar() if progress else None
+    t0 = time.monotonic()
+    work = 0
+    total_work = n_tiles * n_chunks
+    for tile in range(n_tiles):
+        lo = tile * tile_pixels
+        hi = min(lo + tile_pixels, n_pix)
+        ids = torch.arange(lo, lo + tile_pixels, device=dev).clamp(max=n_pix - 1)
+        for chunk in range(int(start_chunk[tile]), n_chunks):
+            sub = min(spp_chunk, spp - chunk * spp_chunk)
+            k = prng.fold_in(prng.fold_in(key, tile), chunk)
+            tile_fb, rays = _render_tile(pack, camera, ids, k, sub, max_bounces, method)
+            fb[lo:hi] += tile_fb.cpu().numpy()[: hi - lo] * sub
+            chunk_weights[tile] += sub
+            total_rays += int(rays)
+            work += 1
+            if bar:
+                bar.update(work / total_work)
+            if checkpoint_path and (chunk + 1) % 16 == 0:
+                start_chunk[tile] = chunk + 1
+                np.savez(
+                    checkpoint_path,
+                    fb=fb,
+                    chunk_weights=chunk_weights,
+                    start_chunk=start_chunk,
+                    total_rays=total_rays,
+                )
+        start_chunk[tile] = n_chunks
+        fb[lo:hi] /= max(chunk_weights[tile], 1.0)
+    if bar:
+        bar.finish()
+    elapsed = time.monotonic() - t0
+    stats = {
+        "elapsed_s": elapsed,
+        "rays": total_rays,
+        "rays_per_s": total_rays / max(elapsed, 1e-9),
+        "camera_samples": n_pix * spp,
+        "wavelength_paths": n_pix * spp * 3,
+        "wavelength_paths_per_s": n_pix * spp * 3 / max(elapsed, 1e-9),
+    }
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        os.remove(checkpoint_path)
+    return fb.reshape(h, w, 3).astype(np.float32), stats
+
+
+def render(scene, camera=None, spp=None, key=None, out_path=None, **kw):
+    """Scene (and its camera) → PNG on disk + stats, through the wavefront
+    engine."""
+    from mcpt_tpu_torch.film import save_png
+
+    camera = camera if camera is not None else scene.camera
+    spp = spp if spp is not None else 32
+    fb, stats = render_radiance(scene, camera, spp, key, **kw)
+    if out_path:
+        save_png(out_path, fb)
+        stats["output"] = str(out_path)
+    return fb, stats

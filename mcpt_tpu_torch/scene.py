@@ -15,10 +15,12 @@ layout and have no counterpart here. The env map is kept at full
 resolution.
 """
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+import torch
 
 from mcpt_tpu_torch.bvh import build_bvh
 from mcpt_tpu_torch.camera import Camera
@@ -101,7 +103,7 @@ class ScenePack:
     values as the fields of `mcpt_tpu.scene.ScenePack`; numpy float32/int32).
 
       tri_sc (T8, 16): Woop rows w00..w22, c0..c2, nr2 (0 on pad rows), valid
-      tri_shade (T8, 11): unit normal, uv t0..t2, material, emissive
+      tri_shade (T, 11): unit normal, uv t0..t2, material, emissive (t_pad rows)
       tri_occ_sc (T8o, 16): tri_sc rows of the shadow-fan occluders
       sph_geom (S, 4): center, radius; sph_shade (S, 5): center, mat, emissive
       mat_fat (M, 13): type, ior_a, ior_b, rough, refl(3), emission(3),
@@ -112,7 +114,16 @@ class ScenePack:
       bvh_* : the flat BVH over triangles then spheres (`bvh.FlatBVH`
               fields; prims -1-padded to a multiple of 8, sphere ids moved
               to >= t_pad), None when the scene brute-forces
-      t_pad: the triangle count rounded up to 128 (the JAX pack's n_tris)
+      t_pad: the triangle count rounded up to 128 (the JAX pack's n_tris,
+             the prim id of sphere 0 on the wavefront path)
+    The wavefront path (`intersect.py`, `integrator.py`) also reads, at the
+    JAX pack's t_pad rows:
+      tri_w (T, 3, 3), tri_c (T, 3), tri_nr2 (T,), tri_valid (T,) bool: the
+          Woop transform of the dense method (tri_sc's rows, uncut)
+      tri_mt (T, 9): v0, e1, e2 of the BVH method's leaf tests
+      prim_emissive (T + S, 1): 1.0 where a primitive's material emits
+      bvh_fat (N, 8 + L): min, max, miss link, leaf count and L leaf prim
+          ids per node; built by `fat_bvh` when the BVH method first needs it
     """
 
     tri_sc: np.ndarray
@@ -144,10 +155,78 @@ class ScenePack:
     bvh_leaf_start: Optional[np.ndarray] = None
     bvh_leaf_count: Optional[np.ndarray] = None
     bvh_prims: Optional[np.ndarray] = None
+    tri_w: Optional[np.ndarray] = None
+    tri_c: Optional[np.ndarray] = None
+    tri_nr2: Optional[np.ndarray] = None
+    tri_valid: Optional[np.ndarray] = None
+    tri_mt: Optional[np.ndarray] = None
+    prim_emissive: Optional[np.ndarray] = None
+    bvh_fat: Optional[np.ndarray] = None
 
     @property
     def use_bvh(self) -> bool:
         return self.bvh_min is not None
+
+    @property
+    def n_tris(self) -> int:
+        """The JAX pack's `n_tris`: rows of the padded triangle arrays."""
+        return self.t_pad
+
+
+def fat_bvh(pack: ScenePack) -> np.ndarray:
+    """`pack.bvh_fat`, the wavefront BVH method's node rows
+    (mcpt_tpu/scene.py:563-578), built and kept on the pack at first use:
+    from the pack's flat BVH where it has one, else from a binned-SAH build
+    (leaves of at most 4) over its valid triangles and real spheres."""
+    if pack.bvh_fat is not None:
+        return pack.bvh_fat
+    if pack.use_bvh:
+        lo, hi, miss = pack.bvh_min, pack.bvh_max, pack.bvh_miss
+        start, count, prim_ids = pack.bvh_leaf_start, pack.bvh_leaf_count, pack.bvh_prims
+    else:
+        tri_ids = np.nonzero(pack.tri_valid)[0]
+        sph_ids = np.nonzero(pack.sph_geom[:, 3] > 0.0)[0]
+        v0, e1, e2 = (pack.tri_mt[tri_ids, 3 * k:3 * k + 3] for k in range(3))
+        c, r = pack.sph_geom[sph_ids, :3], pack.sph_geom[sph_ids, 3:4]
+        flat = build_bvh(
+            np.concatenate([np.minimum(np.minimum(v0, v0 + e1), v0 + e2), c - r]),
+            np.concatenate([np.maximum(np.maximum(v0, v0 + e1), v0 + e2), c + r]),
+            leaf_size=4, method="sah",
+        )
+        ids = np.concatenate([tri_ids, pack.t_pad + sph_ids]).astype(np.int32)
+        lo, hi, miss = flat.node_min, flat.node_max, flat.node_miss
+        start, count, prim_ids = flat.leaf_start, flat.leaf_count, ids[flat.prim_ids]
+    leaf_cap = max(int(count.max()) if count.size else 1, 1)
+    fat = np.full((lo.shape[0], 8 + leaf_cap), -1.0, np.float32)
+    fat[:, 0:3] = lo
+    fat[:, 3:6] = hi
+    fat[:, 6] = miss
+    fat[:, 7] = np.maximum(count, 0)
+    leaves = np.nonzero(start >= 0)[0]
+    if leaves.size and prim_ids.size:
+        cols = np.arange(leaf_cap)[None, :]
+        slot = np.minimum(start[leaves][:, None] + cols, max(prim_ids.shape[0] - 1, 0))
+        fat[leaves, 8:] = np.where(
+            cols < count[leaves][:, None], prim_ids[slot].astype(np.float32), -1.0
+        )
+    pack.bvh_fat = fat
+    return fat
+
+
+def pack_to(pack: ScenePack, device, bvh: bool = False) -> ScenePack:
+    """A copy of `pack` whose arrays are torch tensors on `device`, as the
+    wavefront path reads it; with `bvh`, `bvh_fat` is built first
+    (`fat_bvh`). Scalars and the three background floats stay on the
+    host."""
+    if bvh:
+        fat_bvh(pack)
+    moved = {
+        f.name: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        for f in dataclasses.fields(pack)
+        if isinstance(v := getattr(pack, f.name), np.ndarray) and v.ndim > 0
+        and f.name != "background"
+    }
+    return dataclasses.replace(pack, **moved)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -249,14 +328,14 @@ class Scene:
         )
         mid = np.concatenate(mid_list) if mid_list else np.zeros(0, np.int32)
 
-        v0 = np.zeros((t8, 3), np.float32)
-        e1 = np.zeros((t8, 3), np.float32)
-        e2 = np.zeros((t8, 3), np.float32)
+        v0 = np.zeros((t_pad, 3), np.float32)
+        e1 = np.zeros((t_pad, 3), np.float32)
+        e2 = np.zeros((t_pad, 3), np.float32)
         e2[:, 1] = 1.0  # padding rows' [e1|e2|n] trivially non-singular
         e1[:, 0] = 1.0
-        uvs = np.zeros((t8, 3, 2), np.float32)
-        tmat = np.zeros(t8, np.int32)
-        valid = np.zeros(t8, bool)
+        uvs = np.zeros((t_pad, 3, 2), np.float32)
+        tmat = np.zeros(t_pad, np.int32)
+        valid = np.zeros(t_pad, bool)
         if n_tris:
             v0[:n_tris] = pos[:, 0]
             e1[:n_tris] = pos[:, 1] - pos[:, 0]
@@ -346,7 +425,7 @@ class Scene:
         tri_shade = np.concatenate(
             [
                 n_unit.astype(np.float32),
-                uvs.reshape(t8, 6),
+                uvs.reshape(t_pad, 6),
                 tmat[:, None].astype(np.float32),
                 tri_emissive[:, None].astype(np.float32),
             ],
@@ -383,10 +462,10 @@ class Scene:
         # Woop rows; nr2 is zeroed on padding/degenerate rows so the
         # intersectors' |det| >= EPSILON test rejects them unconditionally.
         tri_sc = np.zeros((t8, 16), np.float32)
-        tri_sc[:, 0:9] = w.reshape(t8, 9)
-        tri_sc[:, 9:12] = c
-        tri_sc[:, 12] = np.where(valid, nr2, 0.0).astype(np.float32)
-        tri_sc[:, 13] = valid.astype(np.float32)
+        tri_sc[:, 0:9] = w[:t8].reshape(t8, 9)
+        tri_sc[:, 9:12] = c[:t8]
+        tri_sc[:, 12] = np.where(valid, nr2, 0.0)[:t8].astype(np.float32)
+        tri_sc[:, 13] = valid[:t8].astype(np.float32)
 
         # Static occluder cull for the NEE shadow fan: a triangle whose plane
         # has every primitive surface on one side can never block a
@@ -419,6 +498,7 @@ class Scene:
             tri_occ_sc = np.zeros((8, 16), np.float32)
 
         sph_geom = np.concatenate([sph_c, sph_r[:, None]], axis=1).astype(np.float32)
+        prim_emissive = np.concatenate([tri_emissive, sph_emissive]).astype(np.float32)[:, None]
 
         # One BVH over triangles then spheres (mcpt_tpu/scene.py:419-447);
         # sphere ids move to >= t_pad like the JAX pack's.
@@ -472,5 +552,11 @@ class Scene:
             use_env=use_env,
             env_pixels=env,
             t_pad=t_pad,
+            tri_w=w,
+            tri_c=c,
+            tri_nr2=nr2.astype(np.float32),
+            tri_valid=valid,
+            tri_mt=np.concatenate([v0, e1, e2], axis=1).astype(np.float32),
+            prim_emissive=prim_emissive,
             **bvh,
         )

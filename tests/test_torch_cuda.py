@@ -1,13 +1,15 @@
-"""The CUDA megakernel on the card (marker `gpu`; each test skips without a
+"""The CUDA kernels on the card (marker `gpu`; each test skips without a
 CUDA device). This file imports neither jax nor mcpt_tpu, so it also runs on
 a GPU machine without them; tests/conftest.py imports jax, so there run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m gpu
 
-Bounds as in chip_smoke.py: per-lane ray counts equal on at least 98% of
-lanes (on every lane for the env and BVH instances), radiance off by more
-than 1e-3 on under 2% of lanes (ULP-level nearest-hit flips), means within
-5e-3.
+Megakernel bounds as in chip_smoke.py: per-lane ray counts equal on at least
+98% of lanes (on every lane for the env and BVH instances), radiance off by
+more than 1e-3 on under 2% of lanes (ULP-level nearest-hit flips), means
+within 5e-3. The wavefront intersector (`csrc/intersect_prims.cu`) is held
+bitwise to its plain version in every mode, and a wavefront render through
+it bitwise to the same render through the plain version.
 """
 
 import dataclasses
@@ -18,10 +20,14 @@ import pytest
 import torch
 
 from mcpt_tpu_torch.builtin_scenes import demo_scene
+from mcpt_tpu_torch.kernels import intersect_prims as IP
 from mcpt_tpu_torch.kernels import megakernel as K
+from mcpt_tpu_torch.kernels.intersect_prims_ref import intersect_prims_ref
 from mcpt_tpu_torch.kernels.megakernel_ref import cam_static, trace_block_ref
 from mcpt_tpu_torch.kernels.tables import SceneTables
-from mcpt_tpu_torch.render import render_mega
+from mcpt_tpu_torch.materials import Material
+from mcpt_tpu_torch.render import render_mega, render_radiance
+from mcpt_tpu_torch.scene import Scene, Sphere, TriangleMesh
 
 W, H = 32, 24
 SKY = Path(__file__).resolve().parent.parent / "assets" / "sky.png"
@@ -127,3 +133,133 @@ def test_cuda_generic_light_count_matches_plain_version(n_dir, cap):
     r2, ry2 = trace_block_ref(tables, cs, 9, 0, 2, n, 4)
     assert torch.equal(ry, ry2)
     _agree(r, ry, r2, ry2)
+
+
+def _soup_scene(n=1200):
+    """The DEMO's camera over n random triangles in [-1, 1]^3 and two
+    spheres: a table of more than 1024 rows, which the kernel walks tile by
+    tile."""
+    rng = np.random.default_rng(11)
+    v0 = rng.uniform(-1.0, 1.0, (n, 3))
+    pos = np.stack([v0, v0 + rng.uniform(-0.2, 0.2, (n, 3)),
+                    v0 + rng.uniform(-0.2, 0.2, (n, 3))], 1).astype(np.float32)
+    sc = Scene(demo_scene().camera)
+    sc.add(TriangleMesh(pos, np.zeros((n, 3, 2), np.float32), Material(), "soup"))
+    sc.add(Sphere((0.3, 0.2, -0.4), 0.35, Material(), "a"))
+    sc.add(Sphere((-0.5, -0.3, 0.5), 0.25, Material(), "b"))
+    return sc
+
+
+def _cuda_rays(n, lo, hi, aim, seed):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(lo, hi, (n, 3))
+    d = rng.uniform(*aim, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    cols = lambda x: tuple(torch.from_numpy(x[:, k].astype(np.float32)).cuda() for k in range(3))
+    return cols(o), cols(d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene,mode", [
+    ("demo", "nearest"), ("demo", "occlusion"), ("demo", "tris"),
+    ("soup", "nearest tiled"), ("soup", "occlusion tiled"), ("soup", "tris tiled"),
+])
+def test_intersect_kernel_modes_bitwise(scene, mode):
+    """Every mode of csrc/intersect_prims.cu against its plain version on
+    the same CUDA tensors: t, prim, u and v bitwise equal on every ray."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    if scene == "demo":
+        pack = demo_scene().compile()
+        oc, dc = _cuda_rays(5000, (1.0, 1.0, 1.0), (555.0, 547.0, 558.0),
+                            ((0.0, 0.0, 0.0), (555.0, 548.0, 559.0)), 3)
+    else:
+        pack = _soup_scene().compile()
+        oc, dc = _cuda_rays(5000, -3.0, 3.0, ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0)), 4)
+    tri = torch.from_numpy(pack.tri_sc).cuda()
+    sph = torch.from_numpy(pack.sph_geom).cuda()
+    if mode.startswith("tris"):
+        sph = sph[:0]
+    occlusion = mode.startswith("occlusion")
+    before = IP.intersect_prims_c.by_mode[mode]
+    got = IP.intersect_prims_c(tri, sph, pack.t_pad, oc, dc, occlusion=occlusion)
+    torch.cuda.synchronize()
+    assert IP.intersect_prims_c.by_mode[mode] == before + 1
+    want = intersect_prims_ref(tri, sph, pack.t_pad, oc, dc, occlusion=occlusion)
+    assert (want[0] < 1e30).float().mean().item() > 0.3
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.device.type == "cuda" and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_intersect_tris_rows_bitwise():
+    """The triangles-only entry (K4's counterpart) on (B, 3) rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    rows = torch.from_numpy(demo_scene().compile().tri_sc).cuda()
+    oc, dc = _cuda_rays(3000, (1.0, 1.0, 1.0), (555.0, 547.0, 558.0),
+                        ((0.0, 0.0, 0.0), (555.0, 548.0, 559.0)), 5)
+    o, d = torch.stack(oc, 1), torch.stack(dc, 1)
+    got = IP.intersect_tris(rows, o, d)
+    assert IP.intersect_prims_c.last_mode == "tris"
+    no_sph = torch.zeros((0, 4), dtype=torch.float32, device="cuda")
+    want = intersect_prims_ref(rows, no_sph, 0, oc, dc)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_wavefront_render_goes_through_the_kernel(monkeypatch):
+    """render_radiance on the card launches the kernel in nearest and
+    occlusion modes, and its image equals, bitwise, the same render with
+    the plain version in the kernel's place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    sc = demo_scene()
+    cam = dataclasses.replace(sc.camera, width=W, height=H)
+    kw = dict(max_bounces=4, tile_pixels=256, spp_chunk=2, device="cuda")
+    IP.intersect_prims_c.by_mode.clear()
+    img, stats = render_radiance(sc, cam, 4, 3, **kw)
+    assert IP.intersect_prims_c.by_mode["nearest"] > 0
+    assert IP.intersect_prims_c.by_mode["occlusion"] > 0
+    assert img.shape == (H, W, 3) and np.isfinite(img).all() and img.mean() > 0
+    monkeypatch.setattr(IP, "_launch", lambda tri, sph, base, oc, dc, occ: intersect_prims_ref(
+        tri, sph, base, oc, dc, occlusion=occ))
+    img2, stats2 = render_radiance(sc, cam, 4, 3, **kw)
+    assert stats["rays"] == stats2["rays"]
+    np.testing.assert_array_equal(img, img2)
+
+
+@pytest.mark.gpu
+def test_wavefront_checkpoint_resumes_on_the_card(tmp_path, monkeypatch):
+    """An interrupted wavefront render on the card, resumed from the
+    checkpoint it wrote at chunk 16, equals the uninterrupted render."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import mcpt_tpu_torch.render as R
+
+    sc = demo_scene()
+    cam = dataclasses.replace(sc.camera, width=8, height=8)
+    kw = dict(spp=20, max_bounces=2, spp_chunk=1, tile_pixels=64, device="cuda")
+    fb_ref, st_ref = render_radiance(sc, cam, **kw)
+    ckpt = str(tmp_path / "state.npz")
+    calls = {"n": 0}
+    orig = R._render_tile
+
+    def bomb(*a, **k):
+        calls["n"] += 1
+        if calls["n"] > 17:
+            raise KeyboardInterrupt
+        return orig(*a, **k)
+
+    monkeypatch.setattr(R, "_render_tile", bomb)
+    with pytest.raises(KeyboardInterrupt):
+        render_radiance(sc, cam, checkpoint_path=ckpt, **kw)
+    monkeypatch.setattr(R, "_render_tile", orig)
+    assert int(np.load(ckpt)["start_chunk"][0]) == 16
+    fb, st = render_radiance(sc, cam, checkpoint_path=ckpt, **kw)
+    np.testing.assert_allclose(fb, fb_ref, atol=1e-6)
+    assert st["rays"] == st_ref["rays"]
+    assert not (tmp_path / "state.npz").exists()
