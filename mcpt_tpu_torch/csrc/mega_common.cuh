@@ -1,0 +1,760 @@
+// Device code shared by the two megakernels of this directory: the
+// path-regeneration kernel (megakernel.cu, `mega_regen`) and the lockstep
+// kernel (mega_lockstep.cu, `mega_lockstep`).
+//
+// The float32 arithmetic follows mcpt_tpu/kernels/megakernel.py expression by
+// expression (build with -fmad=false and without fast math): vector math,
+// the murmur3 counter hash, the camera (each kernel passes its own draws),
+// the brute-force sweeps over shared memory, the BVH walks, the env lookup,
+// the materials and the BSDF, the staging of the tables into shared memory,
+// and the host side of the C entries. Everything sits in an anonymous
+// namespace: each source gets its own copy.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kEps = 1e-4f;
+constexpr float kOneMinusEps = 0.9999f;
+constexpr float kRelEps = 4e-6f;
+constexpr float kTMax = 3e37f;
+constexpr float kClampDirect = 15.0f;
+constexpr float kClampIndirect = 5.0f;
+constexpr float kFoldBig = 1e30f;
+constexpr float kFoldWCap = 1e30f;
+constexpr float kTwoPi = 6.2831855f;  // float32(2π), folded like the host
+constexpr float kPi = 3.1415927f;
+constexpr int kMaxDir = 32;  // the largest generic instance's light-sample cap
+constexpr int kMaxDepth = 32;  // max_bounces limit (megakernel_ref.MAX_BOUNCES_LIMIT)
+constexpr int kThreads = 128;
+
+// table row widths (kernels/tables.py TABLE_COLS)
+constexpr int kTri = 25, kOcc = 16, kSph = 6, kMat = 13, kEmt = 17, kEmeta = 4;
+
+struct Params {
+  const float* tables[8];  // tri, occ, sph, mat, emt, emeta, lcum, par
+  const float* env;        // (env_h, env_w, 3) env map
+  const float* bvh;        // (nodes, 8): min3, max3, miss, start*16 + count
+  const int* prims;        // leaf-ordered triangle rows, -1 = skip
+  int rows[6];             // tri, occ, sph, mat, emt (= emeta), lcum
+  float* out_rad;
+  float* out_rays;
+  int seed, lane_offset, n_lanes, spp, width, height, max_bounces, n_dir;
+  int enable_shadow, textured, n_sph_emitters, use_dof;
+  int env_h, env_w, use_env, use_bvh;
+  int lane_stride;  // thread idx runs lane lane_offset + idx * lane_stride
+  float xscale, yscale, om[9], pos[3], focal, aperture, inv_n_dir;
+};
+
+struct Tables {
+  const float *tri, *occ, *sph, *mat, *emt, *emeta, *lcum, *par;
+  int n_tri, n_occ, n_sph, n_mat, n_emt, n_lcum;
+  const float *env, *bvh;
+  const int* prims;
+  int env_h, env_w;
+};
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 mk(float x, float y, float z) { return {x, y, z}; }
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ V3 add(V3 a, V3 b) { return mk(a.x + b.x, a.y + b.y, a.z + b.z); }
+__device__ __forceinline__ V3 sub(V3 a, V3 b) { return mk(a.x - b.x, a.y - b.y, a.z - b.z); }
+__device__ __forceinline__ V3 scale(V3 a, float s) { return mk(a.x * s, a.y * s, a.z * s); }
+__device__ __forceinline__ V3 neg(V3 a) { return mk(-a.x, -a.y, -a.z); }
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return mk(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
+}
+__device__ __forceinline__ V3 normalize(V3 a) {
+  // correctly rounded 1/sqrt (no rsqrt approximation)
+  float inv = 1.0f / sqrtf(fmaxf(dot(a, a), 1e-20f));
+  return scale(a, inv);
+}
+__device__ __forceinline__ float ssqrt(float x) { return sqrtf(fmaxf(x, 1e-12f)); }
+__device__ __forceinline__ float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
+__device__ __forceinline__ float pick3(int chan, float r, float g, float b) {
+  return chan == 0 ? r : (chan == 1 ? g : b);
+}
+__device__ __forceinline__ V3 reflect(V3 wo, V3 n) {
+  float s = 2.0f * dot(wo, n);
+  return sub(scale(n, s), wo);
+}
+
+// ---- counter-based RNG (megakernel.py:138-158) ----------------------------
+
+__device__ __forceinline__ uint32_t murmur(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+__device__ __forceinline__ float unit(uint32_t x) {
+  return static_cast<float>(x >> 8) * (1.0f / 16777216.0f);
+}
+
+// ---- camera (megakernel.py:2021-2062) -------------------------------------
+
+__device__ __forceinline__ V3 rot(const float* om, V3 v) {
+  return mk(om[0] * v.x + om[1] * v.y + om[2] * v.z,
+            om[3] * v.x + om[4] * v.y + om[5] * v.z,
+            om[6] * v.x + om[7] * v.y + om[8] * v.z);
+}
+
+// The camera ray of pixel (fi, fj); u(c) is the sample's draw c: 0 and 1
+// place it in the pixel, 2 and 3 on the lens (read only with DoF on).
+template <class Draw>
+__device__ __forceinline__ void cam_ray_with(const Params& P, float fi, float fj, Draw u, V3& o,
+                                             V3& d) {
+  float u0 = u(0u);
+  float u1 = u(1u);
+  float x = (1.0f - 2.0f * (fi + u0) / static_cast<float>(P.width)) * P.xscale;
+  float y = (1.0f - 2.0f * (fj + u1) / static_cast<float>(P.height)) * P.yscale;
+  V3 dirs;
+  if (P.use_dof) {
+    float u2 = u(2u);
+    float u3 = u(3u);
+    float r = P.aperture * sqrtf(u2);
+    float theta = kTwoPi * u3;
+    float dx = r * cosf(theta);
+    float dy = r * sinf(theta);
+    V3 lens = rot(P.om, mk(dx, dy, 0.0f));
+    o = mk(P.pos[0] + lens.x, P.pos[1] + lens.y, P.pos[2] + lens.z);
+    float fd = P.focal;
+    dirs = mk(x * fd - dx, y * fd - dy, 1.0f * fd);
+  } else {
+    o = mk(P.pos[0], P.pos[1], P.pos[2]);
+    dirs = mk(x, y, 1.0f);
+  }
+  d = rot(P.om, normalize(dirs));
+}
+
+// ---- brute-force sweeps (megakernel.py:323-863) ----------------------------
+
+struct Hit {
+  V3 p, n;
+  float uvx, uvy, mat;
+  bool happened, emissive;
+};
+
+// The running winner of a nearest-hit query.
+struct Near {
+  float t, n0, n1, n2, uvx, uvy, mat, em;
+  int sph;
+};
+
+// Woop test of ray (o, d) against triangle row w: t, or kTMax on a miss.
+// Pad rows carry nr2 = 0 and fail the |det| >= ε term: never skip it.
+__device__ __forceinline__ float woop(const float* w, V3 o, V3 d, float& u, float& v) {
+  float dp2 = d.x * w[6] + d.y * w[7] + d.z * w[8];
+  float op2 = o.x * w[6] + o.y * w[7] + o.z * w[8] - w[11];
+  float det = -(dp2 * w[12]);
+  float det_g = fabsf(det) >= kEps ? det : 1.0f;
+  float t_hit = op2 * w[12] / det_g;
+  float dp0 = d.x * w[0] + d.y * w[1] + d.z * w[2];
+  float op0 = o.x * w[0] + o.y * w[1] + o.z * w[2] - w[9];
+  u = op0 + t_hit * dp0;
+  float dp1 = d.x * w[3] + d.y * w[4] + d.z * w[5];
+  float op1 = o.x * w[3] + o.y * w[4] + o.z * w[5] - w[10];
+  v = op1 + t_hit * dp1;
+  float m = fminf(fminf(u, v), fminf(fminf(1.0f - (u + v), t_hit), fabsf(det) - kEps));
+  return m >= 0.0f ? t_hit : kTMax;
+}
+
+// Take triangle row w (barycentrics u, v) as the winner at t.
+__device__ __forceinline__ void take_tri(Near& h, const float* w, float t, float u, float v,
+                                         bool textured) {
+  h.t = t;
+  h.n0 = w[14];
+  h.n1 = w[15];
+  h.n2 = w[16];
+  if (textured) {
+    float w0 = 1.0f - u - v;
+    h.uvx = w0 * w[17] + u * w[19] + v * w[21];
+    h.uvy = w0 * w[18] + u * w[20] + v * w[22];
+  }
+  h.mat = w[23];
+  h.em = w[24];
+  h.sph = -1;
+}
+
+// Every sphere after the triangles, strict `<`: a tie stays with a triangle.
+__device__ __forceinline__ void near_spheres(const Tables& T, V3 o, V3 d, Near& h) {
+  float a = d.x * d.x + d.y * d.y + d.z * d.z;
+  bool a_ok = a > 1e-12f;
+  float a_safe = fmaxf(a, 1e-12f);
+  for (int s = 0; s < T.n_sph; ++s) {
+    const float* S = T.sph + s * kSph;
+    float r = S[3];
+    float l0 = o.x - S[0], l1 = o.y - S[1], l2 = o.z - S[2];
+    float bq = 2.0f * (d.x * l0 + d.y * l1 + d.z * l2);
+    float cq = l0 * l0 + l1 * l1 + l2 * l2 - r * r;
+    float disc = bq * bq - 4.0f * a_safe * cq;
+    bool ok = disc >= 0.0f && a_ok && r > 0.0f;
+    float sq = sqrtf(fmaxf(disc, 0.0f));
+    float q = bq > 0.0f ? -0.5f * (bq + sq) : -0.5f * (bq - sq);
+    float qs = fabsf(q) > 1e-10f ? q : 1.0f;
+    float x0 = q / a_safe;
+    float x1 = cq / qs;
+    float lo = fminf(x0, x1), hi = fmaxf(x0, x1);
+    float t = lo < 0.0f ? hi : lo;
+    ok = ok && t >= 0.0f;
+    float t_cand = ok ? t : kTMax;
+    if (t_cand < h.t) {
+      h.t = t_cand;
+      h.n0 = h.n1 = h.n2 = 0.f;
+      h.uvx = h.uvy = 0.f;
+      h.mat = S[4];
+      h.em = S[5];
+      h.sph = s;
+    }
+  }
+}
+
+__device__ __forceinline__ Hit finish(const Tables& T, V3 o, V3 d, const Near& w) {
+  Hit h;
+  h.happened = w.t < kTMax;
+  float t_eff = h.happened ? w.t : 0.0f;
+  h.p = mk(o.x + d.x * t_eff, o.y + d.y * t_eff, o.z + d.z * t_eff);
+  if (w.sph >= 0) {
+    const float* S = T.sph + w.sph * kSph;
+    h.n = normalize(mk(h.p.x - S[0], h.p.y - S[1], h.p.z - S[2]));
+  } else {
+    h.n = mk(w.n0, w.n1, w.n2);
+  }
+  h.uvx = w.uvx;
+  h.uvy = w.uvy;
+  h.mat = w.mat;
+  h.emissive = w.em > 0.5f;
+  return h;
+}
+
+__device__ Hit nearest(const Tables& T, V3 o, V3 d, bool textured) {
+  Near h = {kTMax, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1};
+  for (int i = 0; i < T.n_tri; ++i) {
+    const float* w = T.tri + i * kTri;
+    float u, v;
+    float t_cand = woop(w, o, d, u, v);
+    if (t_cand < h.t) take_tri(h, w, t_cand, u, v, textured);
+  }
+  near_spheres(T, o, d, h);
+  return finish(T, o, d, h);
+}
+
+// ---- the BVH walks (replacing mcpt_tpu/kernels/cluster.py:257, 547, 835) --
+
+// Entry and exit t of the ray (o, 1/d) through node box nd.
+__device__ __forceinline__ void slab(const float* nd, V3 o, V3 inv, float& tmin, float& tmax) {
+  float a0 = (__ldg(nd + 0) - o.x) * inv.x, b0 = (__ldg(nd + 3) - o.x) * inv.x;
+  float a1 = (__ldg(nd + 1) - o.y) * inv.y, b1 = (__ldg(nd + 4) - o.y) * inv.y;
+  float a2 = (__ldg(nd + 2) - o.z) * inv.z, b2 = (__ldg(nd + 5) - o.z) * inv.z;
+  tmin = fmaxf(fmaxf(fminf(a0, b0), fminf(a1, b1)), fminf(a2, b2));
+  tmax = fminf(fminf(fmaxf(a0, b0), fmaxf(a1, b1)), fmaxf(a2, b2));
+}
+
+// Nearest hit through the BVH: the brute sweep's answer, ties included
+// (equal t goes to the lower triangle row, triangles beat spheres).
+__device__ Hit nearest_bvh(const Tables& T, V3 o, V3 d, bool textured) {
+  const V3 inv = mk(1.0f / d.x, 1.0f / d.y, 1.0f / d.z);
+  float t_best = kTMax, bu = 0.0f, bv = 0.0f;
+  int best = -1;
+  int node = 0;
+  while (node >= 0) {
+    const float* nd = T.bvh + node * 8;
+    float tmin, tmax;
+    slab(nd, o, inv, tmin, tmax);
+    const bool hit = tmin - kEps <= tmax && tmax >= -kEps && tmin - kEps <= t_best;
+    const float code = __ldg(nd + 7);
+    if (hit && code >= 0.0f) {
+      const int c = static_cast<int>(code), start = c >> 4, cnt = c & 15;
+      for (int j = 0; j < cnt; ++j) {
+        const int prim = __ldg(T.prims + start + j);
+        if (prim < 0) continue;
+        float u, v;
+        const float t_cand = woop(T.tri + prim * kTri, o, d, u, v);
+        if (t_cand < kTMax && (t_cand < t_best || (t_cand == t_best && prim < best))) {
+          t_best = t_cand;
+          best = prim;
+          bu = u;
+          bv = v;
+        }
+      }
+    }
+    node = (hit && code < 0.0f) ? node + 1 : static_cast<int>(__ldg(nd + 6));
+  }
+  Near h = {kTMax, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1};
+  if (best >= 0) take_tri(h, T.tri + best * kTri, t_best, bu, bv, textured);
+  near_spheres(T, o, d, h);
+  return finish(T, o, d, h);
+}
+
+// The shadow fan's division-free blocked-visibility predicate for one
+// triangle: every Möller-Trumbore condition multiplied through by |det|,
+// blocking at t < xs. op0, op1 and q = op2·nr2 are the origin's terms.
+__device__ __forceinline__ bool tri_blocks(const float* w, float op0, float op1, float q, V3 e,
+                                           float xs) {
+  float dp2 = e.x * w[6] + e.y * w[7] + e.z * w[8];
+  float det = -(dp2 * w[12]);
+  float dets = fabsf(det);
+  float qs = det < 0.0f ? -q : q;
+  float dp0 = e.x * w[0] + e.y * w[1] + e.z * w[2];
+  float u_s = op0 * dets + qs * dp0;
+  float dp1 = e.x * w[3] + e.y * w[4] + e.z * w[5];
+  float v_s = op1 * dets + qs * dp1;
+  float m = fminf(fminf(qs, dets - kEps), fminf(fminf(u_s, v_s), dets - (u_s + v_s)));
+  return m >= 0.0f && xs * dets - qs > 0.0f;
+}
+
+// The same for one sphere (l = o - c, cq = |l|² - r²), a = 1 q-form roots.
+__device__ __forceinline__ bool sph_blocks(float l0, float l1, float l2, float cq, bool r_ok, V3 e,
+                                           float xs) {
+  float hb = e.x * l0 + e.y * l1 + e.z * l2;
+  float disc = hb * hb - cq;
+  bool ok = disc >= 0.0f && r_ok;
+  float sq = sqrtf(fmaxf(disc, 0.0f));
+  float qq = hb > 0.0f ? -(hb + sq) : -(hb - sq);
+  float qs = fabsf(qq) > 1e-10f ? qq : 1.0f;
+  float x1 = cq / qs;
+  float lo = fminf(qq, x1), hi = fmaxf(qq, x1);
+  float t = lo < 0.0f ? hi : lo;
+  return ok && t >= 0.0f && t < xs;
+}
+
+// Shared-origin S-ray shadow fan: vis[si] is true when nothing blocks ray si
+// at t < dist − max(ε, REL_EPS·dist).
+template <int NS>
+__device__ void occlude_fan(const Tables& T, V3 o, const V3* ws, const float* dists,
+                            int ns, bool* vis) {
+  float xs[NS];
+  bool blocked[NS];
+  int n_open = ns;
+#pragma unroll
+  for (int si = 0; si < NS; ++si) {
+    if (si < ns) {
+      xs[si] = dists[si] - fmaxf(kRelEps * dists[si], kEps);
+      blocked[si] = false;
+    }
+  }
+  for (int i = 0; i < T.n_occ && n_open > 0; ++i) {
+    const float* w = T.occ + i * kOcc;
+    float op2 = o.x * w[6] + o.y * w[7] + o.z * w[8] - w[11];
+    float op0 = o.x * w[0] + o.y * w[1] + o.z * w[2] - w[9];
+    float op1 = o.x * w[3] + o.y * w[4] + o.z * w[5] - w[10];
+    float q = op2 * w[12];
+#pragma unroll
+    for (int si = 0; si < NS; ++si) {
+      if (si >= ns || blocked[si]) continue;
+      if (tri_blocks(w, op0, op1, q, ws[si], xs[si])) {
+        blocked[si] = true;
+        --n_open;
+      }
+    }
+  }
+  for (int s = 0; s < T.n_sph && n_open > 0; ++s) {
+    const float* S = T.sph + s * kSph;
+    float r = S[3];
+    float l0 = o.x - S[0], l1 = o.y - S[1], l2 = o.z - S[2];
+    float cq = l0 * l0 + l1 * l1 + l2 * l2 - r * r;
+    bool r_ok = r > 0.0f;
+#pragma unroll
+    for (int si = 0; si < NS; ++si) {
+      if (si >= ns || blocked[si]) continue;
+      if (sph_blocks(l0, l1, l2, cq, r_ok, ws[si], xs[si])) {
+        blocked[si] = true;
+        --n_open;
+      }
+    }
+  }
+#pragma unroll
+  for (int si = 0; si < NS; ++si) {
+    if (si < ns) vis[si] = !blocked[si];
+  }
+}
+
+// Does any triangle block the unit ray (o, e) before xs? An any-hit walk of
+// the BVH over the whole triangle table.
+__device__ bool bvh_blocked(const Tables& T, V3 o, V3 e, float xs) {
+  const V3 inv = mk(1.0f / e.x, 1.0f / e.y, 1.0f / e.z);
+  int node = 0;
+  while (node >= 0) {
+    const float* nd = T.bvh + node * 8;
+    float tmin, tmax;
+    slab(nd, o, inv, tmin, tmax);
+    const bool hit = tmin - kEps <= tmax && tmax >= -kEps && tmin - kEps <= xs;
+    const float code = __ldg(nd + 7);
+    if (hit && code >= 0.0f) {
+      const int c = static_cast<int>(code), start = c >> 4, cnt = c & 15;
+      for (int j = 0; j < cnt; ++j) {
+        const int prim = __ldg(T.prims + start + j);
+        if (prim < 0) continue;
+        const float* w = T.tri + prim * kTri;
+        float op2 = o.x * w[6] + o.y * w[7] + o.z * w[8] - w[11];
+        float op0 = o.x * w[0] + o.y * w[1] + o.z * w[2] - w[9];
+        float op1 = o.x * w[3] + o.y * w[4] + o.z * w[5] - w[10];
+        if (tri_blocks(w, op0, op1, op2 * w[12], e, xs)) return true;
+      }
+    }
+    node = (hit && code < 0.0f) ? node + 1 : static_cast<int>(__ldg(nd + 6));
+  }
+  return false;
+}
+
+// The fan through the BVH: each shadow ray walks on its own, then meets
+// the spheres by brute force.
+template <int NS>
+__device__ void occlude_fan_bvh(const Tables& T, V3 o, const V3* ws, const float* dists,
+                                int ns, bool* vis) {
+#pragma unroll
+  for (int si = 0; si < NS; ++si) {
+    if (si >= ns) break;
+    const float xs = dists[si] - fmaxf(kRelEps * dists[si], kEps);
+    bool blocked = bvh_blocked(T, o, ws[si], xs);
+    for (int s = 0; s < T.n_sph && !blocked; ++s) {
+      const float* S = T.sph + s * kSph;
+      float r = S[3];
+      float l0 = o.x - S[0], l1 = o.y - S[1], l2 = o.z - S[2];
+      float cq = l0 * l0 + l1 * l1 + l2 * l2 - r * r;
+      blocked = sph_blocks(l0, l1, l2, cq, r > 0.0f, ws[si], xs);
+    }
+    vis[si] = !blocked;
+  }
+}
+
+// ---- the env map (mcpt_tpu/envmap.py:14, Scene.hpp:60-99) ------------------
+
+// Channel `chan` of the env radiance along d: phi = atan2(z, x), theta =
+// acos(y), u wraps, v clamps, bilinear over texel centres at -0.5.
+__device__ float env_lookup(const Tables& T, V3 d, int chan) {
+  const int h = T.env_h, w = T.env_w;
+  float n2 = dot(d, d);
+  float inv = n2 > 1e-12f ? 1.0f / sqrtf(n2) : 0.0f;
+  float phi = atan2f(d.z * inv, d.x * inv);
+  float theta = acosf(clampf(d.y * inv, -1.0f, 1.0f));
+  float u = (phi + kPi) / kTwoPi;
+  float v = theta / kPi;
+  u = u - floorf(u);
+  v = clampf(v, 0.0f, 1.0f);
+  float x = u * static_cast<float>(w) - 0.5f;
+  float y = v * static_cast<float>(h) - 0.5f;
+  float x0 = floorf(x), y0 = floorf(y);
+  float sx = x - x0, sy = y - y0;
+  int x0i = static_cast<int>(x0), y0i = static_cast<int>(y0);
+  int x0w = ((x0i % w) + w) % w, x1w = (((x0i + 1) % w) + w) % w;
+  int y0c = min(max(y0i, 0), h - 1), y1c = min(max(y0i + 1, 0), h - 1);
+  float c00 = __ldg(T.env + (y0c * w + x0w) * 3 + chan);
+  float c10 = __ldg(T.env + (y0c * w + x1w) * 3 + chan);
+  float c01 = __ldg(T.env + (y1c * w + x0w) * 3 + chan);
+  float c11 = __ldg(T.env + (y1c * w + x1w) * 3 + chan);
+  float c0 = c00 * (1.0f - sx) + c10 * sx;
+  float c1 = c01 * (1.0f - sx) + c11 * sx;
+  return c0 * (1.0f - sy) + c1 * sy;
+}
+
+// ---- materials and the BSDF (megakernel.py:867-1137) -----------------------
+
+struct Mat {
+  float mtype, ior_a, ior_b, rough, refl, emit, textured, dirac;
+};
+
+__device__ Mat gather_mat(const Tables& T, float mat_id, int chan) {
+  Mat m = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  int k = static_cast<int>(mat_id);
+  if (k < 0 || k >= T.n_mat || static_cast<float>(k) != mat_id) return m;
+  const float* r = T.mat + k * kMat;
+  m.mtype = r[0];
+  m.ior_a = r[1];
+  m.ior_b = r[2];
+  m.rough = r[3];
+  m.refl = pick3(chan, r[4], r[5], r[6]);
+  m.emit = pick3(chan, r[7], r[8], r[9]);
+  m.textured = r[10];
+  m.dirac = r[11];
+  return m;
+}
+
+__device__ __forceinline__ bool is_conductor(float t) { return t < 1.5f; }
+__device__ __forceinline__ bool is_rough(float t) {
+  return fabsf(t - 1.0f) < 0.25f || fabsf(t - 3.0f) < 0.25f;
+}
+
+__device__ float chessboard(float u, float v) {
+  float col = truncf((u - 0.05f) * 10.0f);
+  float row = truncf(v * 12.0f);
+  bool in_board = col >= 3.0f && col <= 5.0f && row <= 7.0f;
+  float s = col + row;
+  bool is_white = (s - truncf(s * 0.5f) * 2.0f) == 1.0f;
+  return in_board && is_white ? 0.9f : 0.1f;
+}
+
+__device__ __forceinline__ float fresnel_schlick(float cos_theta, float f0) {
+  float inv = 1.0f - cos_theta;
+  float c2 = inv * inv;
+  return f0 + (1.0f - f0) * c2 * c2 * inv;
+}
+
+__device__ float fresnel(const Mat& m, float ior, V3 incident, V3 nrm) {
+  if (is_conductor(m.mtype)) return 1.0f;
+  float cosi = clampf(dot(incident, nrm), -1.0f, 1.0f);
+  bool outside = cosi <= 0.0f;
+  float etai = outside ? 1.0f : ior;
+  float etat = outside ? ior : 1.0f;
+  float sint = etai / etat * ssqrt(1.0f - cosi * cosi);
+  if (sint >= 1.0f) return 1.0f;  // total internal reflection
+  float cost = ssqrt(1.0f - sint * sint);
+  float aci = fabsf(cosi);
+  float rs_den = fmaxf(etat * aci + etai * cost, 1e-6f);
+  float rp_den = fmaxf(etai * aci + etat * cost, 1e-6f);
+  float rs = (etat * aci - etai * cost) / rs_den;
+  float rp = (etai * aci - etat * cost) / rp_den;
+  return 0.5f * (rs * rs + rp * rp);
+}
+
+__device__ V3 refract(float ior, V3 incident, V3 nrm) {
+  float cosi = clampf(dot(incident, nrm), -1.0f, 1.0f);
+  bool entering = cosi < 0.0f;
+  float etai = entering ? 1.0f : ior;
+  float etat = entering ? ior : 1.0f;
+  V3 n = entering ? nrm : neg(nrm);
+  float ci = fabsf(cosi);
+  float eta = etai / etat;
+  float k = 1.0f - eta * eta * (1.0f - ci * ci);
+  if (!(k >= 0.0f)) return mk(0.f, 0.f, 0.f);
+  float coef = eta * ci - ssqrt(k);
+  return add(scale(incident, eta), scale(n, coef));
+}
+
+__device__ float d_ggx(V3 h, V3 n, float alpha) {
+  float noh = fabsf(dot(n, h));
+  if (!(noh > kEps)) return 0.0f;
+  float tan2 = (1.0f - noh * noh) / (noh * noh);
+  float denom = (noh * noh) * (alpha + tan2);
+  denom = fabsf(denom) > 0.0f ? denom : 1.0f;
+  return alpha * alpha / (kPi * denom * denom);
+}
+
+__device__ float g1(V3 v, V3 n, float alpha) {
+  float nov = fabsf(dot(n, v));
+  if (!(nov > kEps)) return 0.0f;
+  float tan_t = ssqrt(1.0f - nov * nov) / nov;
+  if (tan_t == 0.0f) return 1.0f;
+  float at = alpha * tan_t;
+  return 2.0f / (1.0f + sqrtf(1.0f + at * at));
+}
+
+__device__ void tangent_frame(V3 n, V3& t, V3& b) {
+  if (fabsf(n.x) > fabsf(n.y)) {
+    float lx = sqrtf(fmaxf(n.x * n.x + n.z * n.z, 1e-30f));
+    t = mk(-n.z / lx, 0.0f, n.x / lx);
+  } else {
+    float ly = sqrtf(fmaxf(n.y * n.y + n.z * n.z, 1e-30f));
+    t = mk(0.0f, n.z / ly, -n.y / ly);
+  }
+  b = cross(n, t);
+}
+
+__device__ V3 sample_mfn(const Mat& m, V3 n, float xi1, float xi2) {
+  if (!is_rough(m.mtype)) return n;
+  float alpha = m.rough;
+  float phi = kTwoPi * xi1;
+  float a2 = alpha * alpha;
+  float cos_t = ssqrt(fmaxf(1.0f - xi2, 0.0f) / fmaxf(1.0f + (a2 - 1.0f) * xi2, 1e-20f));
+  float sin_t = ssqrt(1.0f - cos_t * cos_t);
+  float hx = sin_t * cosf(phi);
+  float hy = sin_t * sinf(phi);
+  V3 t, b;
+  tangent_frame(n, t, b);
+  return normalize(add(add(scale(t, hx), scale(b, hy)), scale(n, cos_t)));
+}
+
+__device__ __forceinline__ V3 half_reflect(V3 wi, V3 wo, V3 n) {
+  V3 h = normalize(add(wi, wo));
+  return dot(wi, n) > 0.0f ? h : neg(h);
+}
+
+// Material::eval (Material.hpp:330-408), the JAX kernel's default form: the
+// half vector is selected by the branch before D/G1/Fresnel, and only the
+// branch the material select reads is evaluated.
+__device__ float eval_bsdf(const Mat& m, float ior, float refl, V3 wi, V3 wo, V3 n,
+                           bool is_reflect) {
+  float win = dot(wi, n);
+  float won = dot(wo, n);
+  bool same_side = win * won > 0.0f;
+  float eta = win > 0.0f ? ior : 1.0f / ior;
+  float alpha = m.rough;
+  V3 nwi = neg(wi);
+  bool conductor = is_conductor(m.mtype);
+  V3 h;
+  if (is_reflect) {
+    h = half_reflect(wi, wo, n);
+  } else {
+    V3 h_t0 = normalize(sub(nwi, scale(wo, eta)));
+    h = dot(h_t0, n) > 0.0f ? h_t0 : neg(h_t0);
+  }
+  if (is_rough(m.mtype)) {
+    float d_h = d_ggx(h, n, alpha);
+    float g_h = g1(wi, h, alpha) * g1(wo, h, alpha);
+    float f_h = fresnel(m, ior, nwi, h);
+    if (is_reflect) {
+      float f_r = conductor ? fresnel_schlick(fabsf(dot(h, wo)), refl) : f_h;
+      float denom_r = 4.0f * fabsf(win) * fabsf(won) + kEps;
+      return same_side ? f_r * d_h * g_h / denom_r : 0.0f;
+    }
+    if (conductor || same_side || win * won == 0.0f) return 0.0f;
+    float hol = dot(h, wi);
+    float hov = dot(h, wo);
+    float den = hol + eta * hov;
+    den = den * den * fabsf(win * won);
+    den = fmaxf(den, 1e-10f);
+    return (1.0f - f_h) * d_h * g_h * eta * eta * fabsf(hol * hov) / den;
+  }
+  bool aligned = dot(h, n) >= kOneMinusEps;
+  if (is_reflect) {
+    if (!(same_side && aligned)) return 0.0f;
+    return conductor ? fresnel_schlick(fabsf(won), refl) : fresnel(m, ior, nwi, n);
+  }
+  if (!conductor && !same_side && win * won != 0.0f && aligned) {
+    return 1.0f - fresnel(m, ior, nwi, n);
+  }
+  return 0.0f;
+}
+
+// Material::pdf (Material.hpp:285-328)
+__device__ float pdf(const Mat& m, float ior, V3 wi, V3 wo, V3 n, bool is_reflect) {
+  float eta = dot(wi, n) > 0.0f ? ior : 1.0f / ior;
+  V3 hv = sub(neg(wi), scale(wo, eta));
+  V3 h_t = normalize(hv);
+  if (is_rough(m.mtype)) {
+    V3 h;
+    float jac;
+    if (is_reflect) {
+      h = half_reflect(wi, wo, n);
+      jac = 1.0f / fmaxf(4.0f * fabsf(dot(h, wo)), 1e-8f);
+    } else {
+      h = h_t;
+      float d1 = fmaxf(dot(hv, hv), 1e-12f);
+      jac = eta * eta * fabsf(dot(h_t, wo)) / d1;
+    }
+    float d = d_ggx(h, n, m.rough);
+    return d * dot(n, h) * jac;
+  }
+  V3 h_sm = is_reflect ? normalize(add(wi, wo)) : (dot(h_t, n) > 0.0f ? h_t : neg(h_t));
+  return fabsf(dot(h_sm, n)) > kOneMinusEps ? 1.0f : 0.0f;
+}
+
+// ---- what both kernels run per block ------------------------------------------
+
+template <bool BVH>
+__device__ __forceinline__ Hit trace(const Tables& T, V3 o, V3 d, bool textured) {
+  if constexpr (BVH) {
+    return nearest_bvh(T, o, d, textured);
+  } else {
+    return nearest(T, o, d, textured);
+  }
+}
+
+// Stage the scene tables into shared memory (a few KB for DEMO; at most
+// ~165 KB at the 1024-triangle bound) and return the block's view of them.
+// The BVH instances leave the triangle table (and the unused occluder
+// table) in global memory. Every thread of the block must call it.
+template <bool BVH>
+__device__ __forceinline__ Tables stage_tables(const Params& P, float* smem) {
+  const int cols[8] = {kTri, kOcc, kSph, kMat, kEmt, kEmeta, 1, 8};
+  const int rows[8] = {P.rows[0], P.rows[1], P.rows[2], P.rows[3],
+                       P.rows[4], P.rows[4], P.rows[5], 1};
+  const float* stab[8];
+  int off = 0;
+  for (int k = 0; k < 8; ++k) {
+    if (BVH && k < 2) {
+      stab[k] = P.tables[k];
+      continue;
+    }
+    int n = rows[k] * cols[k];
+    for (int i = threadIdx.x; i < n; i += blockDim.x) smem[off + i] = P.tables[k][i];
+    stab[k] = smem + off;
+    off += n;
+  }
+  __syncthreads();
+  return {stab[0], stab[1], stab[2], stab[3], stab[4], stab[5], stab[6], stab[7],
+          P.rows[0], P.rows[1], P.rows[2], P.rows[3], P.rows[4], P.rows[5],
+          P.env, P.bvh, P.prims, P.env_h, P.env_w};
+}
+
+// ---- the host side of both C entries ------------------------------------------
+
+// Params from the C interface's arrays (see the comment on each entry).
+inline Params unpack_params(const void* const* tables, const int* rows, const float* fpar,
+                            const int* ipar, void* out_rad, void* out_rays) {
+  Params P;
+  for (int k = 0; k < 8; ++k) P.tables[k] = static_cast<const float*>(tables[k]);
+  P.env = static_cast<const float*>(tables[8]);
+  P.bvh = static_cast<const float*>(tables[9]);
+  P.prims = static_cast<const int*>(tables[10]);
+  for (int k = 0; k < 6; ++k) P.rows[k] = rows[k];
+  P.out_rad = static_cast<float*>(out_rad);
+  P.out_rays = static_cast<float*>(out_rays);
+  P.xscale = fpar[0];
+  P.yscale = fpar[1];
+  for (int k = 0; k < 9; ++k) P.om[k] = fpar[2 + k];
+  for (int k = 0; k < 3; ++k) P.pos[k] = fpar[11 + k];
+  P.focal = fpar[14];
+  P.aperture = fpar[15];
+  P.inv_n_dir = fpar[16];
+  P.seed = ipar[0];
+  P.lane_offset = ipar[1];
+  P.n_lanes = ipar[2];
+  P.spp = ipar[3];
+  P.width = ipar[4];
+  P.height = ipar[5];
+  P.max_bounces = ipar[6];
+  P.n_dir = ipar[7];
+  P.enable_shadow = ipar[8];
+  P.textured = ipar[9];
+  P.n_sph_emitters = ipar[10];
+  P.use_dof = ipar[11];
+  P.env_h = ipar[12];
+  P.env_w = ipar[13];
+  P.use_env = ipar[14];
+  P.use_bvh = ipar[15];
+  P.lane_stride = ipar[16];
+  return P;
+}
+
+// Whether the kernels take P: light samples within the largest instance's
+// cap, a positive sample count and lane stride, an env map of at least 1x1.
+inline bool params_ok(const Params& P) {
+  return P.n_dir >= 0 && P.n_dir <= kMaxDir && P.spp > 0 && P.lane_stride > 0 && P.env_h > 0 &&
+         P.env_w > 0 && P.max_bounces >= 1 && P.max_bounces <= kMaxDepth;
+}
+
+// Dynamic shared memory of one block: the tables stage_tables copies.
+inline size_t smem_bytes(const Params& P) {
+  const int cols[8] = {kTri, kOcc, kSph, kMat, kEmt, kEmeta, 1, 8};
+  const int trows[8] = {P.rows[0], P.rows[1], P.rows[2], P.rows[3],
+                        P.rows[4], P.rows[4], P.rows[5], 1};
+  size_t floats = 0;
+  for (int k = P.use_bvh ? 2 : 0; k < 8; ++k) floats += static_cast<size_t>(trows[k]) * cols[k];
+  return floats * sizeof(float);
+}
+
+// Launch `kernel` over P's lanes, kThreads a block, opting in to more than
+// 48 KB of dynamic shared memory where the tables need it.
+template <class Kernel>
+cudaError_t launch_lanes(Kernel kernel, const Params& P, cudaStream_t stream) {
+  const size_t smem = smem_bytes(P);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (P.n_lanes + kThreads - 1) / kThreads;
+  kernel<<<blocks, kThreads, smem, stream>>>(P);
+  return cudaGetLastError();
+}
+
+}  // namespace

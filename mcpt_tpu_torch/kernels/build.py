@@ -2,7 +2,7 @@
 interface, to be loaded with ctypes.
 
 Each library is compiled with nvcc for sm_90a at first use into
-`mcpt_tpu_torch/_build/<hash of source and flags>/`, with `-fmad=false` and
+`mcpt_tpu_torch/_build/<hash of source, headers and flags>/`, with `-fmad=false` and
 no fast math so that every float32 expression rounds as its plain PyTorch
 version's does. A process loads each library once (`load`).
 """
@@ -38,8 +38,12 @@ def nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    """Where the library of `source` (as it is now) is, or will be, built."""
+    """Where the library of `source` (as it is now) is, or will be, built:
+    named by a hash of the source, of every header in `csrc/` (so a change
+    to a header it includes rebuilds it) and of the flags."""
     h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / h.hexdigest()[:16] / f"lib{source.stem}.so"
 

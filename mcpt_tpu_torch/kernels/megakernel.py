@@ -1,11 +1,13 @@
-"""Launch wrapper of the path-regeneration megakernel (counterpart of
+"""Launch wrapper of the two megakernels (counterpart of
 `mcpt_tpu/kernels/megakernel.py:2961-3101` `trace_mega_block`).
 
-`trace_block` takes the plain PyTorch version (`megakernel_ref`) for tensors
-on the CPU and launches the CUDA kernel `csrc/megakernel.cu` for tensors on a
-CUDA device; there is no fallback between the two. The kernel is compiled
-with nvcc at first use (`kernels/build.py`) as a shared library with a plain
-C interface and loaded with ctypes.
+`trace_block` takes the plain PyTorch versions (`megakernel_ref`) for tensors
+on the CPU and launches a CUDA kernel for tensors on a CUDA device; there is
+no fallback between the two. `regen=True` is the path-regeneration kernel
+(`csrc/megakernel.cu`, `mega_regen<S, ENV, BVH>`), `regen=False` the lockstep
+spp × depth kernel (`csrc/mega_lockstep.cu`, `mega_lockstep<S, BVH>`). Each
+source is compiled with nvcc at first use (`kernels/build.py`) as a shared
+library with a plain C interface and loaded with ctypes.
 """
 
 import collections
@@ -17,12 +19,27 @@ import torch
 from mcpt_tpu_torch.kernels import build as _build
 from mcpt_tpu_torch.kernels.megakernel_ref import (
     MAX_BOUNCES_LIMIT,
+    trace_block_lockstep_ref,
     trace_block_ref,
 )
 from mcpt_tpu_torch.kernels.tables import EXTRA, TABLE_COLS
 
 SOURCE = _build.CSRC / "megakernel.cu"
-MAX_DIR = 32  # csrc/megakernel.cu kMaxDir
+LOCKSTEP_SOURCE = _build.CSRC / "mega_lockstep.cu"
+MAX_DIR = 32  # csrc/mega_common.cuh kMaxDir
+# each source, its C entry and how many template flags (after S) that entry
+# reports it launched
+_KERNELS = {
+    True: (SOURCE, "mcpt_mega_trace", 2),
+    False: (LOCKSTEP_SOURCE, "mcpt_mega_lockstep", 1),
+}
+
+
+def instance_name(s: int, *flags: int) -> str:
+    """The template instance as the C++ source writes it: `mega_regen<S,
+    ENV, BVH>` for two flags, `mega_lockstep<S, BVH>` for one."""
+    kernel = "mega_regen" if len(flags) == 2 else "mega_lockstep"
+    return f"{kernel}<{', '.join([str(s), *(('false', 'true')[f] for f in flags)])}>"
 
 
 def ptxas_summary(log: str) -> list:
@@ -30,9 +47,11 @@ def ptxas_summary(log: str) -> list:
     template arguments, registers and spill bytes."""
     out, name = [], None
     for line in log.splitlines():
-        m = re.search(r"entry function '[^']*mega_regenILi(n?\d+)ELb(\d)ELb(\d)E", line)
+        m = re.search(r"entry function '[^']*(?:mega_regen|mega_lockstep)ILi(n?\d+)E((?:Lb\dE)+)",
+                      line)
         if m:  # the mangled name writes a negative S as n<digits>
-            name = instance_name(int(m[1].replace("n", "-")), int(m[2]), int(m[3]))
+            flags = [int(f) for f in re.findall(r"Lb(\d)E", m[2])]
+            name = instance_name(int(m[1].replace("n", "-")), *flags)
             spill = ""
         elif name and "spill stores" in line:
             spill = line.strip()
@@ -42,21 +61,23 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
-def build(verbose: bool = False):
-    """Compile csrc/megakernel.cu if no library for this source exists;
-    with `verbose`, print each instance's registers and spills."""
-    return _build.build(SOURCE, verbose, ptxas_summary)
+def build(verbose: bool = False, regen: bool = True):
+    """Compile one kernel source (the regen kernel's, or with regen=False
+    the lockstep kernel's) if no library for it exists; with `verbose`,
+    print each instance's registers and spills."""
+    return _build.build(_KERNELS[regen][0], verbose, ptxas_summary)
 
 
-def _bind(lib):
-    fn = lib.mcpt_mega_trace
-    fn.argtypes = [ctypes.c_void_p] * 8
-    fn.restype = ctypes.c_int
+def load_library(regen: bool = True):
+    """Build (if needed) and load one kernel library once per process."""
+    source, entry, _ = _KERNELS[regen]
 
+    def bind(lib):
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * 8
+        fn.restype = ctypes.c_int
 
-def load_library():
-    """Build (if needed) and load the kernel library once per process."""
-    return _build.load(SOURCE, _bind)
+    return _build.load(source, bind)
 
 
 def _check_tables(tables):
@@ -72,10 +93,12 @@ def _check_tables(tables):
         raise ValueError("emeta rows must equal emt rows and par must be (1, 8)")
 
 
-def kernel_args(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces, rad, rays):
+def kernel_args(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces, rad, rays,
+                lane_stride=1):
     """The C interface's argument list for one launch (see the comment on
-    `mcpt_mega_trace` in csrc/megakernel.cu), pointers from `data_ptr()`;
-    each ctypes array stays alive through the cast that points at it."""
+    `mcpt_mega_trace` in csrc/megakernel.cu; the lockstep entry takes the
+    same), pointers from `data_ptr()`; each ctypes array stays alive through
+    the cast that points at it."""
     n_dir = tables.n_dir_sample if tables.n_emitters else 0
     ptrs = (ctypes.c_void_p * 11)(
         *(getattr(tables, k).data_ptr() for k in (*TABLE_COLS, *EXTRA))
@@ -88,12 +111,12 @@ def kernel_args(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces, rad, 
         cam["xscale"], cam["yscale"], *om, *cam["pos"], cam["focal"],
         cam["aperture"], (1.0 / n_dir) if n_dir else 0.0,
     )
-    ipar = (ctypes.c_int * 16)(
+    ipar = (ctypes.c_int * 17)(
         int(seed), int(lane_offset), int(n_lanes), int(spp), cam["width"],
         cam["height"], int(max_bounces), n_dir, int(tables.enable_shadow),
         int(tables.any_textured), int(tables.n_sph_emitters), int(cam["use_dof"]),
         tables.env.shape[0], tables.env.shape[1], int(tables.use_env),
-        int(tables.use_bvh),
+        int(tables.use_bvh), int(lane_stride),
     )
     return [
         ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(rows, ctypes.c_void_p),
@@ -102,56 +125,57 @@ def kernel_args(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces, rad, 
     ]
 
 
-def instance_name(s: int, env: int, bvh: int) -> str:
-    """`mega_regen<S, ENV, BVH>` as the C++ source writes the instance."""
-    flag = ("false", "true")
-    return f"mega_regen<{s}, {flag[env]}, {flag[bvh]}>"
-
-
-def trace_block(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8):
-    """One kernel launch over lanes [lane_offset, lane_offset + n_lanes) of
-    the camera `cam` (`megakernel_ref.cam_static`). Returns (mean radiance,
-    ray count), two float32 (n_lanes,) tensors on the tables' device.
-    Each launch adds one to `trace_block.launches` and to the count, in
-    `trace_block.by_instance`, of the template instance the C side reports
-    it launched; `trace_block.last_instance` names that instance."""
+def trace_block(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8, *, regen=True,
+                lane_stride=1):
+    """One kernel launch over lanes lane_offset + i·lane_stride, i < n_lanes,
+    of the camera `cam` (`megakernel_ref.cam_static`): the regen kernel, or
+    with regen=False the lockstep kernel (no env maps). Lanes past the image
+    (3·W·H) are traced as JAX traces the sharded render's pad lanes. Returns
+    (mean radiance, ray count), two float32 (n_lanes,) tensors on the
+    tables' device. Each launch adds one to `trace_block.launches` and to
+    the count, in `trace_block.by_instance`, of the template instance the C
+    side reports it launched; `trace_block.last_instance` names that
+    instance."""
     if not 1 <= max_bounces <= MAX_BOUNCES_LIMIT:
         raise ValueError(f"max_bounces must be in [1, {MAX_BOUNCES_LIMIT}]")
-    if spp < 1 or n_lanes < 0:
-        raise ValueError(f"spp {spp}, n_lanes {n_lanes}")
+    if spp < 1 or n_lanes < 0 or lane_stride < 1:
+        raise ValueError(f"spp {spp}, n_lanes {n_lanes}, lane_stride {lane_stride}")
+    if lane_offset < 0 or lane_offset + max(n_lanes - 1, 0) * lane_stride >= 2**31:
+        raise ValueError("lanes outside int32's range")
+    if not regen and tables.use_env:
+        raise ValueError("env-map scenes require the regen megakernel")
     _check_tables(tables)
     dev = tables.device
     if dev.type == "cpu":
-        return trace_block_ref(
-            tables, cam, seed, lane_offset, spp, n_lanes, max_bounces
-        )
+        ref = trace_block_ref if regen else trace_block_lockstep_ref
+        return ref(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces,
+                   lane_stride=lane_stride)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     n_dir = tables.n_dir_sample if tables.n_emitters else 0
     if n_dir > MAX_DIR:
         raise ValueError(f"n_dir_sample {n_dir} > {MAX_DIR}")
-    if lane_offset + n_lanes > 3 * cam["width"] * cam["height"] or lane_offset < 0:
-        raise ValueError("lanes outside the image")
-    lib = load_library()
+    lib = load_library(regen)
+    _, entry, n_flags = _KERNELS[regen]
     rad = torch.empty(n_lanes, dtype=torch.float32, device=dev)
     rays = torch.empty(n_lanes, dtype=torch.float32, device=dev)
     args = kernel_args(
-        tables, cam, seed, lane_offset, spp, n_lanes, max_bounces, rad, rays
+        tables, cam, seed, lane_offset, spp, n_lanes, max_bounces, rad, rays, lane_stride
     )
     launched = (ctypes.c_int * 3)(0, 0, 0)  # S stays 0 if nothing launched
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.mcpt_mega_trace(*args, stream, ctypes.cast(launched, ctypes.c_void_p))
+        status = getattr(lib, entry)(*args, stream, ctypes.cast(launched, ctypes.c_void_p))
     if status != 0:
         raise RuntimeError(f"megakernel launch failed: cudaError {status}")
     if launched[0]:
-        trace_block.last_instance = instance_name(*launched)
+        trace_block.last_instance = instance_name(*launched[: 1 + n_flags])
         trace_block.launches += 1
         trace_block.by_instance[trace_block.last_instance] += 1
     return rad, rays
 
 
-# launches of the kernel, in all and by template instance
+# launches of the kernels, in all and by template instance
 trace_block.launches = 0
 trace_block.by_instance = collections.Counter()
 trace_block.last_instance = None

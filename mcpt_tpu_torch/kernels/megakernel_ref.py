@@ -112,6 +112,19 @@ def mul32_int(x: int, k: int) -> int:
     return ((x & _M32) * k) & _M32
 
 
+def lockstep_sample_key(s: int, seed: int) -> int:
+    """The lockstep kernel's per-sample counter base su (megakernel.py:1700);
+    its camera draw c is `draw(pixel, murmur(su + 101 + c))`
+    (:1704-1711)."""
+    return (0x9E3779B9 * (s + 1) + seed) & _M32
+
+
+def lockstep_depth_key(su: int, depth: int) -> int:
+    """The lockstep kernel's per-depth base du (megakernel.py:1759): vertex
+    draw `use` is `draw(lane, du + use)` (:1766)."""
+    return murmur((su + depth * 0x85EBCA77) & _M32)
+
+
 # ---------------------------------------------------------------------------
 # Vector helpers (3-tuples of tensors)
 # ---------------------------------------------------------------------------
@@ -220,16 +233,25 @@ def _rot(om, v):
 def cam_ray(cam, seed: int, pix_u, fi, fj, s_act):
     """Camera ray of sample `s_act` (megakernel.py:2021-2062,
     Renderer.cpp:44-76); the three channel lanes of a pixel share it."""
-    u0 = unit(murmur(cam_key(pix_u, s_act, seed, 0x51ED2701)))
-    u1 = unit(murmur(cam_key(pix_u, s_act, seed, 0x51ED2702)))
+    return cam_ray_from(
+        cam, fi, fj, lambda c: unit(murmur(cam_key(pix_u, s_act, seed, 0x51ED2701 + c)))
+    )
+
+
+def cam_ray_from(cam, fi, fj, u):
+    """The camera ray of pixels (fi, fj) from the sample's draws `u(c)`: 0
+    and 1 place it in the pixel, 2 and 3 on the lens (drawn only with DoF
+    on)."""
+    u0 = u(0)
+    u1 = u(1)
     # true division by tensors: CUDA torch turns division by a Python scalar
     # into multiplication by its reciprocal, which rounds differently
     x = (1.0 - 2.0 * (fi + u0) / torch.full_like(fi, cam["width"])) * cam["xscale"]
     y = (1.0 - 2.0 * (fj + u1) / torch.full_like(fj, cam["height"])) * cam["yscale"]
     one = torch.ones_like(x)
     if cam["use_dof"]:
-        u2 = unit(murmur(cam_key(pix_u, s_act, seed, 0x51ED2703)))
-        u3 = unit(murmur(cam_key(pix_u, s_act, seed, 0x51ED2704)))
+        u2 = u(2)
+        u3 = u(3)
         r = cam["aperture"] * _sqrt(u2)
         theta = TWO_PI * u3
         dx = r * torch.cos(theta)
@@ -1007,14 +1029,55 @@ def nee_shade(ctx, n, V, vis):
 
 
 # ---------------------------------------------------------------------------
+# What both kernels' plain versions share: lanes, queries and the work tally
+# ---------------------------------------------------------------------------
+
+
+def block_lanes(n_lanes, lane_offset, lane_stride, dev):
+    """The lane ids of one launch: lane_offset + i·lane_stride, i < n_lanes
+    (megakernel.py:1642, :1965). Ids past the image (3·W·H, the sharded
+    render's pad lanes) map to pixels below it, as in JAX."""
+    return torch.arange(n_lanes, dtype=torch.int64, device=dev) * int(lane_stride) + int(
+        lane_offset
+    )
+
+
+def _nearest(tables, o, d, live, textured, ops):
+    """The nearest hit of the rays (o, d), through the BVH walk for the
+    rays where `live` or by the brute sweep for every ray; tallies the live
+    rays' tests."""
+    _tally(ops, "sph", live.sum() * tables.sph.shape[0])
+    if tables.use_bvh:
+        return bvh_nearest(tables, o, d, live, textured=textured, ops=ops)
+    _tally(ops, "woop", live.sum() * tables.tri.shape[0])
+    return intersect_tile(tables.tri, tables.sph, o, d, textured=textured)
+
+
+def _tally_fan(ops, tables, at_vertex, vis):
+    """A brute-force fan counts a visible shadow ray's whole sweep and one
+    test for a blocked ray; the BVH walk tallies its own tests."""
+    if ops is None or vis is None:
+        return
+    n_occ = tables.occ.shape[0]
+    for v in vis:
+        seen = (at_vertex & v).sum()
+        _tally(ops, "sph", seen * tables.sph.shape[0])
+        if not tables.use_bvh:
+            _tally(ops, "fan_tri", seen * n_occ + (at_vertex & ~v).sum())
+    if not tables.use_bvh:
+        _tally(ops, "fan_origin", at_vertex.sum() * n_occ)
+
+
+# ---------------------------------------------------------------------------
 # The regen kernel, lockstep over lanes (megakernel.py:1860-2504, 2755-2774)
 # ---------------------------------------------------------------------------
 
 
-def trace_block_ref(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8, ops=None):
-    """Plain version of one kernel launch over lanes
-    [lane_offset, lane_offset + n_lanes): returns (mean radiance, ray count),
-    two float32 (n_lanes,) tensors on the tables' device.
+def trace_block_ref(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8, ops=None,
+                    lane_stride=1):
+    """Plain version of one regen-kernel launch over lanes
+    lane_offset + i·lane_stride, i < n_lanes: returns (mean radiance, ray
+    count), two float32 (n_lanes,) tensors on the tables' device.
 
     Lockstep form of `_iter_live`: every lane runs its own sample stream; per
     iteration each lane either finalizes its pending env-terminal (bounce
@@ -1041,45 +1104,21 @@ def trace_block_ref(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8,
         raise ValueError(f"max_bounces {max_bounces} > {MAX_BOUNCES_LIMIT}")
     dev = tables.device
     seed = int(seed)
-    lane = torch.arange(n_lanes, dtype=torch.int64, device=dev) + int(lane_offset)
+    lane = block_lanes(n_lanes, lane_offset, lane_stride, dev)
     pix, chan, fi, fj, lane, _ = lane_to_pixel(lane, cam["width"])
     ctx = make_ctx(tables, chan)
     n_dir = ctx["n_dir_sample"]
     textured = ctx["textured"]
     shadow = ctx["enable_shadow"] and n_dir > 0
-    tri, occ, sph = tables.tri, tables.occ, tables.sph
-
     use_bvh = tables.use_bvh
     use_env = ctx["use_env"]
-
-    def nearest(o, d, live):
-        if use_bvh:
-            return bvh_nearest(tables, o, d, live, textured=textured, ops=ops)
-        return intersect_tile(tri, sph, o, d, textured=textured)
-
-    def tally_fan(at_vertex, vis):
-        if ops is None or vis is None:
-            return
-        for v in vis:
-            seen = (at_vertex & v).sum()
-            _tally(ops, "sph", seen * sph.shape[0])
-            if not use_bvh:
-                _tally(ops, "fan_tri", seen * occ.shape[0] + (at_vertex & ~v).sum())
-        if not use_bvh:
-            _tally(ops, "fan_origin", at_vertex.sum() * occ.shape[0])
-
-    def tally_near(live):
-        _tally(ops, "sph", live.sum() * sph.shape[0])
-        if not use_bvh:
-            _tally(ops, "woop", live.sum() * tri.shape[0])
 
     zero_i = torch.zeros(n_lanes, dtype=torch.int64, device=dev)
     zero_f = torch.zeros(n_lanes, dtype=torch.float32, device=dev)
     o, d = cam_ray(cam, seed, pix, fi, fj, zero_i)
     all_lanes = torch.ones(n_lanes, dtype=torch.bool, device=dev)
-    hit = nearest(o, d, all_lanes)
     _tally(ops, "camera", n_lanes)
-    tally_near(all_lanes)
+    hit = _nearest(tables, o, d, all_lanes, textured, ops)
     s_lane = zero_i
     d_lane = zero_i
     has_pend = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
@@ -1116,31 +1155,14 @@ def trace_block_ref(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8,
         o_n = _where3(need_spawn, oc, V["p_new"])
         d_n = _where3(need_spawn, dc, _where3(survive, V["wi"], d))
 
-        fans = [(V["p_dl"], [s_[0] for s_ in V["samples"]],
-                 [s_[1] for s_ in V["samples"]])]
-        if use_bvh:
-            vis = None
-            if shadow and V["samples"]:
-                vis = bvh_fan(tables, *fans[0], at_vertex, ops=ops)
-            hit_n = bvh_nearest(tables, o_n, d_n, need_spawn | survive, textured=textured,
-                                ops=ops)
-        elif shadow and V["samples"]:
-            vis_l, hit_l = fan_and_nearest(
-                tri, occ, sph, fans, [(o_n, d_n)], textured=textured
-            )
-            vis, hit_n = vis_l[0], hit_l[0]
-        else:
-            vis = None
-            hit_n = intersect_tile(tri, sph, o_n, d_n, textured=textured)
+        vis = _fan(tables, V, at_vertex, shadow, ops)
+        _tally(ops, "camera", need_spawn.sum())
+        hit_n = _nearest(tables, o_n, d_n, need_spawn | survive, textured, ops)
         l_dir = nee_shade(ctx, n, V, vis)
-        if ops is not None:
-            _tally(ops, "camera", need_spawn.sum())
-            _tally(ops, "vertex", at_vertex.sum())
-            tally_near(need_spawn | survive)
-            tally_fan(at_vertex, vis if shadow and V["samples"] else None)
-            if use_env:
-                _tally(ops, "env", (proc & ~happened).sum() + survive.sum())
+        _tally(ops, "vertex", at_vertex.sum())
+        _tally_fan(ops, tables, at_vertex, vis)
         if use_env:
+            _tally(ops, "env", (proc & ~happened).sum() + survive.sum())
             miss_leaf = env_where(ctx, proc & ~happened, d)
             env_ind = env_where(ctx, survive, V["wi"]) * V["ev"] * ctx["inv_rr"]
         else:
@@ -1187,4 +1209,122 @@ def trace_block_ref(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8,
         )
         d = d_n
         hit = hit_n
+    return rad / torch.full_like(rad, spp), rays
+
+
+def _fan(tables, V, at_vertex, shadow, ops):
+    """Visibility of a vertex's shadow rays (one bool tensor per light
+    sample), or None when nothing is tested: the BVH walk for the lanes at
+    a vertex, else the brute fan over the occluder table."""
+    if not (shadow and V["samples"]):
+        return None
+    fan = (V["p_dl"], [s_[0] for s_ in V["samples"]], [s_[1] for s_ in V["samples"]])
+    if tables.use_bvh:
+        return bvh_fan(tables, *fan, at_vertex, ops=ops)
+    return occlude_shared_origin(tables.occ, tables.sph, *fan)
+
+
+# ---------------------------------------------------------------------------
+# The lockstep kernel K1b (megakernel.py:1579-1857)
+# ---------------------------------------------------------------------------
+
+
+def trace_block_lockstep_ref(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8,
+                             lane_stride=1, ops=None):
+    """Plain version of one lockstep-kernel launch over lanes
+    lane_offset + i·lane_stride, i < n_lanes: returns (mean radiance, ray
+    count), two float32 (n_lanes,) tensors on the tables' device.
+
+    Every lane runs sample s at once: the camera ray (keyed per sample,
+    `lockstep_sample_key`), then per depth the vertex (`vertex_pre`, the
+    fan, `nee_shade`, draws keyed by `lockstep_depth_key`) and the next
+    hit, writing a record (rec0, w, terminal) into (max_bounces, 3, n)
+    tensors: rec0 is the leaf value where the path ends (a miss: the
+    background; an emitter seen from the camera; a Russian-roulette kill:
+    the raw l_dir; a bounce ray that misses or reaches an emitter:
+    clamp15(l_dir) + clamp5(env_ind)), else l_dir. The depth loop stops when
+    no lane is alive (slots left over read terminal 0), and the sample's
+    radiance is the reverse fold L = terminal ? rec0 : clamp15(rec0) +
+    clamp5(w·L) from L = 0. No env maps: the JAX kernel refuses them. `ops`
+    tallies the work as `trace_block_ref` does."""
+    if max_bounces > MAX_BOUNCES_LIMIT:
+        raise ValueError(f"max_bounces {max_bounces} > {MAX_BOUNCES_LIMIT}")
+    if tables.use_env:
+        raise ValueError("env-map scenes require the regen megakernel")
+    dev = tables.device
+    seed = int(seed) & _M32
+    lane = block_lanes(n_lanes, lane_offset, lane_stride, dev)
+    pix, chan, fi, fj, lane, _ = lane_to_pixel(lane, cam["width"])
+    ctx = make_ctx(tables, chan)
+    n_dir = ctx["n_dir_sample"]
+    textured = ctx["textured"]
+    shadow = ctx["enable_shadow"] and n_dir > 0
+    all_lanes = torch.ones(n_lanes, dtype=torch.bool, device=dev)
+    rad = torch.zeros(n_lanes, dtype=torch.float32, device=dev)
+    rays = torch.zeros_like(rad)
+
+    for s in range(spp):
+        su = lockstep_sample_key(s, seed)
+        o, d = cam_ray_from(
+            cam, fi, fj, lambda c, su=su: draw(pix, murmur((su + 101 + c) & _M32))
+        )
+        _tally(ops, "camera", n_lanes)
+        hit = _nearest(tables, o, d, all_lanes, textured, ops)
+        alive = all_lanes
+        rays_s = torch.ones_like(rad)  # the camera ray
+        rec = torch.zeros((max_bounces, 3, n_lanes), dtype=torch.float32, device=dev)
+        rec[:, 2] = 1.0
+        for depth in range(max_bounces):
+            if not bool(alive.any()):
+                break
+            du = lockstep_depth_key(su, depth)
+            _, happened, p, n, uv, mat_id, emissive = hit
+            V = vertex_pre(
+                ctx, lambda use, du=du: draw(lane, (du + use) & _M32), d, p, n, uv,
+                mat_id, happened, emissive, depth == 0,
+            )
+            at_vertex = alive & happened & ~V["is_b"]
+            vis = _fan(tables, V, at_vertex, shadow, ops)
+            l_dir = nee_shade(ctx, n, V, vis)
+            goes = at_vertex & ~V["rr_kill"]
+            nxt = _nearest(tables, V["p_new"], V["wi"], goes, textured, ops)
+            cont = goes & nxt[1] & ~nxt[6]
+            _tally(ops, "vertex", at_vertex.sum())
+            _tally_fan(ops, tables, at_vertex, vis)
+            leaf = torch.where(
+                ~alive,
+                0.0,
+                torch.where(
+                    ~happened,
+                    V["bg_l"],
+                    torch.where(
+                        V["is_b"],
+                        V["b_leaf"],
+                        torch.where(
+                            V["rr_kill"],
+                            l_dir,
+                            torch.clamp(l_dir, 0.0, CLAMP_DIRECT)
+                            + torch.clamp(V["env_ind"], 0.0, CLAMP_INDIRECT),
+                        ),
+                    ),
+                ),
+            )
+            rec[depth, 0] = torch.where(cont, torch.where(alive, l_dir, 0.0), leaf)
+            rec[depth, 1] = V["w"]
+            rec[depth, 2] = (~cont).to(torch.float32)
+            survive = goes & (depth < max_bounces - 1)
+            rays_s = rays_s + torch.where(at_vertex, float(n_dir), 0.0) + survive.to(
+                torch.float32
+            )
+            d, hit, alive = V["wi"], nxt, cont
+        acc = torch.zeros_like(rad)
+        for k in reversed(range(max_bounces)):
+            acc = torch.where(
+                rec[k, 2] > 0.5,
+                rec[k, 0],
+                torch.clamp(rec[k, 0], 0.0, CLAMP_DIRECT)
+                + torch.clamp(rec[k, 1] * acc, 0.0, CLAMP_INDIRECT),
+            )
+        rad = rad + acc
+        rays = rays + rays_s
     return rad / torch.full_like(rad, spp), rays

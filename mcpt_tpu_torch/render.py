@@ -1,5 +1,6 @@
-"""Full-image renders: through the megakernel (`render_mega`, counterpart
-of `mcpt_tpu/kernels/megakernel.py:3301-3387`) and through the wavefront
+"""Full-image renders: through the megakernels (`render_mega` and
+`render_mega_sharded`, counterparts of `mcpt_tpu/kernels/megakernel.py:
+3301-3387` and `:3161-3298`) and through the wavefront
 engine (`render_radiance` and `render`, counterparts of
 `mcpt_tpu/render.py:35-178`).
 
@@ -33,6 +34,9 @@ from mcpt_tpu_torch.utils.progress import ProgressBar
 # Lanes per kernel launch: bounds the plain version's (lanes, primitives)
 # temporaries on the CPU; on the card each launch is one kernel.
 BLOCK_LANES = 1 << 20
+# the sharded render rounds each device's lanes up to a multiple of this
+# (mcpt_tpu/kernels/megakernel.py CHUNK)
+LANE_CHUNK = 1024
 
 
 def resolve_device(device) -> torch.device:
@@ -46,20 +50,32 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def render_mega(scene, camera, spp, seed=0, *, max_bounces=8, device="cuda"):
-    """Render `camera`'s image of `scene` (a `ScenePack` or `SceneTables`).
+def _tables_on(scene, dev):
+    """`scene` (a `ScenePack` or `SceneTables`) as `SceneTables` on `dev`."""
+    if isinstance(scene, SceneTables):
+        return scene.to(dev)
+    return SceneTables.from_pack(scene, device=dev)
+
+
+def _check_regen(tables, regen):
+    if tables.use_env and not regen:
+        raise ValueError("env-map scenes require the regen megakernel")
+
+
+def render_mega(scene, camera, spp, seed=0, *, max_bounces=8, device="cuda", regen=True):
+    """Render `camera`'s image of `scene` (a `ScenePack` or `SceneTables`)
+    through the path-regeneration kernel, or with regen=False through the
+    lockstep kernel (no env maps).
 
     Returns ((H, W, 3) float32 linear radiance as numpy, stats) with the JAX
     function's stats keys. Rays are counted as bench.py counts them: 1 per
     camera sample, `n_dir_sample` shadow rays per path vertex, 1 per bounce
     ray traced."""
     dev = resolve_device(device)
-    if isinstance(scene, SceneTables):
-        tables = scene.to(dev)
-    else:
-        tables = SceneTables.from_pack(scene, device=dev)
+    tables = _tables_on(scene, dev)
+    _check_regen(tables, regen)
     if dev.type == "cuda":
-        load_library()  # build outside the timed region
+        load_library(regen)  # build outside the timed region
     cam = cam_static(camera)
     w, h = camera.width, camera.height
     lanes = w * h * 3
@@ -67,7 +83,8 @@ def render_mega(scene, camera, spp, seed=0, *, max_bounces=8, device="cuda"):
     rads, rays = [], []
     for off in range(0, lanes, BLOCK_LANES):
         r, ry = trace_block(
-            tables, cam, seed, off, spp, min(BLOCK_LANES, lanes - off), max_bounces
+            tables, cam, seed, off, spp, min(BLOCK_LANES, lanes - off), max_bounces,
+            regen=regen,
         )
         rads.append(r)
         rays.append(ry)
@@ -81,6 +98,74 @@ def render_mega(scene, camera, spp, seed=0, *, max_bounces=8, device="cuda"):
         "rays_per_s": total_rays / max(elapsed, 1e-9),
         "camera_samples": w * h * spp,
         "wavelength_paths": lanes * spp,
+    }
+    return img, stats
+
+
+def render_mega_sharded(scene, camera, spp, seed=0, *, devices=None, max_bounces=8,
+                        regen=True):
+    """The megakernel render with lanes interleaved over `devices`
+    (counterpart of `mcpt_tpu/kernels/megakernel.py:3161-3298`).
+
+    Device d of nd owns lanes d, d + nd, d + 2·nd, ... (so each samples the
+    whole image and their work stays balanced): per_dev = ceil(lanes /
+    (nd·1024))·1024 lanes each, in launches of up to BLOCK_LANES at
+    lane_offset d + done·nd with lane_stride nd. Pad lanes past the image
+    trace real paths, as in JAX. Every device's launches are queued before
+    any result is copied back; the host de-interleaves the planes. The
+    random numbers key on the absolute lane, so the image equals
+    `render_mega`'s bit for bit.
+
+    `devices` is a list of torch devices (default: every CUDA device; none
+    raises). One device may be listed more than once (["cuda:0"] * 4, or
+    ["cpu"] * 3), which runs the strided launches on one device. Each
+    distinct device gets one copy of the tables. Returns ((H, W, 3) float32
+    radiance, stats): elapsed_s, rays (image lanes), rays_per_s, devices,
+    per_device_rays (pad lanes included) and pad_lanes."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("render_mega_sharded: no CUDA device")
+        devices = [f"cuda:{k}" for k in range(torch.cuda.device_count())]
+    devs = [resolve_device(dv) for dv in devices]
+    if not devs:
+        raise ValueError("render_mega_sharded: empty device list")
+    nd = len(devs)
+    tables = {}
+    for dev in devs:
+        if dev not in tables:
+            tables[dev] = _tables_on(scene, dev)
+            _check_regen(tables[dev], regen)
+            if dev.type == "cuda":
+                load_library(regen)  # build outside the timed region
+    cam = cam_static(camera)
+    w, h = camera.width, camera.height
+    lanes = w * h * 3
+    per_dev = -(-lanes // (nd * LANE_CHUNK)) * LANE_CHUNK
+    t0 = time.monotonic()
+    out = []
+    for d_i, dev in enumerate(devs):
+        parts = []
+        for done in range(0, per_dev, BLOCK_LANES):
+            parts.append(trace_block(
+                tables[dev], cam, seed, d_i + done * nd, spp, min(BLOCK_LANES, per_dev - done),
+                max_bounces, regen=regen, lane_stride=nd,
+            ))
+        out.append(parts)
+    rad = np.stack([torch.cat([r for r, _ in parts]).cpu().numpy() for parts in out])
+    rays = np.stack([torch.cat([ry for _, ry in parts]).cpu().numpy() for parts in out])
+    # de-interleave: device-major (nd, per_dev) -> lane-major
+    rad_l = rad.T.ravel()
+    rays_l = rays.T.ravel()
+    img = rad_l[:lanes].reshape(h, w, 3)
+    total_rays = float(rays_l[:lanes].astype(np.float64).sum())
+    elapsed = time.monotonic() - t0
+    stats = {
+        "elapsed_s": elapsed,
+        "rays": int(total_rays),
+        "rays_per_s": total_rays / max(elapsed, 1e-9),
+        "devices": nd,
+        "per_device_rays": rays.astype(np.float64).sum(axis=1).tolist(),
+        "pad_lanes": int(nd * per_dev - lanes),
     }
     return img, stats
 

@@ -5,11 +5,12 @@ a GPU machine without them; tests/conftest.py imports jax, so there run
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m gpu
 
 Megakernel bounds as in chip_smoke.py: per-lane ray counts equal on at least
-98% of lanes (on every lane for the env and BVH instances), radiance off by
+98% of lanes (on every lane for the env, BVH and lockstep instances), radiance off by
 more than 1e-3 on under 2% of lanes (ULP-level nearest-hit flips), means
 within 5e-3. The wavefront intersector (`csrc/intersect_prims.cu`) is held
 bitwise to its plain version in every mode, and a wavefront render through
-it bitwise to the same render through the plain version.
+it bitwise to the same render through the plain version. Renders strided
+over one card listed three times equal the single render bitwise.
 """
 
 import dataclasses
@@ -23,10 +24,14 @@ from mcpt_tpu_torch.builtin_scenes import demo_scene
 from mcpt_tpu_torch.kernels import intersect_prims as IP
 from mcpt_tpu_torch.kernels import megakernel as K
 from mcpt_tpu_torch.kernels.intersect_prims_ref import intersect_prims_ref
-from mcpt_tpu_torch.kernels.megakernel_ref import cam_static, trace_block_ref
+from mcpt_tpu_torch.kernels.megakernel_ref import (
+    cam_static,
+    trace_block_lockstep_ref,
+    trace_block_ref,
+)
 from mcpt_tpu_torch.kernels.tables import SceneTables
 from mcpt_tpu_torch.materials import Material
-from mcpt_tpu_torch.render import render_mega, render_radiance
+from mcpt_tpu_torch.render import render_mega, render_mega_sharded, render_radiance
 from mcpt_tpu_torch.scene import Scene, Sphere, TriangleMesh
 
 W, H = 32, 24
@@ -78,9 +83,13 @@ def test_render_mega_goes_through_the_kernel(cuda_tables):
 
 @pytest.mark.gpu
 def test_trace_block_rejects_what_the_kernel_does_not_take(cuda_tables):
+    """Lanes past the image are the sharded render's pad lanes and are
+    taken; lane ids outside int32 and negative offsets are not."""
     cs = cam_static(dataclasses.replace(demo_scene().camera, width=W, height=H))
-    with pytest.raises(ValueError, match="lanes outside the image"):
-        K.trace_block(cuda_tables, cs, 0, 1, 1, W * H * 3, 2)
+    with pytest.raises(ValueError, match="int32"):
+        K.trace_block(cuda_tables, cs, 0, 2**31 - 100, 1, W * H * 3, 2)
+    with pytest.raises(ValueError, match="int32"):
+        K.trace_block(cuda_tables, cs, 0, -1, 1, 96, 2)
     cuda_tables.tri = cuda_tables.tri.double()
     with pytest.raises(ValueError, match="table tri"):
         K.trace_block(cuda_tables, cs, 0, 0, 1, 96, 2)
@@ -263,3 +272,62 @@ def test_wavefront_checkpoint_resumes_on_the_card(tmp_path, monkeypatch):
     np.testing.assert_allclose(fb, fb_ref, atol=1e-6)
     assert st["rays"] == st_ref["rays"]
     assert not (tmp_path / "state.npz").exists()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_dir,bvh,cap", [
+    (4, False, 4), (4, True, 4), (8, False, -16), (8, True, -16), (32, False, -32),
+    (32, True, -32),
+])
+def test_cuda_lockstep_instances_match_plain_version(n_dir, bvh, cap):
+    """Every instance of the lockstep kernel (csrc/mega_lockstep.cu) against
+    its plain version on the same CUDA tables, at a lane stride of 2 from an
+    odd offset (the last lanes are pad lanes past the image)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    sc = demo_scene()
+    sc.n_dir_sample = n_dir
+    tables = SceneTables.from_pack(sc.compile(cluster_threshold=8 if bvh else 1024),
+                                   device="cuda")
+    assert tables.use_bvh == bvh
+    cs = cam_static(dataclasses.replace(demo_scene().camera, width=W, height=H))
+    n = W * H * 3 // 2
+    name = f"mega_lockstep<{cap}, {str(bvh).lower()}>"
+    before = K.trace_block.by_instance[name]
+    r, ry = K.trace_block(tables, cs, 7, 3, 4, n, 6, regen=False, lane_stride=2)
+    torch.cuda.synchronize()
+    assert K.trace_block.last_instance == name
+    assert K.trace_block.by_instance[name] == before + 1
+    r2, ry2 = trace_block_lockstep_ref(tables, cs, 7, 3, 4, n, 6, lane_stride=2)
+    assert torch.equal(ry, ry2)
+    _agree(r, ry, r2, ry2)
+
+
+@pytest.mark.gpu
+def test_render_mega_lockstep_goes_through_the_kernel(cuda_tables):
+    cam = dataclasses.replace(demo_scene().camera, width=W, height=H)
+    before = K.trace_block.by_instance["mega_lockstep<4, false>"]
+    img, stats = render_mega(cuda_tables, cam, 4, seed=3, max_bounces=4, device="cuda",
+                             regen=False)
+    assert K.trace_block.by_instance["mega_lockstep<4, false>"] == before + 1
+    assert img.shape == (H, W, 3) and np.isfinite(img).all()
+    r2, ry2 = trace_block_lockstep_ref(cuda_tables, cam_static(cam), 3, 0, 4, W * H * 3, 4)
+    assert stats["rays"] == int(ry2.double().sum().item())
+    assert np.abs(img - r2.cpu().numpy().reshape(H, W, 3)).mean() < 5e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regen", [True, False])
+def test_cuda_stride_equivalence_on_one_card(cuda_tables, regen):
+    """render_mega_sharded over ["cuda:0"] * 3: three strided launch sets
+    on one card, bitwise equal to the single render."""
+    cam = dataclasses.replace(demo_scene().camera, width=W, height=H)
+    single, s1 = render_mega(cuda_tables, cam, 4, seed=5, max_bounces=4, device="cuda",
+                             regen=regen)
+    before = K.trace_block.launches
+    sharded, s3 = render_mega_sharded(cuda_tables, cam, 4, seed=5, devices=["cuda:0"] * 3,
+                                      max_bounces=4, regen=regen)
+    assert K.trace_block.launches == before + 3
+    np.testing.assert_array_equal(single, sharded)
+    assert s1["rays"] == s3["rays"] and s3["devices"] == 3
+    assert s3["pad_lanes"] == 3 * 1024 - W * H * 3
