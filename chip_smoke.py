@@ -11,10 +11,13 @@ raises, so the script exits nonzero and prints no result line.
    instance
 3. the DEMO kernel (`mega_regen<4, false, false>`) against its plain PyTorch
    version, both on the card: at 64x48, spp 8, mb 6, seed 11, and at the main
-   path's lane count (384x384x3 lanes, mb 8) with spp 2. Bounds (`agree`):
-   total rays within 0.5%, per-lane ray counts equal on >= 98% of lanes,
-   radiance off by more than 1e-3 on < 2% of lanes (ULP-level nearest-hit
-   flips) and means within 5e-3
+   path's lane count (384x384x3 lanes, mb 8) with spp 2. Every megakernel
+   comparison of this script (`kernel_vs_plain`) asks both output planes,
+   radiance and ray counts, bitwise equal to the plain version's on every
+   lane; it also prints phase 3's earlier bounds (`agree`: total rays within
+   0.5%, per-lane ray counts equal on >= 98% of lanes, radiance off by more
+   than 1e-3 on < 2% of lanes, means within 5e-3) and the instance's
+   registers and resident blocks per SM (`megakernel.instance_info`)
 4. DEMO main path: `render_mega` of the native 384x384 DEMO at spp 256, mb 8,
    which must launch the kernel. Tonemapped and block-averaged 4x4 to
    96x96, it is held to tests/data/reference_fresh_demo_spp512.png (the
@@ -102,7 +105,14 @@ raises, so the script exits nonzero and prints no result line.
    ["cuda:0"] * 4)` of the 384x384 DEMO at spp 4, mb 8, for regen True and
    False, each image `np.array_equal` to `render_mega`'s with equal rays;
    then `devices=None` (every card) once: per-device rays and pad lanes
-14. the card, the kernel table as JSON (each row's launches are those of
+14. (i) many samples a lane: both megakernels' per-lane loop over path
+   vertices against the plain versions, bitwise on every lane, where each
+   lane ends and restarts many paths: `mega_regen<4, false, false>` and
+   `mega_lockstep<4, false>` on the DEMO at 96x96x3 lanes, spp 32, mb 8;
+   `mega_regen<4, true, true>` (sky) and `mega_lockstep<4, true>` (no sky) on
+   the x4 Cornell box at its 48x48x3 lanes, spp 16, mb 8
+15. the registers, local bytes and resident blocks per SM of each megakernel
+   instance in the kernel table, the card, the kernel table as JSON (each row's launches are those of
    its kernel in its own main-path run: the DEMO 384x384 render, the
    sky-lit DEMO render of (a), the --conf render, the wavefront renders of
    (g), the lockstep renders of (h2); none launches the triangles-only
@@ -155,8 +165,9 @@ SKY = ROOT / "assets" / "sky.png"
 # 96x96, spp 48, mb 8, seed 0 (MCPT_MEGA_SPLIT=1, MCPT_MEGA_UNROLL=1), minus
 # the reference's, in 1/255 units: the JAX megakernel's own gap.
 JAX_MEGA_GAP_96 = (2.844, 1.153, 1.230)
-# phase 5's median before the env and BVH instances existed (PERF.md, Findings)
-EARLIER_DEMO_RATE = 1.7510e9
+# phase 5's median with the depth loop nested in the sample loop, before
+# the megakernels' flat per-vertex loop (PERF.md, Findings)
+EARLIER_DEMO_RATE = 1.7931e9
 CONF_SPP = 32
 # the 4th of the --conf render's six 2^20-lane blocks, its slowest
 CONF_BLOCK_OFFSET = 3 * 2**20
@@ -354,13 +365,18 @@ def kernel_vs_plain(tables, camera, spp, mb, seed, label, every_lane=False, lane
     r, ry = kern()
     torch.cuda.synchronize()
     msg, err = agree(label, r, ry, r2, ry2, every_lane)
+    check(torch.equal(ry, ry2) and torch.equal(r, r2),
+          f"{label}: not bitwise equal to the plain version on every lane: {msg}")
     bound_ms, bound_by = bound(tables, ops, n)
+    info = mk.instance_info(tables, cs, mb, regen=regen)
     phase("kernel", f"{label} {mk.trace_block.last_instance}: {camera.width}x{camera.height} "
                     f"lanes {lane_offset}+{n} spp {spp} mb {mb}: kernel {ms:.3f} ms, plain "
                     f"{plain_ms:.1f} ms, bound "
-                    f"{bound_ms:.4f} ms ({bound_by}; {dict(ops)}); {msg}")
+                    f"{bound_ms:.4f} ms ({bound_by}; {dict(ops)}); bitwise equal on every lane; "
+                    f"{msg}; {info['registers']} registers, {info['blocks_per_sm']} blocks of "
+                    f"{info['threads']} per SM")
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "info": info}
 
 
 def launch_count():
@@ -473,8 +489,7 @@ def main_path(pack):
     return launches["mega_regen<4, false, false>"], img, per_launch
 
 
-def throughput(tables, regen=True, earlier=("before the env and BVH instances",
-                                            EARLIER_DEMO_RATE)):
+def throughput(tables, regen=True, earlier=("nested loops", EARLIER_DEMO_RATE)):
     """The 1080p DEMO at spp 64, mb 8 through the regen kernel (or the
     lockstep kernel): three renders, their median rays/s, one more render
     under torch.profiler. Returns the median."""
@@ -905,6 +920,25 @@ def stride_equivalence(pack):
                 f"{st['elapsed_s']:.3f} s; {time.monotonic() - t0:.1f} s")
 
 
+def many_samples():
+    """(i): both kernels' flat per-vertex loop at many samples a lane, where
+    every lane ends and restarts many paths, bitwise against the plain
+    versions on every lane."""
+    t0 = time.monotonic()
+    demo = demo_scene()
+    tables = SceneTables.from_pack(demo.compile(), device="cuda")
+    cam96 = dataclasses.replace(demo.camera, width=96, height=96)
+    for regen in (True, False):
+        kernel_vs_plain(tables, cam96, 32, 8, 21, "(i) DEMO many samples", every_lane=True,
+                        regen=regen)
+    for regen in (True, False):
+        x4 = cornell_x4(sky=regen)  # the lockstep kernel takes no env map
+        x4_tables = SceneTables.from_pack(x4.compile(cluster_threshold=8), device="cuda")
+        kernel_vs_plain(x4_tables, x4.camera, 16, 8, 21, "(i) x4 Cornell many samples",
+                        every_lane=True, regen=regen)
+    phase("i", f"{time.monotonic() - t0:.1f} s")
+
+
 def main():
     t0 = time.monotonic()
     environment()
@@ -934,6 +968,7 @@ def main():
     throughput(tables, regen=False, earlier=("the regen kernel, phase 5", regen_rate))
     phase("h3", f"{time.monotonic() - t1:.1f} s")
     stride_equivalence(pack)
+    many_samples()
     phase("total", f"{time.monotonic() - t0:.1f} s")
     for name, per_launch in (("mega_regen<4, false, false>", main_per_launch),
                              ("mega_regen<4, true, false>", env_per_launch),
@@ -942,6 +977,13 @@ def main():
                              ("mega_lockstep<4, true>", ls_bvh[2])):
         phase("launch", f"{name}: device ms per launch in its main-path render "
                         f"{per_launch:.3f} (CUDA events)")
+    for m in (at_main, at_env, at_conf, ls_demo[1], ls_bvh[1]):
+        info = m["info"]
+        phase("occupancy", f"{info['instance']}: {info['registers']} registers, "
+                           f"{info['local_bytes']} local bytes, {info['threads']} threads a "
+                           f"block, {info['blocks_per_sm']} resident blocks per SM "
+                           f"({info['blocks_per_sm'] * info['threads'] // 32} of 64 warps), "
+                           f"{info['smem_bytes']} bytes of shared memory a block")
     print(card(), flush=True)
     src = "mcpt_tpu_torch/csrc/megakernel.cu"
     rows = [

@@ -29,10 +29,13 @@ constexpr float kTwoPi = 6.2831855f;  // float32(2π), folded like the host
 constexpr float kPi = 3.1415927f;
 constexpr int kMaxDir = 32;  // the largest generic instance's light-sample cap
 constexpr int kMaxDepth = 32;  // max_bounces limit (megakernel_ref.MAX_BOUNCES_LIMIT)
+
 constexpr int kThreads = 128;
 
 // table row widths (kernels/tables.py TABLE_COLS)
 constexpr int kTri = 25, kOcc = 16, kSph = 6, kMat = 13, kEmt = 17, kEmeta = 4;
+// the triangle table's row stride in shared memory: 16-byte aligned rows
+constexpr int kTriSmem = 28;
 
 struct Params {
   const float* tables[8];  // tri, occ, sph, mat, emt, emeta, lcum, par
@@ -149,6 +152,21 @@ struct Near {
   int sph;
 };
 
+// The leading 16 floats of a table row in shared memory (the Woop or
+// shadow-fan transform of a triangle: w[0..12]) into registers w, as four
+// float4 loads: the rows start 16 bytes aligned.
+__device__ __forceinline__ void row_head(const float* row, float* w) {
+  const float4* q = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4 a = q[k];
+    w[4 * k] = a.x;
+    w[4 * k + 1] = a.y;
+    w[4 * k + 2] = a.z;
+    w[4 * k + 3] = a.w;
+  }
+}
+
 // Woop test of ray (o, d) against triangle row w: t, or kTMax on a miss.
 // Pad rows carry nr2 = 0 and fail the |det| >= ε term: never skip it.
 __device__ __forceinline__ float woop(const float* w, V3 o, V3 d, float& u, float& v) {
@@ -235,13 +253,16 @@ __device__ __forceinline__ Hit finish(const Tables& T, V3 o, V3 d, const Near& w
   return h;
 }
 
+// The nearest hit over the shared-memory tables (kTriSmem-strided rows).
 __device__ Hit nearest(const Tables& T, V3 o, V3 d, bool textured) {
   Near h = {kTMax, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1};
   for (int i = 0; i < T.n_tri; ++i) {
-    const float* w = T.tri + i * kTri;
+    const float* row = T.tri + i * kTriSmem;
+    float w[16];
+    row_head(row, w);
     float u, v;
     float t_cand = woop(w, o, d, u, v);
-    if (t_cand < h.t) take_tri(h, w, t_cand, u, v, textured);
+    if (t_cand < h.t) take_tri(h, row, t_cand, u, v, textured);
   }
   near_spheres(T, o, d, h);
   return finish(T, o, d, h);
@@ -342,7 +363,8 @@ __device__ void occlude_fan(const Tables& T, V3 o, const V3* ws, const float* di
     }
   }
   for (int i = 0; i < T.n_occ && n_open > 0; ++i) {
-    const float* w = T.occ + i * kOcc;
+    float w[16];
+    row_head(T.occ + i * kOcc, w);
     float op2 = o.x * w[6] + o.y * w[7] + o.z * w[8] - w[11];
     float op0 = o.x * w[0] + o.y * w[1] + o.z * w[2] - w[9];
     float op1 = o.x * w[3] + o.y * w[4] + o.z * w[5] - w[10];
@@ -659,7 +681,9 @@ __device__ __forceinline__ Hit trace(const Tables& T, V3 o, V3 d, bool textured)
 }
 
 // Stage the scene tables into shared memory (a few KB for DEMO; at most
-// ~165 KB at the 1024-triangle bound) and return the block's view of them.
+// ~181 KB at the 1024-triangle bound) and return the block's view of them.
+// Triangle rows land at kTriSmem floats apart, so that every triangle and occluder row starts 16 bytes aligned (the occluder
+// table follows the triangle table); the other tables keep their widths.
 // The BVH instances leave the triangle table (and the unused occluder
 // table) in global memory. Every thread of the block must call it.
 template <bool BVH>
@@ -674,7 +698,16 @@ __device__ __forceinline__ Tables stage_tables(const Params& P, float* smem) {
       stab[k] = P.tables[k];
       continue;
     }
-    int n = rows[k] * cols[k];
+    const int n = rows[k] * cols[k];
+    if (k == 0) {
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int r = i / kTri;
+        smem[off + r * kTriSmem + (i - r * kTri)] = P.tables[0][i];
+      }
+      stab[0] = smem + off;
+      off += rows[0] * kTriSmem;
+      continue;
+    }
     for (int i = threadIdx.x; i < n; i += blockDim.x) smem[off + i] = P.tables[k][i];
     stab[k] = smem + off;
     off += n;
@@ -686,6 +719,12 @@ __device__ __forceinline__ Tables stage_tables(const Params& P, float* smem) {
 }
 
 // ---- the host side of both C entries ------------------------------------------
+
+// Every instance of both kernels has this type; kS[s_index(n_dir)] is the
+// S of the instance that n_dir light samples take.
+using Kernel = void (*)(Params);
+constexpr int kS[3] = {4, -16, -32};
+inline int s_index(int n_dir) { return n_dir == 4 ? 0 : n_dir <= 16 ? 1 : 2; }
 
 // Params from the C interface's arrays (see the comment on each entry).
 inline Params unpack_params(const void* const* tables, const int* rows, const float* fpar,
@@ -738,23 +777,50 @@ inline size_t smem_bytes(const Params& P) {
   const int trows[8] = {P.rows[0], P.rows[1], P.rows[2], P.rows[3],
                         P.rows[4], P.rows[4], P.rows[5], 1};
   size_t floats = 0;
-  for (int k = P.use_bvh ? 2 : 0; k < 8; ++k) floats += static_cast<size_t>(trows[k]) * cols[k];
+  for (int k = P.use_bvh ? 2 : 0; k < 8; ++k) {
+    floats += static_cast<size_t>(trows[k]) * (k == 0 ? kTriSmem : cols[k]);
+  }
   return floats * sizeof(float);
 }
 
-// Launch `kernel` over P's lanes, kThreads a block, opting in to more than
-// 48 KB of dynamic shared memory where the tables need it.
-template <class Kernel>
-cudaError_t launch_lanes(Kernel kernel, const Params& P, cudaStream_t stream) {
-  const size_t smem = smem_bytes(P);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+// Let `kernel` take P's tables in dynamic shared memory: an opt-in above
+// 48 KB. Returns their bytes in smem.
+inline cudaError_t allow_smem(Kernel kernel, const Params& P, size_t& smem) {
+  smem = smem_bytes(P);
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// Launch `kernel` over P's lanes, kThreads a block.
+inline cudaError_t launch_lanes(Kernel kernel, const Params& P, cudaStream_t stream) {
+  size_t smem;
+  cudaError_t e = allow_smem(kernel, P, smem);
+  if (e != cudaSuccess) return e;
   const int blocks = (P.n_lanes + kThreads - 1) / kThreads;
   kernel<<<blocks, kThreads, smem, stream>>>(P);
   return cudaGetLastError();
+}
+
+// What the card makes of `kernel` at P's shared memory, into out[0..4]:
+// resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// threads a block, registers a thread, local (stack and spill) bytes a
+// thread, dynamic shared-memory bytes a block.
+inline cudaError_t kernel_info(Kernel kernel, const Params& P, int* out) {
+  size_t smem;
+  cudaError_t e = allow_smem(kernel, P, smem);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  out[0] = blocks;
+  out[1] = kThreads;
+  out[2] = a.numRegs;
+  out[3] = static_cast<int>(a.localSizeBytes);
+  out[4] = static_cast<int>(smem);
+  return e;
 }
 
 }  // namespace

@@ -12,12 +12,13 @@
 //
 // What it computes: one thread per lane (a (pixel, wavelength channel) pair;
 // thread idx runs lane lane_offset + idx * lane_stride). The thread runs the
-// lane's `spp` samples in order; per sample: the camera ray, then per depth
-// the vertex (`shade_vertex`: the regen kernel's vertex block), the bounce and
-// its nearest hit, and a record (l_dir, w) while the path goes on. A path
-// ends at a camera miss, an emitter seen from the camera, a Russian-roulette
-// kill, a bounce ray that misses or reaches an emitter, or at depth
-// max_bounces - 1; its last record's value is then folded down through the
+// lane's `spp` samples in order, one path vertex per iteration of one loop:
+// the nearest hit of the current ray (camera or bounce), then the vertex
+// (`shade_vertex`: the regen kernel's vertex block), the bounce, and a record
+// (l_dir, w) while the path goes on. A path ends at a camera miss, an emitter
+// seen from the camera, a Russian-roulette kill, a bounce ray that misses or
+// reaches an emitter, or after the bounce of depth max_bounces - 1; its last
+// record's value is then folded down through the
 // earlier records in reverse, L = clamp15(l_dir) + clamp5(w·L) (Scene.cpp:
 // 180-183), which rounds as the JAX kernel's reverse fold does (the regen
 // kernel's forward min-affine fold is equal only in exact arithmetic). The
@@ -28,20 +29,19 @@
 // survivor below depth max_bounces - 1 (the bounce at the last depth is
 // traced only to tell whether the path ends there, as the JAX kernel does).
 //
-// What bounds it on this card: as the regen kernel, per-thread divergent
-// loops and register pressure, plus the records: up to 2 x 32 floats a
-// thread, indexed by depth, so they live in local memory (L1-cached). The
-// design is the regen kernel's (tables in shared memory, S = 4 in
-// registers); a lane whose path ends stops its depth loop at once, where the
-// JAX kernel only skips depths at which a whole 1024-lane chunk is dead.
+// What bounds it on this card: as the regen kernel, the instruction slots
+// lost to divergence and register pressure, plus the records: up to 2 x 32
+// floats a thread, indexed by depth, so they live in local memory
+// (L1-cached). The design is the regen kernel's: one flat loop over path
+// vertices with one `trace` call for camera and bounce rays, so that a warp
+// no longer waits at each sample for its longest path (the JAX kernel runs a
+// 1024-lane chunk for as many depths as its longest path); tables in shared
+// memory with 16-byte rows, S = 4 in registers, 4 resident blocks of 128
+// per SM (127 registers, the records' 288 bytes of stack, no spills).
 
 #include "mega_common.cuh"
 
 namespace {
-
-// The regen kernel keeps its copy of this vertex block inline: factored
-// into these functions it took 3 more registers (118, not 115) in
-// mega_regen<4, false, false>.
 
 // One path vertex up to its direct light: the material's GGX microfacet
 // sample and Fresnel split, the NEE light samples, Russian roulette and the
@@ -174,7 +174,7 @@ __device__ __forceinline__ void bounce(const Vertex& v, const Mat& m, V3 d, floa
 
 template <int S, bool BVH>
 __global__ void __launch_bounds__(kThreads) mega_lockstep(Params P) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const Tables T = stage_tables<BVH>(P, smem);
 
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
@@ -193,73 +193,103 @@ __global__ void __launch_bounds__(kThreads) mega_lockstep(Params P) {
   const uint32_t lane_mix = static_cast<uint32_t>(lane) * 0x9E3779B1u;
   const int last = P.max_bounces - 1;
 
-  float rec_l[kMaxDepth], rec_w[kMaxDepth];  // the records below the last one
+  // the records (l_dir, w) of the path's vertices 0..depth - 1
+  float rec_l[kMaxDepth], rec_w[kMaxDepth];
   float rad = 0.0f;
   uint32_t rays = 0;
-  for (int s = 0; s < P.spp; ++s) {
-    const uint32_t su =
-        0x9E3779B9u * (static_cast<uint32_t>(s) + 1u) + static_cast<uint32_t>(P.seed);
-    rays += 1;  // the camera ray
-    V3 o, d;
-    cam_ray_with(
-        P, fi, fj, [&](uint32_t c) { return unit(murmur(pix_mix + murmur(su + 101u + c))); }, o,
-        d);
-    Hit hit = trace<BVH>(T, o, d, P.textured);
-    float acc;  // the value of the path's last record
-    int depth = 0;
-    for (;; ++depth) {
-      // a path reaches depth > 0 only through a hit that is no emitter
-      if (!hit.happened) {  // camera miss: the background, unclamped
-        acc = bg_l;
-        break;
-      }
+  // The lane's path state: sample s, the depth of the vertex that the ray
+  // (o, d) looks for, and ev, the BSDF value along it when it is a bounce
+  // ray. One iteration is one path vertex.
+  int s = -1, depth = 0;
+  bool ended = true;  // the last path ended: start sample s + 1
+  V3 o, d;
+  float ev = 0.0f;
+  // sample s's key
+  auto sample_key = [&](int sample) {
+    return 0x9E3779B9u * (static_cast<uint32_t>(sample) + 1u) + static_cast<uint32_t>(P.seed);
+  };
+  for (;;) {
+    if (ended) {
+      if (++s == P.spp) break;
+      const uint32_t su = sample_key(s);
+      rays += 1;  // the camera ray
+      cam_ray_with(
+          P, fi, fj, [&](uint32_t c) { return unit(murmur(pix_mix + murmur(su + 101u + c))); },
+          o, d);
+      depth = 0;
+    }
+    // the one nearest-hit query, for camera and bounce rays alike
+    const Hit hit = trace<BVH>(T, o, d, P.textured);
+    ended = true;
+    float acc;  // the value of the path's last record ...
+    int below;  // ... and how many records fold onto it
+    if (depth > 0 && (!hit.happened || hit.emissive)) {
+      // vertex depth - 1's bounce ray missed or reached an emitter: its
+      // record ends the path with the env rule's value
+      acc = clampf(rec_l[depth - 1], 0.0f, kClampDirect) +
+            clampf(bg_l * ev * inv_rr, 0.0f, kClampIndirect);
+      below = depth - 1;
+    } else if (depth > last) {
+      // vertex `last` went on: its record folds onto L = 0
+      acc = clampf(rec_l[last], 0.0f, kClampDirect) +
+            clampf(rec_w[last] * 0.0f, 0.0f, kClampIndirect);
+      below = last;
+    } else if (!hit.happened) {  // camera miss: the background, unclamped
+      acc = bg_l;
+      below = 0;
+    } else {
       const Mat m = gather_mat(T, hit.mat, chan);
       if (hit.emissive) {  // the eye sees an emitter directly
         acc = clampf(m.emit * fabsf(dot(neg(d), hit.n)), 0.0f, 1.0f);
-        break;
+        below = 0;
+      } else {
+        const uint32_t du = murmur(sample_key(s) + static_cast<uint32_t>(depth) * 0x85EBCA77u);
+        const Vertex v =
+            shade_vertex<S, BVH>(P, T, hit, d, m, chan, lam, rr_rate, total_area, ns,
+                                 [&](uint32_t use) { return unit(murmur(lane_mix + du + use)); });
+        rays += static_cast<uint32_t>(ns);
+        if (v.rr_kill) {  // the raw l_dir
+          acc = v.l_dir;
+          below = depth;
+        } else {
+          V3 wi, p_new;
+          float w;
+          bounce(v, m, d, inv_rr, wi, p_new, ev, w);
+          // the bounce at the last depth is traced only to tell whether the
+          // path ends with the env rule's value
+          if (depth < last) rays += 1;  // the bounce ray
+          rec_l[depth] = v.l_dir;
+          rec_w[depth] = w;
+          o = p_new;
+          d = wi;
+          ++depth;
+          ended = false;
+        }
       }
-      const uint32_t du = murmur(su + static_cast<uint32_t>(depth) * 0x85EBCA77u);
-      const Vertex v =
-          shade_vertex<S, BVH>(P, T, hit, d, m, chan, lam, rr_rate, total_area, ns,
-                               [&](uint32_t use) { return unit(murmur(lane_mix + du + use)); });
-      rays += static_cast<uint32_t>(ns);
-      if (v.rr_kill) {  // the raw l_dir
-        acc = v.l_dir;
-        break;
-      }
-      V3 wi, p_new;
-      float ev, w;
-      bounce(v, m, d, inv_rr, wi, p_new, ev, w);
-      if (depth < last) rays += 1;  // the bounce ray
-      hit = trace<BVH>(T, p_new, wi, P.textured);
-      if (!hit.happened || hit.emissive) {  // terminal with the env rule's value
-        acc = clampf(v.l_dir, 0.0f, kClampDirect) + clampf(bg_l * ev * inv_rr, 0.0f, kClampIndirect);
-        break;
-      }
-      if (depth == last) {  // a record that goes on, folded onto L = 0
-        acc = clampf(v.l_dir, 0.0f, kClampDirect) + clampf(w * 0.0f, 0.0f, kClampIndirect);
-        break;
-      }
-      rec_l[depth] = v.l_dir;
-      rec_w[depth] = w;
-      d = wi;
     }
-    // the reverse clamp fold (Scene.cpp:180-183 nesting)
-    for (int k = depth - 1; k >= 0; --k) {
-      acc = clampf(rec_l[k], 0.0f, kClampDirect) + clampf(rec_w[k] * acc, 0.0f, kClampIndirect);
+    if (ended) {
+      // the reverse clamp fold (Scene.cpp:180-183 nesting)
+      for (int k = below - 1; k >= 0; --k) {
+        acc = clampf(rec_l[k], 0.0f, kClampDirect) +
+              clampf(rec_w[k] * acc, 0.0f, kClampIndirect);
+      }
+      rad = rad + acc;
     }
-    rad = rad + acc;
   }
   P.out_rad[idx] = rad / static_cast<float>(P.spp);
   P.out_rays[idx] = static_cast<float>(rays);
 }
 
-template <int S>
-cudaError_t dispatch(const Params& P, cudaStream_t stream, int* launched) {
-  launched[0] = S;
+// The instance that P takes: S = 4, -16 or -32 by its light-sample count,
+// BVH by its flag; launched[0..1] get its S and BVH.
+Kernel pick_instance(const Params& P, int* launched) {
+  const Kernel table[3][2] = {{mega_lockstep<4, false>, mega_lockstep<4, true>},
+                              {mega_lockstep<-16, false>, mega_lockstep<-16, true>},
+                              {mega_lockstep<-32, false>, mega_lockstep<-32, true>}};
+  const int k = s_index(P.n_dir);
+  launched[0] = kS[k];
   launched[1] = P.use_bvh != 0;
-  return P.use_bvh ? launch_lanes(mega_lockstep<S, true>, P, stream)
-                   : launch_lanes(mega_lockstep<S, false>, P, stream);
+  return table[k][P.use_bvh ? 1 : 0];
 }
 
 }  // namespace
@@ -275,9 +305,16 @@ extern "C" int mcpt_mega_lockstep(const void* const* tables, const int* rows, co
   const Params P = unpack_params(tables, rows, fpar, ipar, out_rad, out_rays);
   if (P.n_lanes <= 0) return 0;
   if (!params_ok(P) || P.use_env) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = P.n_dir == 4    ? dispatch<4>(P, s, launched)
-                  : P.n_dir <= 16 ? dispatch<-16>(P, s, launched)
-                                  : dispatch<-32>(P, s, launched);
-  return static_cast<int>(e);
+  return static_cast<int>(
+      launch_lanes(pick_instance(P, launched), P, static_cast<cudaStream_t>(stream)));
+}
+
+// The instance mcpt_mega_lockstep would launch with these arguments, and
+// what the card makes of it (see mcpt_mega_trace_info in megakernel.cu).
+extern "C" int mcpt_mega_lockstep_info(const void* const* tables, const int* rows,
+                                       const float* fpar, const int* ipar, int* launched,
+                                       int* info) {
+  const Params P = unpack_params(tables, rows, fpar, ipar, nullptr, nullptr);
+  if (!params_ok(P) || P.use_env) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(kernel_info(pick_instance(P, launched), P, info));
 }

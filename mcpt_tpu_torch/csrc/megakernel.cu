@@ -22,13 +22,14 @@
 //
 // What it computes: one thread per lane (a (pixel, wavelength channel) pair;
 // thread idx runs lane lane_offset + idx * lane_stride).
-// The thread runs its lane's `spp` samples in order; per sample: the camera
-// ray, then per path vertex the nearest hit over the triangle table and the
-// spheres (strict `<` in table order), the GGX microfacet sample and Fresnel
-// split, the S-ray NEE shadow fan over the occluder table, Russian roulette,
-// the bounce ray's nearest hit, and the forward min-affine fold of the
-// firefly clamps. It writes the same two planes as the TPU kernel: mean
-// radiance rad/spp and the ray count. The random numbers are the TPU kernel's
+// The thread runs its lane's `spp` samples in order, one path vertex per
+// iteration of one loop: the nearest hit over the triangle table and the
+// spheres (strict `<` in table order) of the current ray, camera or bounce;
+// then either a terminal rule, or the GGX microfacet sample and Fresnel
+// split, the S-ray NEE shadow fan over the occluder table, Russian roulette
+// and the bounce, with the forward min-affine fold of the firefly clamps.
+// It writes the same two planes as the TPU kernel: mean radiance rad/spp and
+// the ray count. The random numbers are the TPU kernel's
 // murmur3 counter hash on the same keys, so the draws match bit for bit.
 // The arithmetic is float32 in the JAX expression order: build with
 // -fmad=false and without fast math, so every product and sum is rounded
@@ -36,19 +37,34 @@
 // in double by the host (camera scales, 1/S) arrive as float parameters.
 //
 // What bounds it on this card: not bytes (the tables are a few KB, the output
-// 8 bytes per lane) but per-thread divergent loops — path lengths, RR kills
-// and the sample loop differ from lane to lane — plus register pressure from
-// the per-vertex state (material, four light samples, fold prefix), and the
-// table reads of the two brute-force sweeps, which every thread repeats for
-// every vertex. The design: tables are staged once per block into shared
-// memory, where a warp's threads read the same address (a broadcast); the
-// common S = 4 light-sample count is a template instance so the fan's
-// per-sample arrays stay in registers; the shadow fan and the light pick stop
-// early once their answer is fixed. Coherence (sorting or compacting lanes by
-// path state) is later work. The BVH instances read nodes, triangle rows and
-// the env map from global memory through L1/L2 (a 38k-triangle scene's tables
-// are ~4 MB, a 1024x512 env map 6.3 MB: both stay in the 50 MB L2); their
-// walks diverge per thread, which is what bounds them.
+// 8 bytes per lane) but instruction slots lost to divergence, and register
+// pressure from the per-vertex state (material, four light samples, fold
+// prefix). Path lengths differ from lane to lane (roulette, misses,
+// emitters), and a warp runs a loop for as long as its longest lane: with
+// the depth loop nested in the sample loop, every warp waited at every
+// sample for its longest path (at rr 0.7 and 8 bounces about 40% of
+// lane-vertex slots did work). The design is the TPU kernel's path
+// regeneration carried to SIMT: one flat loop per lane whose iteration is
+// one path vertex. A lane whose path ends folds it into its sum and builds
+// its next sample's camera ray where the bounce ray would go, and one
+// `trace` call serves camera and bounce rays alike, so a warp's lanes stay
+// busy until their budgets run out; only that tail idles (a lane whose
+// samples are spent waits for its warp). What remains: divergence inside an
+// iteration (terminal rules against shading, the BSDF's material branches,
+// camera rays built by some lanes only), and 4 resident blocks of 128 per SM
+// (123 registers, no spills). Tables are staged once per block into shared
+// memory, where a warp's threads read the same address (a broadcast);
+// triangle rows land 28 floats apart (kTriSmem) so that a Woop test reads
+// its 13 floats as four float4 loads (row_head, mega_common.cuh), as does
+// the shadow fan from the 16-float occluder rows. The common S = 4 light-sample count is
+// a template instance so the fan's per-sample arrays stay in registers; the
+// shadow fan and the light pick stop early once their answer is fixed.
+// __launch_bounds__ caps of 5 or 6 blocks per SM (96 or 80 registers) and
+// 256-thread blocks were timed against this and not kept (PERF.md): the
+// caps spill. The BVH instances read nodes, triangle rows and the env map
+// from global memory through L1/L2 (a 38k-triangle scene's tables are
+// ~4 MB, a 1024x512 env map 6.3 MB: both stay in the 50 MB L2); their walks
+// diverge per thread within each trace, which is what bounds them.
 
 #include "mega_common.cuh"
 
@@ -68,13 +84,10 @@ __device__ __forceinline__ float path_draw(uint32_t base, uint32_t use) {
   return unit(murmur(base + use * 0x632BE59Bu));
 }
 
-// The per-vertex block stays inline here: factored out (as the lockstep
-// kernel's `shade_vertex`) it took 3 more registers (118, not 115) in
-// mega_regen<4, false, false>.
 template <int S, bool ENV, bool BVH>
 __global__ void __launch_bounds__(kThreads) mega_regen(Params P) {
   constexpr int NS = S > 0 ? S : -S;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const Tables T = stage_tables<BVH>(P, smem);
 
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
@@ -94,178 +107,197 @@ __global__ void __launch_bounds__(kThreads) mega_regen(Params P) {
 
   float rad = 0.0f;
   uint32_t rays = 0;
-  for (int s = 0; s < P.spp; ++s) {
-    rays += 1;  // the camera ray
-    V3 o, d;
-    cam_ray(P, pix, fi, fj, static_cast<uint32_t>(s), o, d);
-    Hit hit = trace<BVH>(T, o, d, P.textured);
-    // min-affine prefix of the nested clamp fold, identity map first
-    float f_c = kFoldBig, f_b = 0.0f, f_w = 1.0f, pend = 0.0f;
-    for (int depth = 0;; ++depth) {
-      if (depth > 0 && (!hit.happened || hit.emissive)) {
-        // the bounce ray missed or reached an emitter: env-rule terminal
-        rad = rad + pend;
-        break;
-      }
-      if (!hit.happened) {  // camera miss: env or background, unclamped
-        rad = rad + (ENV ? env_lookup(T, d, chan) : bg_l);
-        break;
-      }
-      const V3 wo = neg(d);
-      const Mat m = gather_mat(T, hit.mat, chan);
-      if (hit.emissive) {  // the eye sees an emitter directly
-        rad = rad + clampf(m.emit * fabsf(dot(wo, hit.n)), 0.0f, 1.0f);
-        break;
-      }
-      const V3 p = hit.p, n = hit.n;
-      const uint32_t key = lane_key + static_cast<uint32_t>(s) * 0x0ED5AD4Du +
-                           static_cast<uint32_t>(depth) * 0x9E3779B9u;
-      const float ior = m.ior_a + m.ior_b / (lam * lam);
-      const float xi0 = path_draw(key, 1), xi1 = path_draw(key, 2);
-      const float xi2 = path_draw(key, 3), xi3 = path_draw(key, 4);
-      const V3 mfn = sample_mfn(m, n, xi0, xi1);
-      const float kr = fresnel(m, ior, d, mfn);
-      const float off_scale =
-          fmaxf(kRelEps * fmaxf(fabsf(p.x), fmaxf(fabsf(p.y), fabsf(p.z))), kEps);
-      const V3 p_dl = add(p, scale(n, off_scale));
-      const bool inner = dot(wo, n) < 0.0f;
-      const float refl =
-          (P.textured && m.textured > 0.5f) ? chessboard(hit.uvx, hit.uvy) : m.refl;
-
-      // NEE light samples (Scene.cpp:28-36, BVH.cpp:120-135)
-      V3 ws[NS], ln[NS];
-      float dist[NS], inv_dist[NS], emit_l[NS], mesh_area[NS];
-#pragma unroll
-      for (int si = 0; si < NS; ++si) {
-        if (si >= ns) break;
-        const uint32_t b4 = 16u + 4u * static_cast<uint32_t>(si);
-        const float v0 = path_draw(key, b4), v1 = path_draw(key, b4 + 1);
-        const float v2 = path_draw(key, b4 + 2), v3 = path_draw(key, b4 + 3);
-        const float target = v0 * total_area;
-        float mesh = 0.0f;
-        for (int li = 0; li < T.n_lcum; ++li) {
-          if (T.lcum[li] < target) mesh = mesh + 1.0f;
-        }
-        const float sv1 = sqrtf(v1);
-        int pick = -1;
-        for (int ei = 0; ei < T.n_emt; ++ei) {
-          const float* em = T.emeta + ei * kEmeta;
-          if (em[0] == mesh) {
-            pick = ei;  // the last same-mesh row, unless one fires first
-            if (sv1 < em[3]) break;
-          }
-        }
-        float row[kEmt];
-#pragma unroll
-        for (int c = 0; c < kEmt; ++c) row[c] = pick >= 0 ? T.emt[pick * kEmt + c] : 0.0f;
-        mesh_area[si] = 1.0f / fmaxf(row[15], 1e-30f);
-        const float xs = sqrtf(v2), ys = v3;
-        const float wx = xs * (1.0f - ys), wy = xs * ys;
-        V3 lp = mk(row[0] + row[3] * wx + row[6] * wy, row[1] + row[4] * wx + row[7] * wy,
-                   row[2] + row[5] * wx + row[8] * wy);
-        V3 lnrm = mk(row[9], row[10], row[11]);
-        if (P.n_sph_emitters && row[16] > 0.5f) {
-          // emissive sphere: uniform surface point c + r·dir
-          const float ysp = 1.0f - 2.0f * v2;
-          const float ssp = sqrtf(fmaxf(1.0f - ysp * ysp, 0.0f));
-          const float php = kTwoPi * v3;
-          const V3 dv = mk(ssp * cosf(php), ysp, ssp * sinf(php));
-          lp = mk(row[0] + row[3] * dv.x, row[1] + row[3] * dv.y, row[2] + row[3] * dv.z);
-          lnrm = dv;
-        }
-        ln[si] = lnrm;
-        emit_l[si] = pick3(chan, row[12], row[13], row[14]);
-        const V3 delta = sub(lp, p_dl);
-        // sqrt-then-divide: dist feeds the fan's t < dist − ε bound
-        dist[si] = sqrtf(fmaxf(dot(delta, delta), 1e-20f));
-        inv_dist[si] = 1.0f / dist[si];
-        ws[si] = scale(delta, inv_dist[si]);
-      }
-
-      // Russian roulette and the reflect/refract branch (Scene.cpp:121-159)
-      const bool rr_kill = xi2 >= rr_rate;
-      const bool branch_reflect = xi3 < kr;
-      const float sign_reflect = dot(wo, mfn) < 0.0f ? -1.0f : 1.0f;
-      const float sgn = branch_reflect ? sign_reflect : -sign_reflect;
-      const bool capped = !rr_kill && depth == P.max_bounces - 1;
-      const bool survive = !rr_kill && !capped;
-      rays += static_cast<uint32_t>(ns);
-
-      bool vis[NS];
-#pragma unroll
-      for (int si = 0; si < NS; ++si) vis[si] = true;
-      if (P.enable_shadow && ns > 0) {
-        if constexpr (BVH) {
-          occlude_fan_bvh<NS>(T, p_dl, ws, dist, ns, vis);
-        } else {
-          occlude_fan<NS>(T, p_dl, ws, dist, ns, vis);
-        }
-      }
-
-      float l_dir = 0.0f;
-#pragma unroll
-      for (int si = 0; si < NS; ++si) {
-        if (si >= ns) break;
-        if (!vis[si]) continue;
-        const float ev = eval_bsdf(m, ior, refl, ws[si], wo, n, !inner);
-        const float contrib = emit_l[si] * ev * dot(ws[si], n) * -dot(ws[si], ln[si]) *
-                              (inv_dist[si] * inv_dist[si]) * mesh_area[si] * P.inv_n_dir;
-        l_dir = l_dir + contrib;
-      }
-      l_dir = (inner ? 1.0f - kr : kr) * l_dir;
-
-      if (!survive) {
-        // RR kill: the raw l_dir; bounce cap: clamp15(l_dir); depth-0
-        // terminals bypass the fold map
-        const float leaf = capped ? clampf(l_dir, 0.0f, kClampDirect) : l_dir;
-        rad = rad + (depth == 0 ? leaf : fminf(f_c, f_b + f_w * fmaxf(leaf, 0.0f)));
-        break;
-      }
-
-      // survivor: bounce direction and weight, pending env-terminal value,
-      // and this vertex's map composed into the prefix
-      const V3 wi = branch_reflect ? reflect(wo, mfn) : refract(ior, d, mfn);
-      const V3 p_new = add(p, scale(n, off_scale * sgn));
-      const float ev = eval_bsdf(m, ior, refl, wi, wo, n, branch_reflect);
-      const float pv = pdf(m, ior, wi, wo, n, branch_reflect);
-      float w;
-      if (m.dirac > 0.5f) {
-        w = ev * inv_rr;
-      } else {
-        w = fabsf(pv) > 1e-10f ? ev * fabsf(dot(wo, n)) / pv * inv_rr : 0.0f;
-      }
-      // the pending env-terminal: env radiance along wi, fetched here only
-      const float env_wi = ENV ? env_lookup(T, wi, chan) : bg_l;
-      const float env_ind = env_wi * ev * inv_rr;
-      const float a_t = clampf(l_dir, 0.0f, kClampDirect);
-      const float new_pend = a_t + clampf(env_ind, 0.0f, kClampIndirect);
-      pend = depth == 0 ? new_pend : fminf(f_c, f_b + f_w * new_pend);
-      const float c_c = fminf(f_c, f_b + f_w * (a_t + kClampIndirect));
-      const float c_b = f_b + f_w * a_t;
-      const float c_w = fminf(f_w * w, kFoldWCap);
-      f_c = c_c;
-      f_b = c_b;
-      f_w = c_w;
-      rays += 1;  // the bounce ray
-      d = wi;
-      hit = trace<BVH>(T, p_new, wi, P.textured);
+  // The lane's path state: sample s, the depth of the vertex that the ray
+  // (o, d) looks for, and the min-affine prefix of the nested clamp fold
+  // over the vertices before it (identity map first) with the pending
+  // env-terminal value. One iteration is one path vertex.
+  int s = -1, depth = 0;
+  bool ended = true;  // the last path ended: start sample s + 1
+  V3 o, d;
+  float f_c = kFoldBig, f_b = 0.0f, f_w = 1.0f, pend = 0.0f;
+  for (;;) {
+    if (ended) {
+      if (++s == P.spp) break;
+      rays += 1;  // the camera ray
+      cam_ray(P, pix, fi, fj, static_cast<uint32_t>(s), o, d);
+      depth = 0;
+      f_c = kFoldBig;
+      f_b = 0.0f;
+      f_w = 1.0f;
+      pend = 0.0f;
     }
+    // the one nearest-hit query, for camera and bounce rays alike
+    const Hit hit = trace<BVH>(T, o, d, P.textured);
+    ended = true;
+    if (depth > 0 && (!hit.happened || hit.emissive)) {
+      // the bounce ray missed or reached an emitter: env-rule terminal
+      rad = rad + pend;
+      continue;
+    }
+    if (!hit.happened) {  // camera miss: env or background, unclamped
+      rad = rad + (ENV ? env_lookup(T, d, chan) : bg_l);
+      continue;
+    }
+    const V3 wo = neg(d);
+    const Mat m = gather_mat(T, hit.mat, chan);
+    if (hit.emissive) {  // the eye sees an emitter directly
+      rad = rad + clampf(m.emit * fabsf(dot(wo, hit.n)), 0.0f, 1.0f);
+      continue;
+    }
+    const V3 p = hit.p, n = hit.n;
+    const uint32_t key = lane_key + static_cast<uint32_t>(s) * 0x0ED5AD4Du +
+                         static_cast<uint32_t>(depth) * 0x9E3779B9u;
+    const float ior = m.ior_a + m.ior_b / (lam * lam);
+    const float xi0 = path_draw(key, 1), xi1 = path_draw(key, 2);
+    const float xi2 = path_draw(key, 3), xi3 = path_draw(key, 4);
+    const V3 mfn = sample_mfn(m, n, xi0, xi1);
+    const float kr = fresnel(m, ior, d, mfn);
+    const float off_scale =
+        fmaxf(kRelEps * fmaxf(fabsf(p.x), fmaxf(fabsf(p.y), fabsf(p.z))), kEps);
+    const V3 p_dl = add(p, scale(n, off_scale));
+    const bool inner = dot(wo, n) < 0.0f;
+    const float refl =
+        (P.textured && m.textured > 0.5f) ? chessboard(hit.uvx, hit.uvy) : m.refl;
+
+    // NEE light samples (Scene.cpp:28-36, BVH.cpp:120-135)
+    V3 ws[NS], ln[NS];
+    float dist[NS], inv_dist[NS], emit_l[NS], mesh_area[NS];
+#pragma unroll
+    for (int si = 0; si < NS; ++si) {
+      if (si >= ns) break;
+      const uint32_t b4 = 16u + 4u * static_cast<uint32_t>(si);
+      const float v0 = path_draw(key, b4), v1 = path_draw(key, b4 + 1);
+      const float v2 = path_draw(key, b4 + 2), v3 = path_draw(key, b4 + 3);
+      const float target = v0 * total_area;
+      float mesh = 0.0f;
+      for (int li = 0; li < T.n_lcum; ++li) {
+        if (T.lcum[li] < target) mesh = mesh + 1.0f;
+      }
+      const float sv1 = sqrtf(v1);
+      int pick = -1;
+      for (int ei = 0; ei < T.n_emt; ++ei) {
+        const float* em = T.emeta + ei * kEmeta;
+        if (em[0] == mesh) {
+          pick = ei;  // the last same-mesh row, unless one fires first
+          if (sv1 < em[3]) break;
+        }
+      }
+      float row[kEmt];
+#pragma unroll
+      for (int c = 0; c < kEmt; ++c) row[c] = pick >= 0 ? T.emt[pick * kEmt + c] : 0.0f;
+      mesh_area[si] = 1.0f / fmaxf(row[15], 1e-30f);
+      const float xs = sqrtf(v2), ys = v3;
+      const float wx = xs * (1.0f - ys), wy = xs * ys;
+      V3 lp = mk(row[0] + row[3] * wx + row[6] * wy, row[1] + row[4] * wx + row[7] * wy,
+                 row[2] + row[5] * wx + row[8] * wy);
+      V3 lnrm = mk(row[9], row[10], row[11]);
+      if (P.n_sph_emitters && row[16] > 0.5f) {
+        // emissive sphere: uniform surface point c + r·dir
+        const float ysp = 1.0f - 2.0f * v2;
+        const float ssp = sqrtf(fmaxf(1.0f - ysp * ysp, 0.0f));
+        const float php = kTwoPi * v3;
+        const V3 dv = mk(ssp * cosf(php), ysp, ssp * sinf(php));
+        lp = mk(row[0] + row[3] * dv.x, row[1] + row[3] * dv.y, row[2] + row[3] * dv.z);
+        lnrm = dv;
+      }
+      ln[si] = lnrm;
+      emit_l[si] = pick3(chan, row[12], row[13], row[14]);
+      const V3 delta = sub(lp, p_dl);
+      // sqrt-then-divide: dist feeds the fan's t < dist − ε bound
+      dist[si] = sqrtf(fmaxf(dot(delta, delta), 1e-20f));
+      inv_dist[si] = 1.0f / dist[si];
+      ws[si] = scale(delta, inv_dist[si]);
+    }
+
+    // Russian roulette and the reflect/refract branch (Scene.cpp:121-159)
+    const bool rr_kill = xi2 >= rr_rate;
+    const bool branch_reflect = xi3 < kr;
+    const float sign_reflect = dot(wo, mfn) < 0.0f ? -1.0f : 1.0f;
+    const float sgn = branch_reflect ? sign_reflect : -sign_reflect;
+    const bool capped = !rr_kill && depth == P.max_bounces - 1;
+    const bool survive = !rr_kill && !capped;
+    rays += static_cast<uint32_t>(ns);
+
+    bool vis[NS];
+#pragma unroll
+    for (int si = 0; si < NS; ++si) vis[si] = true;
+    if (P.enable_shadow && ns > 0) {
+      if constexpr (BVH) {
+        occlude_fan_bvh<NS>(T, p_dl, ws, dist, ns, vis);
+      } else {
+        occlude_fan<NS>(T, p_dl, ws, dist, ns, vis);
+      }
+    }
+
+    float l_dir = 0.0f;
+#pragma unroll
+    for (int si = 0; si < NS; ++si) {
+      if (si >= ns) break;
+      if (!vis[si]) continue;
+      const float ev = eval_bsdf(m, ior, refl, ws[si], wo, n, !inner);
+      const float contrib = emit_l[si] * ev * dot(ws[si], n) * -dot(ws[si], ln[si]) *
+                            (inv_dist[si] * inv_dist[si]) * mesh_area[si] * P.inv_n_dir;
+      l_dir = l_dir + contrib;
+    }
+    l_dir = (inner ? 1.0f - kr : kr) * l_dir;
+
+    if (!survive) {
+      // RR kill: the raw l_dir; bounce cap: clamp15(l_dir); depth-0
+      // terminals bypass the fold map
+      const float leaf = capped ? clampf(l_dir, 0.0f, kClampDirect) : l_dir;
+      rad = rad + (depth == 0 ? leaf : fminf(f_c, f_b + f_w * fmaxf(leaf, 0.0f)));
+      continue;
+    }
+
+    // survivor: bounce direction and weight, pending env-terminal value,
+    // and this vertex's map composed into the prefix
+    const V3 wi = branch_reflect ? reflect(wo, mfn) : refract(ior, d, mfn);
+    const V3 p_new = add(p, scale(n, off_scale * sgn));
+    const float ev = eval_bsdf(m, ior, refl, wi, wo, n, branch_reflect);
+    const float pv = pdf(m, ior, wi, wo, n, branch_reflect);
+    float w;
+    if (m.dirac > 0.5f) {
+      w = ev * inv_rr;
+    } else {
+      w = fabsf(pv) > 1e-10f ? ev * fabsf(dot(wo, n)) / pv * inv_rr : 0.0f;
+    }
+    // the pending env-terminal: env radiance along wi, fetched here only
+    const float env_wi = ENV ? env_lookup(T, wi, chan) : bg_l;
+    const float env_ind = env_wi * ev * inv_rr;
+    const float a_t = clampf(l_dir, 0.0f, kClampDirect);
+    const float new_pend = a_t + clampf(env_ind, 0.0f, kClampIndirect);
+    pend = depth == 0 ? new_pend : fminf(f_c, f_b + f_w * new_pend);
+    const float c_c = fminf(f_c, f_b + f_w * (a_t + kClampIndirect));
+    const float c_b = f_b + f_w * a_t;
+    const float c_w = fminf(f_w * w, kFoldWCap);
+    f_c = c_c;
+    f_b = c_b;
+    f_w = c_w;
+    rays += 1;  // the bounce ray
+    o = p_new;
+    d = wi;
+    ++depth;
+    ended = false;
   }
   P.out_rad[idx] = rad / static_cast<float>(P.spp);
   P.out_rays[idx] = static_cast<float>(rays);
 }
 
-template <int S>
-cudaError_t dispatch(const Params& P, cudaStream_t stream, int* launched) {
-  launched[0] = S;
+// The instance that P takes: S = 4, -16 or -32 by its light-sample count,
+// ENV and BVH by its flags; launched[0..2] get its S, ENV and BVH.
+Kernel pick_instance(const Params& P, int* launched) {
+  const Kernel table[3][4] = {
+      {mega_regen<4, false, false>, mega_regen<4, false, true>, mega_regen<4, true, false>,
+       mega_regen<4, true, true>},
+      {mega_regen<-16, false, false>, mega_regen<-16, false, true>,
+       mega_regen<-16, true, false>, mega_regen<-16, true, true>},
+      {mega_regen<-32, false, false>, mega_regen<-32, false, true>,
+       mega_regen<-32, true, false>, mega_regen<-32, true, true>}};
+  const int k = s_index(P.n_dir);
+  launched[0] = kS[k];
   launched[1] = P.use_env != 0;
   launched[2] = P.use_bvh != 0;
-  if (P.use_env) {
-    return P.use_bvh ? launch_lanes(mega_regen<S, true, true>, P, stream)
-                     : launch_lanes(mega_regen<S, true, false>, P, stream);
-  }
-  return P.use_bvh ? launch_lanes(mega_regen<S, false, true>, P, stream)
-                   : launch_lanes(mega_regen<S, false, false>, P, stream);
+  return table[k][(P.use_env ? 2 : 0) + (P.use_bvh ? 1 : 0)];
 }
 
 }  // namespace
@@ -289,9 +321,19 @@ extern "C" int mcpt_mega_trace(const void* const* tables, const int* rows, const
   const Params P = unpack_params(tables, rows, fpar, ipar, out_rad, out_rays);
   if (P.n_lanes <= 0) return 0;
   if (!params_ok(P)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = P.n_dir == 4    ? dispatch<4>(P, s, launched)
-                  : P.n_dir <= 16 ? dispatch<-16>(P, s, launched)
-                                  : dispatch<-32>(P, s, launched);
-  return static_cast<int>(e);
+  return static_cast<int>(
+      launch_lanes(pick_instance(P, launched), P, static_cast<cudaStream_t>(stream)));
+}
+
+// The instance mcpt_mega_trace would launch with these arguments (the same
+// first four; launched as there), and what the card makes of it, into
+// info[0..4] (mega_common.cuh kernel_info): resident blocks per SM,
+// threads a block, registers, local bytes and shared-memory bytes. Launches
+// nothing.
+extern "C" int mcpt_mega_trace_info(const void* const* tables, const int* rows,
+                                    const float* fpar, const int* ipar, int* launched,
+                                    int* info) {
+  const Params P = unpack_params(tables, rows, fpar, ipar, nullptr, nullptr);
+  if (!params_ok(P)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(kernel_info(pick_instance(P, launched), P, info));
 }

@@ -73,9 +73,10 @@ def load_library(regen: bool = True):
     source, entry, _ = _KERNELS[regen]
 
     def bind(lib):
-        fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p] * 8
-        fn.restype = ctypes.c_int
+        for name, n_args in ((entry, 8), (entry + "_info", 6)):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * n_args
+            fn.restype = ctypes.c_int
 
     return _build.load(source, bind)
 
@@ -173,6 +174,31 @@ def trace_block(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8, *, 
         trace_block.launches += 1
         trace_block.by_instance[trace_block.last_instance] += 1
     return rad, rays
+
+
+def instance_info(tables, cam, max_bounces=8, *, regen=True) -> dict:
+    """What the card makes of the instance that `trace_block` launches for
+    these CUDA tables (the regen kernel's, or with regen=False the lockstep
+    kernel's): its name, resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the tables' shared
+    memory), threads a block, registers and local bytes a thread, and
+    shared-memory bytes a block. Launches nothing."""
+    if tables.device.type != "cuda":
+        raise ValueError(f"instance_info needs CUDA tables, not {tables.device}")
+    _check_tables(tables)
+    lib = load_library(regen)
+    _, entry, n_flags = _KERNELS[regen]
+    out = torch.empty(1, dtype=torch.float32, device=tables.device)
+    args = kernel_args(tables, cam, 0, 0, 1, 1, max_bounces, out, out)[:4]
+    launched = (ctypes.c_int * 3)(0, 0, 0)
+    info = (ctypes.c_int * 5)()
+    with torch.cuda.device(tables.device):
+        status = getattr(lib, entry + "_info")(
+            *args, ctypes.cast(launched, ctypes.c_void_p), ctypes.cast(info, ctypes.c_void_p))
+    if status != 0:
+        raise RuntimeError(f"megakernel query failed: cudaError {status}")
+    keys = ("blocks_per_sm", "threads", "registers", "local_bytes", "smem_bytes")
+    return {"instance": instance_name(*launched[: 1 + n_flags]), **dict(zip(keys, info))}
 
 
 # launches of the kernels, in all and by template instance

@@ -4,7 +4,10 @@ a GPU machine without them; tests/conftest.py imports jax, so there run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m gpu
 
-Megakernel bounds as in chip_smoke.py: per-lane ray counts equal on at least
+The megakernels' flat per-vertex loop is held bitwise to the plain versions
+at its edges (one and many samples a lane, one and 32 bounces, the generic
+light-sample instances, a lane stride). Megakernel bounds elsewhere as in
+chip_smoke.py: per-lane ray counts equal on at least
 98% of lanes (on every lane for the env, BVH and lockstep instances), radiance off by
 more than 1e-3 on under 2% of lanes (ULP-level nearest-hit flips), means
 within 5e-3. The wavefront intersector (`csrc/intersect_prims.cu`) is held
@@ -25,6 +28,7 @@ from mcpt_tpu_torch.kernels import intersect_prims as IP
 from mcpt_tpu_torch.kernels import megakernel as K
 from mcpt_tpu_torch.kernels.intersect_prims_ref import intersect_prims_ref
 from mcpt_tpu_torch.kernels.megakernel_ref import (
+    MAX_BOUNCES_LIMIT,
     cam_static,
     trace_block_lockstep_ref,
     trace_block_ref,
@@ -43,6 +47,12 @@ def cuda_tables():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     return SceneTables.from_pack(demo_scene().compile(), device="cuda")
+
+
+@pytest.fixture
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
 
 
 def _agree(r, ry, r2, ry2):
@@ -331,3 +341,76 @@ def test_cuda_stride_equivalence_on_one_card(cuda_tables, regen):
     np.testing.assert_array_equal(single, sharded)
     assert s1["rays"] == s3["rays"] and s3["devices"] == 3
     assert s3["pad_lanes"] == 3 * 1024 - W * H * 3
+
+
+# (spp, max_bounces, n_dir_sample, BVH walk, lane_offset, lane_stride)
+FLAT_LOOP_EDGES = [
+    (1, 8, 4, False, 0, 1),
+    (33, 8, 4, False, 0, 1),
+    (4, 1, 4, False, 0, 1),
+    (4, 32, 4, False, 0, 1),
+    (3, 6, 0, False, 0, 1),
+    (3, 6, 7, False, 0, 1),
+    (3, 6, 32, False, 0, 1),
+    (6, 8, 4, False, 5, 3),
+    (6, 8, 4, True, 5, 3),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regen", [True, False])
+@pytest.mark.parametrize("spp,mb,n_dir,bvh,lane_offset,lane_stride", FLAT_LOOP_EDGES)
+def test_flat_loop_edges_bitwise(cuda_card, regen, spp, mb, n_dir, bvh, lane_offset,
+                                 lane_stride):
+    """Both megakernels' per-lane loop over path vertices at its edges: a
+    lane's budget of one sample and of 33, one bounce and the 32-bounce cap,
+    the generic instances (no light samples, 7 and 32), and lanes strided by
+    3 from an offset of 5 (the last ones pad lanes past the image). Radiance
+    and ray counts equal the plain version's bitwise on every lane. At the
+    32-bounce cap the roulette rate is 0.99, so that some lanes' first path
+    reaches depth 31 and the lane goes on to its next sample."""
+    sc = demo_scene()
+    sc.n_dir_sample = n_dir
+    if mb == MAX_BOUNCES_LIMIT:
+        sc.set_rr_rate(0.99)
+    tables = SceneTables.from_pack(sc.compile(cluster_threshold=8 if bvh else 1024),
+                                   device="cuda")
+    assert tables.use_bvh == bvh
+    cs = cam_static(dataclasses.replace(demo_scene().camera, width=W, height=H))
+    n = W * H * 3 // lane_stride
+    r, ry = K.trace_block(tables, cs, 17, lane_offset, spp, n, mb, regen=regen,
+                          lane_stride=lane_stride)
+    torch.cuda.synchronize()
+    cap = {0: -16, 4: 4, 7: -16, 32: -32}[n_dir]
+    b = str(bvh).lower()
+    assert K.trace_block.last_instance == (
+        f"mega_regen<{cap}, false, {b}>" if regen else f"mega_lockstep<{cap}, {b}>")
+    plain = trace_block_ref if regen else trace_block_lockstep_ref
+    r2, ry2 = plain(tables, cs, 17, lane_offset, spp, n, mb, lane_stride=lane_stride)
+    assert torch.equal(ry, ry2)
+    assert torch.equal(r, r2), f"{(r != r2).sum().item()} of {n} lanes differ"
+    if mb == MAX_BOUNCES_LIMIT:
+        # sample 0 alone: a path of 31 vertices takes at most 1 + 31 * (n_dir + 1)
+        # rays, so a lane above that put a vertex at depth 31
+        _, ry0 = plain(tables, cs, 17, lane_offset, 1, n, mb, lane_stride=lane_stride)
+        assert bool((ry0 > 1 + (mb - 1) * (n_dir + 1)).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regen", [True, False])
+def test_instance_info_names_the_launched_instance(cuda_tables, regen):
+    """The occupancy query reports the instance that trace_block launches,
+    with at least one resident block of its threads."""
+    cs = cam_static(dataclasses.replace(demo_scene().camera, width=W, height=H))
+    info = K.instance_info(cuda_tables, cs, 8, regen=regen)
+    K.trace_block(cuda_tables, cs, 0, 0, 1, 96, 8, regen=regen)
+    assert info["instance"] == K.trace_block.last_instance
+    assert info["blocks_per_sm"] >= 1 and info["threads"] >= 32 and info["registers"] > 0
+    assert info["smem_bytes"] > 0
+
+
+def test_instance_info_needs_cuda_tables():
+    tables = SceneTables.from_pack(demo_scene().compile(), device="cpu")
+    cs = cam_static(dataclasses.replace(demo_scene().camera, width=W, height=H))
+    with pytest.raises(ValueError, match="CUDA tables"):
+        K.instance_info(tables, cs, 8)
