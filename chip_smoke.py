@@ -111,7 +111,14 @@ raises, so the script exits nonzero and prints no result line.
    `mega_lockstep<4, false>` on the DEMO at 96x96x3 lanes, spp 32, mb 8;
    `mega_regen<4, true, true>` (sky) and `mega_lockstep<4, true>` (no sky) on
    the x4 Cornell box at its 48x48x3 lanes, spp 16, mb 8
-15. the registers, local bytes and resident blocks per SM of each megakernel
+15. (j) any light-sample count: both megakernels at 40 light samples a
+   vertex (the generic instance of 32, two groups a vertex) against their
+   plain versions, bitwise on every lane, on the DEMO (brute force) at
+   64x48 and the x4 Cornell box (BVH) at 32x24, spp 2, mb 6; then the CLI, `python -m
+   mcpt_tpu_torch --conf conf.json --no-strict-parity` with
+   directLightSample 40 on the stand-in meshes at 384x216, spp 1, which must
+   launch `mega_regen<-32, true, true>`
+16. the registers, local bytes and resident blocks per SM of each megakernel
    instance in the kernel table, the card, the kernel table as JSON (each row's launches are those of
    its kernel in its own main-path run: the DEMO 384x384 render, the
    sky-lit DEMO render of (a), the --conf render, the wavefront renders of
@@ -152,7 +159,7 @@ from mcpt_tpu_torch.kernels.megakernel_ref import (
     trace_block_lockstep_ref,
     trace_block_ref,
 )
-from mcpt_tpu_torch.kernels.tables import SceneTables
+from mcpt_tpu_torch.kernels.tables import SceneTables, bvh_depth
 from mcpt_tpu_torch.lights import sample_light_c
 from mcpt_tpu_torch.materials import make_light_material, standard_materials
 from mcpt_tpu_torch.render import render_mega, render_mega_sharded, render_radiance
@@ -203,6 +210,7 @@ STAND_INS = {
 OPS_PER = {
     "woop": 47, "fan_tri": 31, "fan_origin": 19, "sph": 25, "slab": 26,
     "env": 60, "camera": 40, "vertex": 800,
+    "row": 0,  # a BVH row load: bytes, which `bound` counts once per table
 }
 PEAK_F32 = 67e12  # float32 outside the tensor cores, H100 SXM
 PEAK_BYTES = 3.35e12
@@ -610,9 +618,11 @@ def conf_path(build_s):
     t_upload = time.monotonic() - t1
     cam = scene.camera
     check(cam.use_dof and (cam.width, cam.height) == (1920, 1080), "conf.json camera")
+    levels = bvh_depth(pack.bvh_miss, pack.bvh_leaf_start >= 0)
     phase("conf", f"stand-ins {counts} + floor 2 + light 2 = {n_tris} triangles; write "
                   f"{t_write:.2f} s, build_scene {t_scene:.2f} s, compile (BVH "
-                  f"{pack.bvh_min.shape[0]} nodes) {t_compile:.2f} s, upload {t_upload:.2f} s, "
+                  f"{pack.bvh_min.shape[0]} nodes, {levels} levels, {tables.bvh.shape[0]} "
+                  f"child-pair rows) {t_compile:.2f} s, upload {t_upload:.2f} s, "
                   f"kernel build {build_s:.1f} s (phase 2); "
                   f"conf.json asks spp {opts['spp']}, rendered at {CONF_SPP}")
     at_conf = kernel_vs_plain(tables, cam, 1, 8, 2, "(c) conf block", every_lane=True,
@@ -939,6 +949,41 @@ def many_samples():
     phase("i", f"{time.monotonic() - t0:.1f} s")
 
 
+def any_light_count():
+    """(j): 40 light samples a vertex through both kernels and the CLI."""
+    t0 = time.monotonic()
+    # the x4 box at 32x24: its plain version walks the BVH at 40 rays a fan
+    for name, sc, threshold, w, h in (("DEMO", demo_scene(), 1024, 64, 48),
+                                      ("x4 Cornell", cornell_x4(sky=False), 8, 32, 24)):
+        sc.n_dir_sample = 40
+        tables = SceneTables.from_pack(sc.compile(cluster_threshold=threshold), device="cuda")
+        for regen in (True, False):
+            kernel_vs_plain(tables, dataclasses.replace(sc.camera, width=w, height=h), 2, 6, 11,
+                            f"(j) {name} 40 light samples", every_lane=True, regen=regen)
+            want = (f"mega_regen<-32, false, {str(tables.use_bvh).lower()}>" if regen
+                    else f"mega_lockstep<-32, {str(tables.use_bvh).lower()}>")
+            check(mk.trace_block.last_instance == want,
+                  f"(j) launched {mk.trace_block.last_instance}, not {want}")
+    from mcpt_tpu_torch.__main__ import main as cli
+
+    with tempfile.TemporaryDirectory() as d:
+        write_stand_in_models(d)
+        conf = json.loads((ROOT / "conf.json").read_text())
+        conf["scene"]["directLightSample"] = 40
+        conf["scene"]["envMap"] = str(SKY)
+        Path(d, "conf.json").write_text(json.dumps(conf))
+        reset_counts()
+        cli(["--conf", str(Path(d, "conf.json")), "--models-dir", d, "--no-strict-parity",
+             "--width", "384", "--height", "216", "--spp", "1", "--out", str(Path(d, "j.png"))])
+        img = read_png(Path(d, "j.png"))
+    launches = dict(mk.trace_block.by_instance)
+    check(launches.get("mega_regen<-32, true, true>", 0) > 0, f"(j) the CLI launched {launches}")
+    check(img.shape[:2] == (216, 384), f"(j) image {img.shape}")
+    phase("j", f"CLI --conf --no-strict-parity, directLightSample 40, 384x216 spp 1: launches "
+               f"{launches}, image mean {float(img[:, :, :3].mean()):.2f}/255; "
+               f"{time.monotonic() - t0:.1f} s")
+
+
 def main():
     t0 = time.monotonic()
     environment()
@@ -969,6 +1014,7 @@ def main():
     phase("h3", f"{time.monotonic() - t1:.1f} s")
     stride_equivalence(pack)
     many_samples()
+    any_light_count()
     phase("total", f"{time.monotonic() - t0:.1f} s")
     for name, per_launch in (("mega_regen<4, false, false>", main_per_launch),
                              ("mega_regen<4, true, false>", env_per_launch),

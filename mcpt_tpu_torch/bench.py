@@ -16,7 +16,11 @@ renders. The card's name and power limit go to stderr beside the number.
 Env knobs: BENCH_SPP (default 2048), BENCH_MB (max bounces, default 8),
 BENCH_REPEATS (timed renders, default 3), BENCH_NDIR (light samples per
 path vertex, default the DEMO's 4; other counts take the kernel's generic
-instances).
+instances). MCPT_BENCH_WAVEFRONT=1 times the tile-based wavefront engine
+instead, as bench.py does: one render (`render_radiance`, key 0, its
+intersect kernel built outside the timed region), its rays counted as the
+wavefront counts them; it is host-bound (about 9 s per spp at 1080p on an
+H100), so set BENCH_SPP low.
 """
 
 import dataclasses
@@ -29,7 +33,7 @@ import torch
 
 from mcpt_tpu_torch.builtin_scenes import demo_scene
 from mcpt_tpu_torch.kernels.tables import SceneTables
-from mcpt_tpu_torch.render import render_mega, resolve_device
+from mcpt_tpu_torch.render import render_mega, render_radiance, resolve_device
 
 BASELINE_RAYS_PER_S = 1.48e7
 
@@ -47,17 +51,23 @@ def card() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def main():
-    dev = resolve_device("cuda")
-    spp = int(os.environ.get("BENCH_SPP", "2048"))
-    max_bounces = int(os.environ.get("BENCH_MB", "8"))
-    n_rep = int(os.environ.get("BENCH_REPEATS", "3"))
+def measure(dev, spp, max_bounces, n_rep=3, n_dir=None, wavefront=False, width=1920,
+            height=1080) -> float:
+    """rays/s of the DEMO at width x height on `dev`: the median of `n_rep`
+    megakernel renders after a warmup render, or with `wavefront` one
+    wavefront render."""
     sc = demo_scene()
-    sc.n_dir_sample = int(os.environ.get("BENCH_NDIR", sc.n_dir_sample))
-    cam = dataclasses.replace(sc.camera, width=1920, height=1080)
+    if n_dir is not None:
+        sc.n_dir_sample = n_dir
+    cam = dataclasses.replace(sc.camera, width=width, height=height)
+    log(f"bench: {dev} spp={spp} mb={max_bounces} n_dir_sample={sc.n_dir_sample} "
+        f"engine={'wavefront' if wavefront else 'mega'}")
+    if wavefront:
+        _, stats = render_radiance(sc, cam, spp, 0, max_bounces=max_bounces, device=dev)
+        log(f"wavefront render: {stats['elapsed_s']:.3f}s rays={stats['rays']} -> "
+            f"{stats['rays_per_s']:.4e} rays/s")
+        return stats["rays_per_s"]
     tables = SceneTables.from_pack(sc.compile(), device=dev)
-    log(f"bench: {torch.cuda.get_device_name(dev)} spp={spp} mb={max_bounces} "
-        f"n_dir_sample={sc.n_dir_sample}")
     _, stats = render_mega(tables, cam, spp, seed=7, max_bounces=max_bounces, device=dev)
     log(f"warmup: {stats['elapsed_s']:.2f}s")
     samples = []
@@ -71,8 +81,21 @@ def main():
             f"rays={stats['rays']} -> {stats['rays_per_s']:.4e} rays/s"
         )
     samples.sort()
-    rays_per_s = samples[len(samples) // 2]
-    log(f"median {rays_per_s:.4e} rays/s on {card()}")
+    return samples[len(samples) // 2]
+
+
+def main():
+    dev = resolve_device("cuda")
+    log(f"bench: {torch.cuda.get_device_name(dev)}")
+    rays_per_s = measure(
+        dev,
+        int(os.environ.get("BENCH_SPP", "2048")),
+        int(os.environ.get("BENCH_MB", "8")),
+        int(os.environ.get("BENCH_REPEATS", "3")),
+        int(os.environ["BENCH_NDIR"]) if "BENCH_NDIR" in os.environ else None,
+        wavefront=os.environ.get("MCPT_BENCH_WAVEFRONT", "0") == "1",
+    )
+    log(f"rays/s {rays_per_s:.4e} on {card()}")
     print(
         json.dumps(
             {

@@ -6,8 +6,8 @@ method, `BVH.cpp:27-93`) or a binned SAH. ONE tree over every primitive
 (all mesh triangles and spheres), emitted in DFS preorder in the threaded
 ("miss-link") layout: an interior node's hit-successor is ``i + 1`` and every
 node stores a miss-successor, so a traversal is one index walk with no
-stack. That is the layout the megakernel's per-thread walk reads
-(`kernels/tables.py::bvh_tables`).
+stack. The wavefront's `bvh` method walks it so; the megakernels walk the
+child-pair rows that `kernels/tables.py::bvh_tables` cuts from it.
 
 The JAX package also has a C++ copy of this builder; the port does without
 one, since the numpy SAH build of a 38,528-triangle scene takes seconds.

@@ -22,6 +22,11 @@ CLAMP_DIRECT = 15.0
 # Sentinel "miss" distance (a large finite float32).
 T_MAX = np.float32(3.0e37)
 
+# Entries of the megakernels' BVH walk stacks (csrc/mega_common.cuh kStack):
+# a walk pushes at most one entry per tree level, so
+# kernels/tables.py::bvh_tables refuses trees of more levels.
+BVH_STACK = 32
+
 # The three traced wavelengths in micrometers, CIE 1931 primaries
 # (reference: WaveLen.hpp:7-18). Channel order is R, G, B.
 WAVELEN_UM = np.array([0.700, 0.5461, 0.4358], dtype=np.float32)

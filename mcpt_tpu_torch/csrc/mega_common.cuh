@@ -13,6 +13,8 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -27,21 +29,38 @@ constexpr float kFoldBig = 1e30f;
 constexpr float kFoldWCap = 1e30f;
 constexpr float kTwoPi = 6.2831855f;  // float32(2π), folded like the host
 constexpr float kPi = 3.1415927f;
-constexpr int kMaxDir = 32;  // the largest generic instance's light-sample cap
+// light samples a vertex: the generic instances take them NS at a time, and
+// their draws' use-site keys 16 + 4·si + 0..3 stay below 2^31
+constexpr int kMaxDir = 1 << 28;
 constexpr int kMaxDepth = 32;  // max_bounces limit (megakernel_ref.MAX_BOUNCES_LIMIT)
+// entries of a BVH walk's per-thread stack (constants.py BVH_STACK): a walk
+// pushes at most one entry per tree level, and kernels/tables.py refuses
+// trees of more levels
+constexpr int kStack = 32;
 
 constexpr int kThreads = 128;
+// The S = 4 BVH instances run capped at kCapBlocks resident blocks of
+// kThreads per SM (__launch_bounds__(kThreads, kCapBlocks): 80 registers and
+// a few hundred bytes of spills): their walks wait on L1 and L2, and the
+// extra warps hide it (-9% on the --conf launch, PERF.md). The other
+// instances are uncapped (the cap spills their shading and slows them).
+constexpr int kCapBlocks = 6;
+template <int S, bool BVH>
+constexpr bool kCapped = BVH && S == 4;
 
 // table row widths (kernels/tables.py TABLE_COLS)
 constexpr int kTri = 25, kOcc = 16, kSph = 6, kMat = 13, kEmt = 17, kEmeta = 4;
-// the triangle table's row stride in shared memory: 16-byte aligned rows
+// the triangle table's row stride in shared memory and the leaf-ordered
+// triangle table's in global memory (tables.py LEAF_COLS): 16-byte aligned
+// rows; in the leaf table, float 25 of a row is its row in `tri` (int bits)
 constexpr int kTriSmem = 28;
+constexpr int kLeafId = 25;
 
 struct Params {
   const float* tables[8];  // tri, occ, sph, mat, emt, emeta, lcum, par
   const float* env;        // (env_h, env_w, 3) env map
-  const float* bvh;        // (nodes, 8): min3, max3, miss, start*16 + count
-  const int* prims;        // leaf-ordered triangle rows, -1 = skip
+  const float* bvh;        // (rows, 16) child-pair node rows (tables.py EXTRA)
+  const float* leaf;       // (L, kTriSmem) triangle rows in leaf order
   int rows[6];             // tri, occ, sph, mat, emt (= emeta), lcum
   float* out_rad;
   float* out_rays;
@@ -55,8 +74,7 @@ struct Params {
 struct Tables {
   const float *tri, *occ, *sph, *mat, *emt, *emeta, *lcum, *par;
   int n_tri, n_occ, n_sph, n_mat, n_emt, n_lcum;
-  const float *env, *bvh;
-  const int* prims;
+  const float *env, *bvh, *leaf;
   int env_h, env_w;
 };
 
@@ -269,48 +287,165 @@ __device__ Hit nearest(const Tables& T, V3 o, V3 d, bool textured) {
 }
 
 // ---- the BVH walks (replacing mcpt_tpu/kernels/cluster.py:257, 547, 835) --
+//
+// Both walk the child-pair rows of kernels/tables.py `bvh_tables` from global
+// memory (through L1 and L2: a 38k-triangle scene's rows and leaf triangles
+// are ~5 MB), one row per step: a row holds both children's boxes, so a step
+// tests two boxes from four float4 loads and the next address depends on one
+// result only every other level. Leaf children are tested in place from the
+// leaf-ordered triangle rows (float4 loads, no index table); of interior
+// children one is descended into and the other pushed on a per-thread stack
+// of kStack entries (local memory). megakernel_ref.py's `bvh_nearest` and
+// `bvh_fan` walk the same rows in the same order.
 
-// Entry and exit t of the ray (o, 1/d) through node box nd.
-__device__ __forceinline__ void slab(const float* nd, V3 o, V3 inv, float& tmin, float& tmax) {
-  float a0 = (__ldg(nd + 0) - o.x) * inv.x, b0 = (__ldg(nd + 3) - o.x) * inv.x;
-  float a1 = (__ldg(nd + 1) - o.y) * inv.y, b1 = (__ldg(nd + 4) - o.y) * inv.y;
-  float a2 = (__ldg(nd + 2) - o.z) * inv.z, b2 = (__ldg(nd + 5) - o.z) * inv.z;
+// The leading 16 floats of a row in global memory, as four read-only float4
+// loads (the row starts 16 bytes aligned).
+__device__ __forceinline__ void row_head_ldg(const float* row, float* w) {
+  const float4* q = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4 a = __ldg(q + k);
+    w[4 * k] = a.x;
+    w[4 * k + 1] = a.y;
+    w[4 * k + 2] = a.z;
+    w[4 * k + 3] = a.w;
+  }
+}
+
+// One child-pair row: the boxes of children 0 and 1 (min3 max3 each) and,
+// per child, its link and count (count > 0: a leaf of `count` leaf rows from
+// `link`; count 0: interior with row `link` >= 1, or empty if link is 0).
+struct NodeRow {
+  float box[12];
+  int link0, cnt0, link1, cnt1;
+};
+
+__device__ __forceinline__ NodeRow load_row(const float* bvh, int row) {
+  const float4* q = reinterpret_cast<const float4*>(bvh) + row * 4;
+  NodeRow r;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float4 a = __ldg(q + k);
+    r.box[4 * k] = a.x;
+    r.box[4 * k + 1] = a.y;
+    r.box[4 * k + 2] = a.z;
+    r.box[4 * k + 3] = a.w;
+  }
+  const float4 e = __ldg(q + 3);
+  r.link0 = __float_as_int(e.x);
+  r.cnt0 = __float_as_int(e.y);
+  r.link1 = __float_as_int(e.z);
+  r.cnt1 = __float_as_int(e.w);
+  return r;
+}
+
+// Entry and exit t of the ray (o, 1/d) through box bx: min bx[0..2], max
+// bx[3..5].
+__device__ __forceinline__ void slab(const float* bx, V3 o, V3 inv, float& tmin, float& tmax) {
+  float a0 = (bx[0] - o.x) * inv.x, b0 = (bx[3] - o.x) * inv.x;
+  float a1 = (bx[1] - o.y) * inv.y, b1 = (bx[4] - o.y) * inv.y;
+  float a2 = (bx[2] - o.z) * inv.z, b2 = (bx[5] - o.z) * inv.z;
   tmin = fmaxf(fmaxf(fminf(a0, b0), fminf(a1, b1)), fminf(a2, b2));
   tmax = fminf(fminf(fmaxf(a0, b0), fmaxf(a1, b1)), fmaxf(a2, b2));
 }
 
+// Does the ray pass through the box? (The bound is tested apart:
+// tmin - kEps <= bound.)
+__device__ __forceinline__ bool passes(float tmin, float tmax) {
+  return tmin - kEps <= tmax && tmax >= -kEps;
+}
+
+// Test the `cnt` leaf rows from `first` against the ray (o, d), keeping the
+// nearest: equal t goes to the lower row of `tri` (float kLeafId).
+__device__ __forceinline__ void leaf_nearest(const Tables& T, int first, int cnt, V3 o, V3 d,
+                                             float& t_best, int& best, int& best_row, float& bu,
+                                             float& bv) {
+  for (int j = 0; j < cnt; ++j) {
+    const float* row = T.leaf + (first + j) * kTriSmem;
+    float w[16];
+    row_head_ldg(row, w);
+    float u, v;
+    const float t_cand = woop(w, o, d, u, v);
+    if (t_cand < t_best || (t_cand == t_best && t_cand < kTMax)) {
+      const int id = __float_as_int(__ldg(row + kLeafId));
+      if (t_cand < t_best || id < best) {
+        t_best = t_cand;
+        best = id;
+        best_row = first + j;
+        bu = u;
+        bv = v;
+      }
+    }
+  }
+}
+
 // Nearest hit through the BVH: the brute sweep's answer, ties included
 // (equal t goes to the lower triangle row, triangles beat spheres).
+//
+// Near first: of a row's two children the one the ray enters first is taken
+// (child 0 on equal entry t) and the other pushed with its entry t; a child,
+// or a popped entry, is entered while its entry t - kEps <= the best t so
+// far, the margin of the brute sweep's box test, so the winner's boxes are
+// always entered and the order changes only how much is pruned.
+//
+// While-while (Aila and Laine, "Understanding the efficiency of ray
+// traversal on GPUs", 2009): a thread descends interior rows until it holds
+// a leaf, and the warp's threads then test their leaves together. Testing
+// each row's leaf children in place instead ran up to two sparse leaf loops
+// per step, and was slower than the stackless walk it replaced (PERF.md).
 __device__ Hit nearest_bvh(const Tables& T, V3 o, V3 d, bool textured) {
   const V3 inv = mk(1.0f / d.x, 1.0f / d.y, 1.0f / d.z);
   float t_best = kTMax, bu = 0.0f, bv = 0.0f;
-  int best = -1;
-  int node = 0;
-  while (node >= 0) {
-    const float* nd = T.bvh + node * 8;
-    float tmin, tmax;
-    slab(nd, o, inv, tmin, tmax);
-    const bool hit = tmin - kEps <= tmax && tmax >= -kEps && tmin - kEps <= t_best;
-    const float code = __ldg(nd + 7);
-    if (hit && code >= 0.0f) {
-      const int c = static_cast<int>(code), start = c >> 4, cnt = c & 15;
-      for (int j = 0; j < cnt; ++j) {
-        const int prim = __ldg(T.prims + start + j);
-        if (prim < 0) continue;
-        float u, v;
-        const float t_cand = woop(T.tri + prim * kTri, o, d, u, v);
-        if (t_cand < kTMax && (t_cand < t_best || (t_cand == t_best && prim < best))) {
-          t_best = t_cand;
-          best = prim;
-          bu = u;
-          bv = v;
-        }
+  int best = -1, best_row = -1;  // the winner's row in `tri` and in `leaf`
+  int stack_link[kStack], stack_cnt[kStack];
+  float stack_t[kStack];
+  int sp = 0;
+  int link = 0, cnt = 0;  // the item to visit: a row (cnt 0) or a leaf; link -1: none
+  auto pop = [&] {  // the next entry still in reach
+    link = -1;
+    while (sp > 0) {
+      --sp;
+      if (stack_t[sp] - kEps <= t_best) {
+        link = stack_link[sp];
+        cnt = stack_cnt[sp];
+        return;
       }
     }
-    node = (hit && code < 0.0f) ? node + 1 : static_cast<int>(__ldg(nd + 6));
+  };
+  while (link >= 0) {
+    while (link >= 0 && cnt == 0) {
+      const NodeRow r = load_row(T.bvh, link);
+      float t0, x0, t1, x1;
+      slab(r.box, o, inv, t0, x0);
+      slab(r.box + 6, o, inv, t1, x1);
+      const bool swap = t1 < t0;  // child 1 is entered first: it is child a
+      const float ta = swap ? t1 : t0, tb = swap ? t0 : t1;
+      const int la = swap ? r.link1 : r.link0, lb = swap ? r.link0 : r.link1;
+      const int ca = swap ? r.cnt1 : r.cnt0, cb = swap ? r.cnt0 : r.cnt1;
+      const bool ea = (ca > 0 || la > 0) && passes(ta, swap ? x1 : x0) && ta - kEps <= t_best;
+      const bool eb = (cb > 0 || lb > 0) && passes(tb, swap ? x0 : x1) && tb - kEps <= t_best;
+      if (ea) {
+        if (eb) {
+          stack_link[sp] = lb;
+          stack_cnt[sp] = cb;
+          stack_t[sp] = tb;
+          ++sp;
+        }
+        link = la;
+        cnt = ca;
+      } else if (eb) {
+        link = lb;
+        cnt = cb;
+      } else {
+        pop();
+      }
+    }
+    if (link < 0) break;
+    leaf_nearest(T, link, cnt, o, d, t_best, best, best_row, bu, bv);
+    pop();
   }
   Near h = {kTMax, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1};
-  if (best >= 0) take_tri(h, T.tri + best * kTri, t_best, bu, bv, textured);
+  if (best_row >= 0) take_tri(h, T.leaf + best_row * kTriSmem, t_best, bu, bv, textured);
   near_spheres(T, o, d, h);
   return finish(T, o, d, h);
 }
@@ -399,52 +534,135 @@ __device__ void occlude_fan(const Tables& T, V3 o, const V3* ws, const float* di
   }
 }
 
-// Does any triangle block the unit ray (o, e) before xs? An any-hit walk of
-// the BVH over the whole triangle table.
-__device__ bool bvh_blocked(const Tables& T, V3 o, V3 e, float xs) {
-  const V3 inv = mk(1.0f / e.x, 1.0f / e.y, 1.0f / e.z);
-  int node = 0;
-  while (node >= 0) {
-    const float* nd = T.bvh + node * 8;
-    float tmin, tmax;
-    slab(nd, o, inv, tmin, tmax);
-    const bool hit = tmin - kEps <= tmax && tmax >= -kEps && tmin - kEps <= xs;
-    const float code = __ldg(nd + 7);
-    if (hit && code >= 0.0f) {
-      const int c = static_cast<int>(code), start = c >> 4, cnt = c & 15;
-      for (int j = 0; j < cnt; ++j) {
-        const int prim = __ldg(T.prims + start + j);
-        if (prim < 0) continue;
-        const float* w = T.tri + prim * kTri;
-        float op2 = o.x * w[6] + o.y * w[7] + o.z * w[8] - w[11];
-        float op0 = o.x * w[0] + o.y * w[1] + o.z * w[2] - w[9];
-        float op1 = o.x * w[3] + o.y * w[4] + o.z * w[5] - w[10];
-        if (tri_blocks(w, op0, op1, op2 * w[12], e, xs)) return true;
-      }
+// Test the `cnt` leaf rows from `first` against the fan's rays in mask `m`
+// that are still open, clearing from `open` the rays a row blocks; the
+// origin's terms once a row.
+template <int NS>
+__device__ __forceinline__ void leaf_fan(const Tables& T, int first, int cnt, V3 o, const V3* ws,
+                                         const float* xs, uint32_t m, uint32_t& open) {
+  for (int j = 0; j < cnt; ++j) {
+    const uint32_t live = m & open;
+    if (!live) break;
+    float w[16];
+    row_head_ldg(T.leaf + (first + j) * kTriSmem, w);
+    float op2 = o.x * w[6] + o.y * w[7] + o.z * w[8] - w[11];
+    float op0 = o.x * w[0] + o.y * w[1] + o.z * w[2] - w[9];
+    float op1 = o.x * w[3] + o.y * w[4] + o.z * w[5] - w[10];
+    float q = op2 * w[12];
+#pragma unroll
+    for (int si = 0; si < NS; ++si) {
+      if (!((live >> si) & 1u)) continue;
+      if (tri_blocks(w, op0, op1, q, ws[si], xs[si])) open &= ~(1u << si);
     }
-    node = (hit && code < 0.0f) ? node + 1 : static_cast<int>(__ldg(nd + 6));
   }
-  return false;
 }
 
-// The fan through the BVH: each shadow ray walks on its own, then meets
-// the spheres by brute force.
+// One walk through the BVH for ns <= NS <= 32 shadow rays that share the
+// origin o. The walk carries the mask of the rays that entered the current row's box and are still open: a child is entered
+// when any of them passes its box before its own bound xs, with the mask of
+// those that do; a leaf tests its rows against them and clears the rays a
+// row blocks; child 0 goes first and child 1 is pushed with its mask; a
+// popped entry keeps those of its rays still open; the walk ends when every
+// ray is blocked. A ray is tested against exactly the triangles whose boxes
+// it enters, as its own walk would test it. Leaves wait as in nearest_bvh:
+// a thread descends rows until it holds a leaf. Then the spheres, by brute
+// force.
+template <int NS>
+__device__ void occlude_fan_walk(const Tables& T, V3 o, const V3* ws, const float* dists,
+                                 int ns, bool* vis) {
+  float xs[NS];
+  V3 inv[NS];
+  uint32_t open = 0;
+#pragma unroll
+  for (int si = 0; si < NS; ++si) {
+    if (si < ns) {
+      xs[si] = dists[si] - fmaxf(kRelEps * dists[si], kEps);
+      inv[si] = mk(1.0f / ws[si].x, 1.0f / ws[si].y, 1.0f / ws[si].z);
+      open |= 1u << si;
+    }
+  }
+  int stack_link[kStack], stack_cnt[kStack];
+  uint32_t stack_mask[kStack];
+  int sp = 0;
+  // the item to visit: a row (cnt 0) or a leaf, with its rays; link -1: none
+  int link = open ? 0 : -1, cnt = 0;
+  uint32_t mask = open;
+  auto pop = [&] {  // the next entry with an open ray
+    link = -1;
+    while (open && sp > 0) {
+      --sp;
+      if (stack_mask[sp] & open) {
+        link = stack_link[sp];
+        cnt = stack_cnt[sp];
+        mask = stack_mask[sp] & open;
+        return;
+      }
+    }
+  };
+  while (link >= 0) {
+    while (link >= 0 && cnt == 0) {
+      const NodeRow r = load_row(T.bvh, link);
+      uint32_t m0 = 0, m1 = 0;
+#pragma unroll
+      for (int si = 0; si < NS; ++si) {
+        if (!((mask >> si) & 1u)) continue;
+        float t0, x0, t1, x1;
+        slab(r.box, o, inv[si], t0, x0);
+        slab(r.box + 6, o, inv[si], t1, x1);
+        if ((r.cnt0 > 0 || r.link0 > 0) && passes(t0, x0) && t0 - kEps <= xs[si]) m0 |= 1u << si;
+        if ((r.cnt1 > 0 || r.link1 > 0) && passes(t1, x1) && t1 - kEps <= xs[si]) m1 |= 1u << si;
+      }
+      if (m0) {
+        if (m1) {
+          stack_link[sp] = r.link1;
+          stack_cnt[sp] = r.cnt1;
+          stack_mask[sp] = m1;
+          ++sp;
+        }
+        link = r.link0;
+        cnt = r.cnt0;
+        mask = m0;
+      } else if (m1) {
+        link = r.link1;
+        cnt = r.cnt1;
+        mask = m1;
+      } else {
+        pop();
+      }
+    }
+    if (link < 0) break;
+    leaf_fan<NS>(T, link, cnt, o, ws, xs, mask, open);
+    pop();
+  }
+  for (int s = 0; s < T.n_sph && open; ++s) {
+    const float* S = T.sph + s * kSph;
+    float r = S[3];
+    float l0 = o.x - S[0], l1 = o.y - S[1], l2 = o.z - S[2];
+    float cq = l0 * l0 + l1 * l1 + l2 * l2 - r * r;
+    bool r_ok = r > 0.0f;
+#pragma unroll
+    for (int si = 0; si < NS; ++si) {
+      if (!((open >> si) & 1u)) continue;
+      if (sph_blocks(l0, l1, l2, cq, r_ok, ws[si], xs[si])) open &= ~(1u << si);
+    }
+  }
+#pragma unroll
+  for (int si = 0; si < NS; ++si) {
+    if (si < ns) vis[si] = (open >> si) & 1u;
+  }
+}
+
+// The fan through the BVH: the S = 4 instances walk the vertex's rays
+// together; the generic instances (NS > 4) walk each ray alone, since a walk
+// of 16 or 32 rays keeps their inverse directions and bounds live and spills
+// (at 32 light samples it was slower than one walk a ray, PERF.md).
 template <int NS>
 __device__ void occlude_fan_bvh(const Tables& T, V3 o, const V3* ws, const float* dists,
                                 int ns, bool* vis) {
-#pragma unroll
-  for (int si = 0; si < NS; ++si) {
-    if (si >= ns) break;
-    const float xs = dists[si] - fmaxf(kRelEps * dists[si], kEps);
-    bool blocked = bvh_blocked(T, o, ws[si], xs);
-    for (int s = 0; s < T.n_sph && !blocked; ++s) {
-      const float* S = T.sph + s * kSph;
-      float r = S[3];
-      float l0 = o.x - S[0], l1 = o.y - S[1], l2 = o.z - S[2];
-      float cq = l0 * l0 + l1 * l1 + l2 * l2 - r * r;
-      blocked = sph_blocks(l0, l1, l2, cq, r > 0.0f, ws[si], xs);
-    }
-    vis[si] = !blocked;
+  if constexpr (NS > 4) {
+    for (int si = 0; si < ns; ++si) occlude_fan_walk<1>(T, o, ws + si, dists + si, 1, vis + si);
+  } else {
+    occlude_fan_walk<NS>(T, o, ws, dists, ns, vis);
   }
 }
 
@@ -684,8 +902,8 @@ __device__ __forceinline__ Hit trace(const Tables& T, V3 o, V3 d, bool textured)
 // ~181 KB at the 1024-triangle bound) and return the block's view of them.
 // Triangle rows land at kTriSmem floats apart, so that every triangle and occluder row starts 16 bytes aligned (the occluder
 // table follows the triangle table); the other tables keep their widths.
-// The BVH instances leave the triangle table (and the unused occluder
-// table) in global memory. Every thread of the block must call it.
+// The BVH instances stage neither the triangle table nor the (unused)
+// occluder table: their walks read the leaf-ordered copy in global memory. Every thread of the block must call it.
 template <bool BVH>
 __device__ __forceinline__ Tables stage_tables(const Params& P, float* smem) {
   const int cols[8] = {kTri, kOcc, kSph, kMat, kEmt, kEmeta, 1, 8};
@@ -715,7 +933,7 @@ __device__ __forceinline__ Tables stage_tables(const Params& P, float* smem) {
   __syncthreads();
   return {stab[0], stab[1], stab[2], stab[3], stab[4], stab[5], stab[6], stab[7],
           P.rows[0], P.rows[1], P.rows[2], P.rows[3], P.rows[4], P.rows[5],
-          P.env, P.bvh, P.prims, P.env_h, P.env_w};
+          P.env, P.bvh, P.leaf, P.env_h, P.env_w};
 }
 
 // ---- the host side of both C entries ------------------------------------------
@@ -733,7 +951,7 @@ inline Params unpack_params(const void* const* tables, const int* rows, const fl
   for (int k = 0; k < 8; ++k) P.tables[k] = static_cast<const float*>(tables[k]);
   P.env = static_cast<const float*>(tables[8]);
   P.bvh = static_cast<const float*>(tables[9]);
-  P.prims = static_cast<const int*>(tables[10]);
+  P.leaf = static_cast<const float*>(tables[10]);
   for (int k = 0; k < 6; ++k) P.rows[k] = rows[k];
   P.out_rad = static_cast<float*>(out_rad);
   P.out_rays = static_cast<float*>(out_rays);
@@ -764,8 +982,8 @@ inline Params unpack_params(const void* const* tables, const int* rows, const fl
   return P;
 }
 
-// Whether the kernels take P: light samples within the largest instance's
-// cap, a positive sample count and lane stride, an env map of at least 1x1.
+// Whether the kernels take P: at most kMaxDir light samples, a positive
+// sample count and lane stride, an env map of at least 1x1.
 inline bool params_ok(const Params& P) {
   return P.n_dir >= 0 && P.n_dir <= kMaxDir && P.spp > 0 && P.lane_stride > 0 && P.env_h > 0 &&
          P.env_w > 0 && P.max_bounces >= 1 && P.max_bounces <= kMaxDepth;

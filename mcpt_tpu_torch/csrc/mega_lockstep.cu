@@ -8,7 +8,8 @@
 // takes no env map: the JAX kernel refuses one.
 //
 // Instances: mega_lockstep<S, BVH>, S = 4, -16 or -32 light samples as in
-// megakernel.cu; BVH walks the threaded BVH instead of sweeping the tables.
+// megakernel.cu (the generic ones take any count, -S at a time); BVH walks
+// the BVH's child-pair rows (mega_common.cuh) instead of sweeping the tables.
 //
 // What it computes: one thread per lane (a (pixel, wavelength channel) pair;
 // thread idx runs lane lane_offset + idx * lane_stride). The thread runs the
@@ -76,82 +77,87 @@ __device__ __forceinline__ Vertex shade_vertex(const Params& P, const Tables& T,
   const bool inner = dot(v.wo, n) < 0.0f;
   v.refl = (P.textured && m.textured > 0.5f) ? chessboard(hit.uvx, hit.uvy) : m.refl;
 
-  // NEE light samples (Scene.cpp:28-36, BVH.cpp:120-135)
-  V3 ws[NS], ln[NS];
-  float dist[NS], inv_dist[NS], emit_l[NS], mesh_area[NS];
+  // NEE (Scene.cpp:28-36, BVH.cpp:120-135): the light samples NS at a time in
+  // sample order; per group its draws, its shadow fan, and each visible
+  // sample's BSDF-weighted term added to l_dir in order
+  float l_dir = 0.0f;
+  for (int g0 = 0; g0 < ns; g0 += NS) {
+    const int gn = min(NS, ns - g0);
+    V3 ws[NS], ln[NS];
+    float dist[NS], inv_dist[NS], emit_l[NS], mesh_area[NS];
 #pragma unroll
-  for (int si = 0; si < NS; ++si) {
-    if (si >= ns) break;
-    const uint32_t b4 = 16u + 4u * static_cast<uint32_t>(si);
-    const float v0 = draw(b4), v1 = draw(b4 + 1);
-    const float v2 = draw(b4 + 2), v3 = draw(b4 + 3);
-    const float target = v0 * total_area;
-    float mesh = 0.0f;
-    for (int li = 0; li < T.n_lcum; ++li) {
-      if (T.lcum[li] < target) mesh = mesh + 1.0f;
+    for (int si = 0; si < NS; ++si) {
+      if (si >= gn) break;
+      const uint32_t b4 = 16u + 4u * static_cast<uint32_t>(g0 + si);
+      const float v0 = draw(b4), v1 = draw(b4 + 1);
+      const float v2 = draw(b4 + 2), v3 = draw(b4 + 3);
+      const float target = v0 * total_area;
+      float mesh = 0.0f;
+      for (int li = 0; li < T.n_lcum; ++li) {
+        if (T.lcum[li] < target) mesh = mesh + 1.0f;
+      }
+      const float sv1 = sqrtf(v1);
+      int pick = -1;
+      for (int ei = 0; ei < T.n_emt; ++ei) {
+        const float* em = T.emeta + ei * kEmeta;
+        if (em[0] == mesh) {
+          pick = ei;  // the last same-mesh row, unless one fires first
+          if (sv1 < em[3]) break;
+        }
+      }
+      float row[kEmt];
+#pragma unroll
+      for (int c = 0; c < kEmt; ++c) row[c] = pick >= 0 ? T.emt[pick * kEmt + c] : 0.0f;
+      mesh_area[si] = 1.0f / fmaxf(row[15], 1e-30f);
+      const float xs = sqrtf(v2), ys = v3;
+      const float wx = xs * (1.0f - ys), wy = xs * ys;
+      V3 lp = mk(row[0] + row[3] * wx + row[6] * wy, row[1] + row[4] * wx + row[7] * wy,
+                 row[2] + row[5] * wx + row[8] * wy);
+      V3 lnrm = mk(row[9], row[10], row[11]);
+      if (P.n_sph_emitters && row[16] > 0.5f) {
+        // emissive sphere: uniform surface point c + r·dir
+        const float ysp = 1.0f - 2.0f * v2;
+        const float ssp = sqrtf(fmaxf(1.0f - ysp * ysp, 0.0f));
+        const float php = kTwoPi * v3;
+        const V3 dv = mk(ssp * cosf(php), ysp, ssp * sinf(php));
+        lp = mk(row[0] + row[3] * dv.x, row[1] + row[3] * dv.y, row[2] + row[3] * dv.z);
+        lnrm = dv;
+      }
+      ln[si] = lnrm;
+      emit_l[si] = pick3(chan, row[12], row[13], row[14]);
+      const V3 delta = sub(lp, p_dl);
+      // sqrt-then-divide: dist feeds the fan's t < dist − ε bound
+      dist[si] = sqrtf(fmaxf(dot(delta, delta), 1e-20f));
+      inv_dist[si] = 1.0f / dist[si];
+      ws[si] = scale(delta, inv_dist[si]);
     }
-    const float sv1 = sqrtf(v1);
-    int pick = -1;
-    for (int ei = 0; ei < T.n_emt; ++ei) {
-      const float* em = T.emeta + ei * kEmeta;
-      if (em[0] == mesh) {
-        pick = ei;  // the last same-mesh row, unless one fires first
-        if (sv1 < em[3]) break;
+
+    bool vis[NS];
+#pragma unroll
+    for (int si = 0; si < NS; ++si) vis[si] = true;
+    if (P.enable_shadow) {
+      if constexpr (BVH) {
+        occlude_fan_bvh<NS>(T, p_dl, ws, dist, gn, vis);
+      } else {
+        occlude_fan<NS>(T, p_dl, ws, dist, gn, vis);
       }
     }
-    float row[kEmt];
+
 #pragma unroll
-    for (int c = 0; c < kEmt; ++c) row[c] = pick >= 0 ? T.emt[pick * kEmt + c] : 0.0f;
-    mesh_area[si] = 1.0f / fmaxf(row[15], 1e-30f);
-    const float xs = sqrtf(v2), ys = v3;
-    const float wx = xs * (1.0f - ys), wy = xs * ys;
-    V3 lp = mk(row[0] + row[3] * wx + row[6] * wy, row[1] + row[4] * wx + row[7] * wy,
-               row[2] + row[5] * wx + row[8] * wy);
-    V3 lnrm = mk(row[9], row[10], row[11]);
-    if (P.n_sph_emitters && row[16] > 0.5f) {
-      // emissive sphere: uniform surface point c + r·dir
-      const float ysp = 1.0f - 2.0f * v2;
-      const float ssp = sqrtf(fmaxf(1.0f - ysp * ysp, 0.0f));
-      const float php = kTwoPi * v3;
-      const V3 dv = mk(ssp * cosf(php), ysp, ssp * sinf(php));
-      lp = mk(row[0] + row[3] * dv.x, row[1] + row[3] * dv.y, row[2] + row[3] * dv.z);
-      lnrm = dv;
+    for (int si = 0; si < NS; ++si) {
+      if (si >= gn) break;
+      if (!vis[si]) continue;
+      const float ev = eval_bsdf(m, v.ior, v.refl, ws[si], v.wo, n, !inner);
+      const float contrib = emit_l[si] * ev * dot(ws[si], n) * -dot(ws[si], ln[si]) *
+                            (inv_dist[si] * inv_dist[si]) * mesh_area[si] * P.inv_n_dir;
+      l_dir = l_dir + contrib;
     }
-    ln[si] = lnrm;
-    emit_l[si] = pick3(chan, row[12], row[13], row[14]);
-    const V3 delta = sub(lp, p_dl);
-    // sqrt-then-divide: dist feeds the fan's t < dist − ε bound
-    dist[si] = sqrtf(fmaxf(dot(delta, delta), 1e-20f));
-    inv_dist[si] = 1.0f / dist[si];
-    ws[si] = scale(delta, inv_dist[si]);
   }
+  v.l_dir = (inner ? 1.0f - v.kr : v.kr) * l_dir;
 
   // Russian roulette and the reflect/refract branch (Scene.cpp:121-159)
   v.rr_kill = xi2 >= rr_rate;
   v.branch_reflect = xi3 < v.kr;
-
-  bool vis[NS];
-#pragma unroll
-  for (int si = 0; si < NS; ++si) vis[si] = true;
-  if (P.enable_shadow && ns > 0) {
-    if constexpr (BVH) {
-      occlude_fan_bvh<NS>(T, p_dl, ws, dist, ns, vis);
-    } else {
-      occlude_fan<NS>(T, p_dl, ws, dist, ns, vis);
-    }
-  }
-
-  float l_dir = 0.0f;
-#pragma unroll
-  for (int si = 0; si < NS; ++si) {
-    if (si >= ns) break;
-    if (!vis[si]) continue;
-    const float ev = eval_bsdf(m, v.ior, v.refl, ws[si], v.wo, n, !inner);
-    const float contrib = emit_l[si] * ev * dot(ws[si], n) * -dot(ws[si], ln[si]) *
-                          (inv_dist[si] * inv_dist[si]) * mesh_area[si] * P.inv_n_dir;
-    l_dir = l_dir + contrib;
-  }
-  v.l_dir = (inner ? 1.0f - v.kr : v.kr) * l_dir;
   return v;
 }
 
@@ -172,8 +178,10 @@ __device__ __forceinline__ void bounce(const Vertex& v, const Mat& m, V3 d, floa
   }
 }
 
+// One thread's lanes: the kernel's body (mega_lockstep below gives it its
+// launch bounds).
 template <int S, bool BVH>
-__global__ void __launch_bounds__(kThreads) mega_lockstep(Params P) {
+__device__ __forceinline__ void lockstep_lanes(const Params& P) {
   extern __shared__ __align__(16) float smem[];
   const Tables T = stage_tables<BVH>(P, smem);
 
@@ -278,6 +286,17 @@ __global__ void __launch_bounds__(kThreads) mega_lockstep(Params P) {
   }
   P.out_rad[idx] = rad / static_cast<float>(P.spp);
   P.out_rays[idx] = static_cast<float>(rays);
+}
+
+// The kernel: capped at kCapBlocks resident blocks per SM where kCapped
+// (mega_common.cuh), else at what its registers allow.
+template <int S, bool BVH, std::enable_if_t<!kCapped<S, BVH>, int> = 0>
+__global__ void __launch_bounds__(kThreads) mega_lockstep(Params P) {
+  lockstep_lanes<S, BVH>(P);
+}
+template <int S, bool BVH, std::enable_if_t<kCapped<S, BVH>, int> = 0>
+__global__ void __launch_bounds__(kThreads, kCapBlocks) mega_lockstep(Params P) {
+  lockstep_lanes<S, BVH>(P);
 }
 
 // The instance that P takes: S = 4, -16 or -32 by its light-sample count,

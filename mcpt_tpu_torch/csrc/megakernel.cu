@@ -10,15 +10,17 @@
 //
 // Instances: mega_regen<S, ENV, BVH>. S = 4 is the common light-sample count
 // (its fan arrays stay in registers); S = -16 and S = -32 are generic, for
-// any count up to -S (the smaller cap keeps the per-sample arrays of the
-// usual counts from spilling; 32 is conf.json's count in fixed mode). ENV looks the
+// any count, which they take -S samples at a time in sample order (the
+// smaller group keeps the per-sample arrays of the usual counts from
+// spilling; 32 is conf.json's count in fixed mode). ENV looks the
 // env map up per lane, at full resolution with bilinear filtering, on a
 // camera miss and for a surviving bounce's pending env-terminal (the TPU
 // kernel's 16x32 nearest-texel mip and deferred primary pass were TPU
-// workarounds: it has no per-lane gather). BVH walks a threaded BVH from
-// global memory, one thread per ray with one int cursor and no stack, for
-// the next ray's nearest hit and for each shadow ray; the brute-force sweeps
-// over shared-memory tables serve scenes of at most 1024 triangles.
+// workarounds: it has no per-lane gather). BVH walks a BVH of child-pair rows
+// from global memory (mega_common.cuh): near-first with a per-thread stack
+// for the next ray's nearest hit, and one walk for a vertex's four shadow
+// rays (the generic instances: one a ray); the brute-force sweeps over
+// shared-memory tables serve scenes of at most 1024 triangles.
 //
 // What it computes: one thread per lane (a (pixel, wavelength channel) pair;
 // thread idx runs lane lane_offset + idx * lane_stride).
@@ -60,11 +62,13 @@
 // a template instance so the fan's per-sample arrays stay in registers; the
 // shadow fan and the light pick stop early once their answer is fixed.
 // __launch_bounds__ caps of 5 or 6 blocks per SM (96 or 80 registers) and
-// 256-thread blocks were timed against this and not kept (PERF.md): the
-// caps spill. The BVH instances read nodes, triangle rows and the env map
-// from global memory through L1/L2 (a 38k-triangle scene's tables are
-// ~4 MB, a 1024x512 env map 6.3 MB: both stay in the 50 MB L2); their walks
-// diverge per thread within each trace, which is what bounds them.
+// 256-thread blocks were timed against this and not kept for the
+// brute-force instances (PERF.md): the caps spill. The BVH instances read
+// child-pair node rows, leaf triangle rows and the env map from global
+// memory through L1/L2 (a 38k-triangle scene's tables are ~5 MB, a 1024x512
+// env map 6.3 MB: both stay in the 50 MB L2), and wait on those loads; their
+// S = 4 instances run capped at 6 blocks per SM, whose extra warps hide
+// more of the wait than the spills cost (mega_common.cuh kCapBlocks).
 
 #include "mega_common.cuh"
 
@@ -84,8 +88,10 @@ __device__ __forceinline__ float path_draw(uint32_t base, uint32_t use) {
   return unit(murmur(base + use * 0x632BE59Bu));
 }
 
+// One thread's lanes: the kernel's body (mega_regen below gives it its
+// launch bounds).
 template <int S, bool ENV, bool BVH>
-__global__ void __launch_bounds__(kThreads) mega_regen(Params P) {
+__device__ __forceinline__ void regen_lanes(const Params& P) {
   constexpr int NS = S > 0 ? S : -S;
   extern __shared__ __align__(16) float smem[];
   const Tables T = stage_tables<BVH>(P, smem);
@@ -159,55 +165,83 @@ __global__ void __launch_bounds__(kThreads) mega_regen(Params P) {
     const float refl =
         (P.textured && m.textured > 0.5f) ? chessboard(hit.uvx, hit.uvy) : m.refl;
 
-    // NEE light samples (Scene.cpp:28-36, BVH.cpp:120-135)
-    V3 ws[NS], ln[NS];
-    float dist[NS], inv_dist[NS], emit_l[NS], mesh_area[NS];
+    // NEE (Scene.cpp:28-36, BVH.cpp:120-135): the light samples NS at a time
+    // in sample order; per group its draws, its shadow fan, and each visible
+    // sample's BSDF-weighted term added to l_dir in order
+    float l_dir = 0.0f;
+    for (int g0 = 0; g0 < ns; g0 += NS) {
+      const int gn = min(NS, ns - g0);
+      V3 ws[NS], ln[NS];
+      float dist[NS], inv_dist[NS], emit_l[NS], mesh_area[NS];
 #pragma unroll
-    for (int si = 0; si < NS; ++si) {
-      if (si >= ns) break;
-      const uint32_t b4 = 16u + 4u * static_cast<uint32_t>(si);
-      const float v0 = path_draw(key, b4), v1 = path_draw(key, b4 + 1);
-      const float v2 = path_draw(key, b4 + 2), v3 = path_draw(key, b4 + 3);
-      const float target = v0 * total_area;
-      float mesh = 0.0f;
-      for (int li = 0; li < T.n_lcum; ++li) {
-        if (T.lcum[li] < target) mesh = mesh + 1.0f;
+      for (int si = 0; si < NS; ++si) {
+        if (si >= gn) break;
+        const uint32_t b4 = 16u + 4u * static_cast<uint32_t>(g0 + si);
+        const float v0 = path_draw(key, b4), v1 = path_draw(key, b4 + 1);
+        const float v2 = path_draw(key, b4 + 2), v3 = path_draw(key, b4 + 3);
+        const float target = v0 * total_area;
+        float mesh = 0.0f;
+        for (int li = 0; li < T.n_lcum; ++li) {
+          if (T.lcum[li] < target) mesh = mesh + 1.0f;
+        }
+        const float sv1 = sqrtf(v1);
+        int pick = -1;
+        for (int ei = 0; ei < T.n_emt; ++ei) {
+          const float* em = T.emeta + ei * kEmeta;
+          if (em[0] == mesh) {
+            pick = ei;  // the last same-mesh row, unless one fires first
+            if (sv1 < em[3]) break;
+          }
+        }
+        float row[kEmt];
+#pragma unroll
+        for (int c = 0; c < kEmt; ++c) row[c] = pick >= 0 ? T.emt[pick * kEmt + c] : 0.0f;
+        mesh_area[si] = 1.0f / fmaxf(row[15], 1e-30f);
+        const float xs = sqrtf(v2), ys = v3;
+        const float wx = xs * (1.0f - ys), wy = xs * ys;
+        V3 lp = mk(row[0] + row[3] * wx + row[6] * wy, row[1] + row[4] * wx + row[7] * wy,
+                   row[2] + row[5] * wx + row[8] * wy);
+        V3 lnrm = mk(row[9], row[10], row[11]);
+        if (P.n_sph_emitters && row[16] > 0.5f) {
+          // emissive sphere: uniform surface point c + r·dir
+          const float ysp = 1.0f - 2.0f * v2;
+          const float ssp = sqrtf(fmaxf(1.0f - ysp * ysp, 0.0f));
+          const float php = kTwoPi * v3;
+          const V3 dv = mk(ssp * cosf(php), ysp, ssp * sinf(php));
+          lp = mk(row[0] + row[3] * dv.x, row[1] + row[3] * dv.y, row[2] + row[3] * dv.z);
+          lnrm = dv;
+        }
+        ln[si] = lnrm;
+        emit_l[si] = pick3(chan, row[12], row[13], row[14]);
+        const V3 delta = sub(lp, p_dl);
+        // sqrt-then-divide: dist feeds the fan's t < dist − ε bound
+        dist[si] = sqrtf(fmaxf(dot(delta, delta), 1e-20f));
+        inv_dist[si] = 1.0f / dist[si];
+        ws[si] = scale(delta, inv_dist[si]);
       }
-      const float sv1 = sqrtf(v1);
-      int pick = -1;
-      for (int ei = 0; ei < T.n_emt; ++ei) {
-        const float* em = T.emeta + ei * kEmeta;
-        if (em[0] == mesh) {
-          pick = ei;  // the last same-mesh row, unless one fires first
-          if (sv1 < em[3]) break;
+
+      bool vis[NS];
+#pragma unroll
+      for (int si = 0; si < NS; ++si) vis[si] = true;
+      if (P.enable_shadow) {
+        if constexpr (BVH) {
+          occlude_fan_bvh<NS>(T, p_dl, ws, dist, gn, vis);
+        } else {
+          occlude_fan<NS>(T, p_dl, ws, dist, gn, vis);
         }
       }
-      float row[kEmt];
+
 #pragma unroll
-      for (int c = 0; c < kEmt; ++c) row[c] = pick >= 0 ? T.emt[pick * kEmt + c] : 0.0f;
-      mesh_area[si] = 1.0f / fmaxf(row[15], 1e-30f);
-      const float xs = sqrtf(v2), ys = v3;
-      const float wx = xs * (1.0f - ys), wy = xs * ys;
-      V3 lp = mk(row[0] + row[3] * wx + row[6] * wy, row[1] + row[4] * wx + row[7] * wy,
-                 row[2] + row[5] * wx + row[8] * wy);
-      V3 lnrm = mk(row[9], row[10], row[11]);
-      if (P.n_sph_emitters && row[16] > 0.5f) {
-        // emissive sphere: uniform surface point c + r·dir
-        const float ysp = 1.0f - 2.0f * v2;
-        const float ssp = sqrtf(fmaxf(1.0f - ysp * ysp, 0.0f));
-        const float php = kTwoPi * v3;
-        const V3 dv = mk(ssp * cosf(php), ysp, ssp * sinf(php));
-        lp = mk(row[0] + row[3] * dv.x, row[1] + row[3] * dv.y, row[2] + row[3] * dv.z);
-        lnrm = dv;
+      for (int si = 0; si < NS; ++si) {
+        if (si >= gn) break;
+        if (!vis[si]) continue;
+        const float ev = eval_bsdf(m, ior, refl, ws[si], wo, n, !inner);
+        const float contrib = emit_l[si] * ev * dot(ws[si], n) * -dot(ws[si], ln[si]) *
+                              (inv_dist[si] * inv_dist[si]) * mesh_area[si] * P.inv_n_dir;
+        l_dir = l_dir + contrib;
       }
-      ln[si] = lnrm;
-      emit_l[si] = pick3(chan, row[12], row[13], row[14]);
-      const V3 delta = sub(lp, p_dl);
-      // sqrt-then-divide: dist feeds the fan's t < dist − ε bound
-      dist[si] = sqrtf(fmaxf(dot(delta, delta), 1e-20f));
-      inv_dist[si] = 1.0f / dist[si];
-      ws[si] = scale(delta, inv_dist[si]);
     }
+    l_dir = (inner ? 1.0f - kr : kr) * l_dir;
 
     // Russian roulette and the reflect/refract branch (Scene.cpp:121-159)
     const bool rr_kill = xi2 >= rr_rate;
@@ -217,29 +251,6 @@ __global__ void __launch_bounds__(kThreads) mega_regen(Params P) {
     const bool capped = !rr_kill && depth == P.max_bounces - 1;
     const bool survive = !rr_kill && !capped;
     rays += static_cast<uint32_t>(ns);
-
-    bool vis[NS];
-#pragma unroll
-    for (int si = 0; si < NS; ++si) vis[si] = true;
-    if (P.enable_shadow && ns > 0) {
-      if constexpr (BVH) {
-        occlude_fan_bvh<NS>(T, p_dl, ws, dist, ns, vis);
-      } else {
-        occlude_fan<NS>(T, p_dl, ws, dist, ns, vis);
-      }
-    }
-
-    float l_dir = 0.0f;
-#pragma unroll
-    for (int si = 0; si < NS; ++si) {
-      if (si >= ns) break;
-      if (!vis[si]) continue;
-      const float ev = eval_bsdf(m, ior, refl, ws[si], wo, n, !inner);
-      const float contrib = emit_l[si] * ev * dot(ws[si], n) * -dot(ws[si], ln[si]) *
-                            (inv_dist[si] * inv_dist[si]) * mesh_area[si] * P.inv_n_dir;
-      l_dir = l_dir + contrib;
-    }
-    l_dir = (inner ? 1.0f - kr : kr) * l_dir;
 
     if (!survive) {
       // RR kill: the raw l_dir; bounce cap: clamp15(l_dir); depth-0
@@ -283,6 +294,17 @@ __global__ void __launch_bounds__(kThreads) mega_regen(Params P) {
   P.out_rays[idx] = static_cast<float>(rays);
 }
 
+// The kernel: capped at kCapBlocks resident blocks per SM where kCapped
+// (mega_common.cuh), else at what its registers allow.
+template <int S, bool ENV, bool BVH, std::enable_if_t<!kCapped<S, BVH>, int> = 0>
+__global__ void __launch_bounds__(kThreads) mega_regen(Params P) {
+  regen_lanes<S, ENV, BVH>(P);
+}
+template <int S, bool ENV, bool BVH, std::enable_if_t<kCapped<S, BVH>, int> = 0>
+__global__ void __launch_bounds__(kThreads, kCapBlocks) mega_regen(Params P) {
+  regen_lanes<S, ENV, BVH>(P);
+}
+
 // The instance that P takes: S = 4, -16 or -32 by its light-sample count,
 // ENV and BVH by its flags; launched[0..2] get its S, ENV and BVH.
 Kernel pick_instance(const Params& P, int* launched) {
@@ -305,7 +327,7 @@ Kernel pick_instance(const Params& P, int* launched) {
 // C interface (loaded with ctypes by kernels/megakernel.py).
 //   tables: 11 device pointers (tri, occ, sph, mat, emt, emeta, lcum, par
 //           float32 tables; env float32 (env_h, env_w, 3); bvh float32
-//           (nodes, 8); prims int32)
+//           (rows, 16); leaf_tri float32 (L, 28); kernels/tables.py layouts)
 //   rows:   6 ints (tri, occ, sph, mat, emt, lcum)
 //   fpar:   17 floats: xscale, yscale, om[9], pos[3], focal, aperture, 1/S
 //   ipar:   17 ints: seed, lane_offset, n_lanes, spp, width, height,

@@ -26,7 +26,10 @@ from mcpt_tpu_torch.kernels.tables import EXTRA, TABLE_COLS
 
 SOURCE = _build.CSRC / "megakernel.cu"
 LOCKSTEP_SOURCE = _build.CSRC / "mega_lockstep.cu"
-MAX_DIR = 32  # csrc/mega_common.cuh kMaxDir
+# light samples a vertex (csrc/mega_common.cuh kMaxDir): the generic instances
+# take any count in groups, and the draws' use-site keys 16 + 4·si + 0..3 stay
+# below 2^31
+MAX_DIR = 1 << 28
 # each source, its C entry and how many template flags (after S) that entry
 # reports it launched
 _KERNELS = {
@@ -85,9 +88,8 @@ def _check_tables(tables):
     dev = tables.device
     for name in (*TABLE_COLS, *EXTRA):
         t = getattr(tables, name)
-        dtype = torch.int32 if name == "prims" else torch.float32
-        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"table {name}: need contiguous {dtype} on {dev}")
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"table {name}: need contiguous float32 on {dev}")
         if name in TABLE_COLS and (t.ndim != 2 or t.shape[1] != TABLE_COLS[name]):
             raise ValueError(f"table {name}: shape {tuple(t.shape)}")
     if tables.emeta.shape[0] != tables.emt.shape[0] or tables.par.shape[0] != 1:

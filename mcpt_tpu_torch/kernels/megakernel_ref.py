@@ -2,8 +2,9 @@
 
 Counterpart of `mcpt_tpu/kernels/megakernel.py` (`_mega_kernel_regen`, its
 SMEM brute-force sweeps and the per-vertex shading helpers), with the env
-lookup of `mcpt_tpu/envmap.py` in place of its TPU mip, and stackless BVH
-walks in place of the clustered walks of `mcpt_tpu/kernels/cluster.py`.
+lookup of `mcpt_tpu/envmap.py` in place of its TPU mip, and BVH walks over
+child-pair rows (near-first for the nearest hit, one shared walk per shadow
+fan) in place of the clustered walks of `mcpt_tpu/kernels/cluster.py`.
 Every function keeps the JAX helper's name without the leading underscore and
 computes the same float32 expressions in the same order, so a CUDA tensor run
 through this module and through `csrc/megakernel.cu` agree to the bit except
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from mcpt_tpu_torch.constants import (
+    BVH_STACK,
     CLAMP_DIRECT,
     CLAMP_INDIRECT,
     EPSILON,
@@ -487,18 +489,24 @@ def fan_and_nearest(tri, occ, sph, fans, nexts, textured=True):
 
 # ---------------------------------------------------------------------------
 # The BVH walks (replacing mcpt_tpu/kernels/cluster.py:257, 547, 835 for
-# scenes over 1024 triangles): stackless over the miss links, vectorized
-# over the rays still walking. Triangles use the brute sweep's tests;
+# scenes over 1024 triangles) over the child-pair rows of
+# `tables.bvh_tables`, vectorized over the rays still walking. A walk's item
+# is a row (an interior node: both child boxes are tested, one child taken,
+# the other pushed onto a per-ray stack) or a leaf (its triangles are
+# tested, then the stack is popped); each step takes one item per ray. The
+# kernel takes the same items in the same order (csrc/mega_common.cuh
+# `nearest_bvh`, `occlude_fan_bvh`: a thread descends rows until it holds a
+# leaf, then its warp tests leaves). Triangles use the brute sweep's tests;
 # spheres are tested by brute force after the walk, as the cluster kernels
 # do (cluster.py:18).
 # ---------------------------------------------------------------------------
 
 
-def _slab(node, o, inv):
-    """Entry and exit t of rays (o, 1/d) through node boxes (k, 8); fmin /
-    fmax drop the NaN of 0·inf like CUDA's fminf / fmaxf."""
-    ta = [(node[:, k] - o[k]) * inv[k] for k in range(3)]
-    tb = [(node[:, 3 + k] - o[k]) * inv[k] for k in range(3)]
+def _slab(box, o, inv):
+    """Entry and exit t of rays (o, 1/d) through boxes min(3) max(3) (k, 6);
+    fmin / fmax drop the NaN of 0·inf like CUDA's fminf / fmaxf."""
+    ta = [(box[:, k] - o[k]) * inv[k] for k in range(3)]
+    tb = [(box[:, 3 + k] - o[k]) * inv[k] for k in range(3)]
     tmin = torch.fmax(
         torch.fmax(torch.fmin(ta[0], tb[0]), torch.fmin(ta[1], tb[1])),
         torch.fmin(ta[2], tb[2]),
@@ -510,69 +518,158 @@ def _slab(node, o, inv):
     return tmin, tmax
 
 
-def _walk(bvh, prims, o, d, live, bound, leaf_fn, done=None, ops=None, tests=("woop",)):
-    """Walk the threaded BVH for the rays where `live`, pruning nodes whose
-    box the ray enters after `bound()` (a per-ray tensor, read afresh each
-    step). `leaf_fn(lanes, prim_rows)` tests the rays `lanes` against their
-    leaf's triangle rows `prim_rows`, one slot at a time (tallied under each
-    key of `tests`); rays with `done` set stop early."""
-    inv = [1.0 / x for x in d]
-    lanes = torch.nonzero(live).flatten()
-    cur = torch.zeros_like(lanes)
-    codes = bvh[:, 7]
-    max_leaf = int((codes[codes >= 0] % 16).max().item()) if bool((codes >= 0).any()) else 0
-    while lanes.numel():
-        _tally(ops, "slab", lanes.numel())
-        node = bvh[cur]
-        tmin, tmax = _slab(node, [x[lanes] for x in o], [x[lanes] for x in inv])
-        b = bound()[lanes]
-        hit = (tmin - EPSILON <= tmax) & (tmax >= -EPSILON) & (tmin - EPSILON <= b)
-        code = node[:, 7]
-        leaf = hit & (code >= 0)
-        if bool(leaf.any()):
-            ll = lanes[leaf]
-            c = code[leaf].to(torch.int64)
-            start, cnt = c // 16, c % 16
-            for j in range(max_leaf):
-                m = j < cnt
-                prim = prims[(start[m] + j)].to(torch.int64)
-                ok = prim >= 0
-                if bool(ok.any()):
-                    for key in tests:
-                        _tally(ops, key, ok.sum())
-                    leaf_fn(ll[m][ok], prim[ok])
-        nxt = torch.where(hit & (code < 0), cur + 1, node[:, 6].to(torch.int64))
-        keep = nxt >= 0
-        if done is not None:
-            keep = keep & ~done[lanes]
-        lanes, cur = lanes[keep], nxt[keep]
+def _passes(tmin, tmax):
+    """Does the ray pass through the box (before the bound, which the
+    walks test apart: `tmin - EPSILON <= bound`)?"""
+    return (tmin - EPSILON <= tmax) & (tmax >= -EPSILON)
+
+
+class _Walk:
+    """The rays of one walk: `lanes` (ray ids), each at its item (`link`,
+    `cnt`: a row when cnt is 0, else a leaf of cnt `leaf_tri` rows) with a
+    `key` (the entry t of a nearest walk, or the ray mask of a fan walk) and
+    a stack of (link, cnt, key) entries. Each row a ray loads counts one
+    under `row` in `ops`."""
+
+    def __init__(self, tables, live, key, ops=None):
+        self.nodes = tables.bvh
+        self.links = tables.bvh.view(torch.int32)[:, 12:16].to(torch.int64)
+        self.leaf = tables.leaf_tri
+        n, dev = live.shape[0], live.device
+        self.lanes = torch.nonzero(live).flatten()
+        self.link = torch.zeros_like(self.lanes)  # row 0, the root's
+        self.cnt = torch.zeros_like(self.lanes)
+        self.key = key[self.lanes]
+        self.stack = [torch.zeros((n, BVH_STACK), dtype=t.dtype, device=dev)
+                      for t in (self.link, self.cnt, key)]
+        self.sp = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.max_leaf = int(self.links[:, 1::2].max().clamp(min=0).item())
+        self.ops = ops
+
+    def children(self, at):
+        """The two children of the rows of walking rays `at` (a mask): per
+        child its box (k, 6), link, count, and whether it is not empty."""
+        rows = self.link[at]
+        _tally(self.ops, "row", rows.numel())
+        r, lk = self.nodes[rows], self.links[rows]
+        return [(r[:, 6 * c: 6 * c + 6], lk[:, 2 * c], lk[:, 2 * c + 1],
+                 (lk[:, 2 * c + 1] > 0) | (lk[:, 2 * c] > 0)) for c in (0, 1)]
+
+    def leaf_rows(self, at):
+        """Per slot j < max_leaf: (mask into `at`'s rays whose leaf has a
+        j-th row, those rows of `leaf_tri`)."""
+        link, cnt = self.link[at], self.cnt[at]
+        for j in range(self.max_leaf):
+            m = j < cnt
+            if bool(m.any()):
+                yield m, link[m] + j
+
+    def push(self, at, link, cnt, key):
+        """Push (link, cnt, key) for the walking rays `at` (a mask)."""
+        lanes = self.lanes[at]
+        sp = self.sp[lanes]
+        for st, v in zip(self.stack, (link, cnt, key)):
+            st[lanes, sp] = v
+        self.sp[lanes] = sp + 1
+
+    def take(self, at, link, cnt, key):
+        """Walking rays `at` (a mask) go on to item (link, cnt) with `key`."""
+        self.link[at], self.cnt[at], self.key[at] = link, cnt, key
+
+    def pop(self, at, accept):
+        """The walking rays `at` (a mask) pop entries until one passes
+        `accept(lanes, key)` -> (ok, key), and go on to it; returns the mask
+        of those whose stack ran out."""
+        out = torch.zeros_like(at)
+        need = at.clone()
+        while bool(need.any()):
+            idx = torch.nonzero(need).flatten()
+            lanes = self.lanes[idx]
+            empty = self.sp[lanes] == 0
+            out[idx[empty]] = True
+            need[idx[empty]] = False
+            idx, lanes = idx[~empty], lanes[~empty]
+            sp = self.sp[lanes] - 1
+            self.sp[lanes] = sp
+            e_link, e_cnt, e_key = (st[lanes, sp] for st in self.stack)
+            ok, e_key = accept(lanes, e_key)
+            go = idx[ok]
+            self.link[go], self.cnt[go], self.key[go] = e_link[ok], e_cnt[ok], e_key[ok]
+            need[go] = False
+        return out
+
+    def retire(self, done):
+        keep = ~done
+        self.lanes, self.link, self.cnt, self.key = (
+            x[keep] for x in (self.lanes, self.link, self.cnt, self.key))
+
+
+def _leaf_cols(rows):
+    return [rows[:, c] for c in range(13)]
+
+
+def _within(at, sub):
+    """The mask, over all of `at`'s positions, of the positions of `at`
+    where `sub` (a mask over `at`'s true positions) holds."""
+    out = torch.zeros_like(at)
+    out[at] = sub
+    return out
 
 
 def bvh_nearest(tables, o, d, live, textured=True, ops=None):
     """Nearest hit through the BVH: the brute sweep's answer, ties included
-    (equal t goes to the lower triangle row, triangles beat spheres)."""
+    (equal t goes to the lower triangle row, triangles beat spheres).
+
+    Near-first: of a row's two children the one the ray enters first is
+    taken (child 0 on equal entry t), the other pushed with its entry t. A
+    child, or a popped entry, is entered while its entry t - EPSILON <= the
+    best t so far: the margin of the brute sweep's box test, which makes the
+    answer independent of the order (the winner's boxes are entered by then)."""
     tri, sph = tables.tri, tables.sph
     n = o[0].shape
-    best_t = torch.full(n, T_MAX_F, dtype=torch.float32, device=tri.device)
-    best_i = torch.full(n, -1, dtype=torch.int64, device=tri.device)
+    dev = tri.device
+    best_t = torch.full(n, T_MAX_F, dtype=torch.float32, device=dev)
+    best_i = torch.full(n, -1, dtype=torch.int64, device=dev)
     best_u = torch.zeros_like(best_t)
     best_v = torch.zeros_like(best_t)
+    inv = [1.0 / x for x in d]
+    leaf_id = tables.leaf_tri.view(torch.int32)[:, 25].to(torch.int64)
+    walk = _Walk(tables, live, torch.zeros_like(best_t), ops)
 
-    def leaf_fn(lanes, prim):
-        rows = tri[prim]
-        t_c, u, v = _woop(
-            [rows[:, c] for c in range(13)],
-            tuple(x[lanes] for x in o), tuple(x[lanes] for x in d),
-        )
-        bt = best_t[lanes]
-        better = (t_c < T_MAX_F) & ((t_c < bt) | ((t_c == bt) & (prim < best_i[lanes])))
-        sel = lanes[better]
-        best_t[sel] = t_c[better]
-        best_i[sel] = prim[better]
-        best_u[sel] = u[better]
-        best_v[sel] = v[better]
+    def in_reach(lanes, t_in):
+        return t_in - EPSILON <= best_t[lanes], t_in
 
-    _walk(tables.bvh, tables.prims, o, d, live, lambda: best_t, leaf_fn, ops=ops)
+    while walk.lanes.numel():
+        at_leaf = walk.cnt > 0
+        for m, rows in walk.leaf_rows(at_leaf):
+            ll = walk.lanes[at_leaf][m]
+            _tally(ops, "woop", ll.numel())
+            t_c, u, v = _woop(_leaf_cols(walk.leaf[rows]), tuple(x[ll] for x in o),
+                              tuple(x[ll] for x in d))
+            bt, ids = best_t[ll], leaf_id[rows]
+            better = (t_c < bt) | ((t_c == bt) & (t_c < T_MAX_F) & (ids < best_i[ll]))
+            sel = ll[better]
+            best_t[sel] = t_c[better]
+            best_i[sel] = ids[better]
+            best_u[sel] = u[better]
+            best_v[sel] = v[better]
+        at_row = ~at_leaf
+        lanes = walk.lanes[at_row]
+        _tally(ops, "slab", 2 * lanes.numel())
+        ol, il, bt = [x[lanes] for x in o], [x[lanes] for x in inv], best_t[lanes]
+        kids = []
+        for box, link, cnt, full in walk.children(at_row):
+            tmin, tmax = _slab(box, ol, il)
+            kids.append((tmin, link, cnt, full & _passes(tmin, tmax) & (tmin - EPSILON <= bt)))
+        swap = kids[1][0] < kids[0][0]  # child 1 is entered first: it is child a
+        ta, la, ca, ea = (torch.where(swap, x1, x0) for x0, x1 in zip(*kids))
+        tb, lb, cb, eb = (torch.where(swap, x0, x1) for x0, x1 in zip(*kids))
+        walk.push(_within(at_row, ea & eb), lb[ea & eb], cb[ea & eb], tb[ea & eb])
+        go = ea | eb
+        walk.take(_within(at_row, go), torch.where(ea, la, lb)[go], torch.where(ea, ca, cb)[go],
+                  torch.where(ea, ta, tb)[go])
+        done = walk.pop(at_leaf | _within(at_row, ~go), in_reach)
+        walk.retire(done)
     t_sph = _sph_candidates(sph, o, d)
     best_s = torch.full_like(best_i, -1)
     for k in range(sph.shape[0]):
@@ -584,24 +681,82 @@ def bvh_nearest(tables, o, d, live, textured=True, ops=None):
 
 
 def bvh_fan(tables, o, ds, dists, live, ops=None):
-    """Visibility of the shadow fan through the BVH: per ray an any-hit
-    walk with the brute fan's predicate over every triangle, then the
-    spheres."""
-    tri, sph = tables.tri, tables.sph
+    """Visibility of the shadow fan through the BVH: one walk per origin for
+    all its rays (at most 32, which share the origin), then the spheres.
+    Each ray keeps the brute fan's predicate over every triangle.
+
+    A walk carries the mask of the rays that entered the current row's box
+    and are not yet blocked: a child is entered when any of them passes its
+    box before its own bound, with the mask of those that do; a leaf tests
+    its rows against them (the origin's terms once a row) and clears the
+    rays a row blocks; child 0 is taken, child 1 pushed with its mask; a
+    popped entry keeps its rays still open; the walk ends when every ray is
+    blocked or the stack runs out. A ray is tested against exactly the
+    triangles whose boxes it enters."""
+    if len(ds) > 32:
+        raise ValueError(f"{len(ds)} rays in one fan walk > 32")
+    sph = tables.sph
+    xs = [_fan_xs(dist) for dist in dists]
+    inv = [[1.0 / x for x in e] for e in ds]
+    open_ = torch.where(live, (1 << len(ds)) - 1, 0).to(torch.int64)
+    walk = _Walk(tables, live & (open_ != 0), open_, ops)
+
+    def still_open(lanes, m_in):
+        m = m_in & open_[lanes]
+        return m != 0, m
+
+    while walk.lanes.numel():
+        at_leaf = walk.cnt > 0
+        for m, rows in walk.leaf_rows(at_leaf):
+            ll = walk.lanes[at_leaf][m]
+            live_m = walk.key[at_leaf][m] & open_[ll]  # the rays this row still tests
+            act = live_m != 0
+            ll, rows, live_m = ll[act], rows[act], live_m[act]
+            if not ll.numel():
+                continue
+            w = _leaf_cols(walk.leaf[rows])
+            op0, op1, q = _origin_terms(w, tuple(x[ll] for x in o))
+            _tally(ops, "fan_origin", ll.numel())
+            for si, (e, x) in enumerate(zip(ds, xs)):
+                sel = ((live_m >> si) & 1) != 0
+                if not bool(sel.any()):
+                    continue
+                _tally(ops, "fan_tri", sel.sum())
+                hit = _tri_blocks([c[sel] for c in w], op0[sel], op1[sel], q[sel],
+                                  tuple(c[ll[sel]] for c in e), x[ll[sel]])
+                blk = ll[sel][hit]
+                open_[blk] = open_[blk] & ~(1 << si)
+        at_row = ~at_leaf
+        lanes = walk.lanes[at_row]
+        mask = walk.key[at_row]
+        ol = [x[lanes] for x in o]
+        (box0, l0, c0, f0), (box1, l1, c1, f1) = walk.children(at_row)
+        m0 = torch.zeros_like(lanes)
+        m1 = torch.zeros_like(lanes)
+        for si in range(len(ds)):
+            sel = ((mask >> si) & 1) != 0
+            _tally(ops, "slab", 2 * sel.sum())
+            il = [x[lanes] for x in inv[si]]
+            for box, full, k in ((box0, f0, 0), (box1, f1, 1)):
+                tmin, tmax = _slab(box, ol, il)
+                enter = sel & full & _passes(tmin, tmax) & (tmin - EPSILON <= xs[si][lanes])
+                bit = enter.to(torch.int64) << si
+                if k == 0:
+                    m0 = m0 | bit
+                else:
+                    m1 = m1 | bit
+        e0, e1 = m0 != 0, m1 != 0
+        walk.push(_within(at_row, e0 & e1), l1[e0 & e1], c1[e0 & e1], m1[e0 & e1])
+        go = e0 | e1
+        walk.take(_within(at_row, go), torch.where(e0, l0, l1)[go], torch.where(e0, c0, c1)[go],
+                  torch.where(e0, m0, m1)[go])
+        blocked = open_[walk.lanes] == 0
+        done = walk.pop((at_leaf & ~blocked) | _within(at_row, ~go), still_open)
+        walk.retire(done | (at_leaf & blocked))
     vis = []
-    for e, dist in zip(ds, dists):
-        xs = _fan_xs(dist)
-        blocked = torch.zeros_like(live)
-
-        def leaf_fn(lanes, prim, e=e, xs=xs, blocked=blocked):
-            w = [tri[prim, c] for c in range(13)]
-            op0, op1, q = _origin_terms(w, tuple(x[lanes] for x in o))
-            hit = _tri_blocks(w, op0, op1, q, tuple(x[lanes] for x in e), xs[lanes])
-            blocked[lanes[hit]] = True
-
-        _walk(tables.bvh, tables.prims, o, e, live, lambda xs=xs: xs, leaf_fn,
-              done=blocked, ops=ops, tests=("fan_tri", "fan_origin"))
-        vis.append(~(blocked | _sph_blocks(sph, o, e, xs)))
+    for si, (e, x) in enumerate(zip(ds, xs)):
+        blocked = ((open_ >> si) & 1) == 0
+        vis.append(~((live & blocked) | _sph_blocks(sph, o, e, x)))
     return vis
 
 
@@ -1096,8 +1251,9 @@ def trace_block_ref(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8,
     launch's data needs, from which `chip_smoke.py` reckons the kernel's
     operation bound: camera rays, shaded vertices, env lookups, Woop tests
     (`woop`), sphere tests (`sph`, nearest and fan), box tests (`slab`),
-    shadow-fan triangle tests (`fan_tri`) and the fan's per-origin triangle
-    terms (`fan_origin`). Only live rays count. A brute-force fan counts a
+    shadow-fan triangle tests (`fan_tri`), the fan's per-origin triangle
+    terms (`fan_origin`) and a BVH walk's row loads (`row`). Only live rays
+    count. A brute-force fan counts a
     visible shadow ray's whole sweep and one test for a blocked ray (the
     kernel stops at its blocker)."""
     if max_bounces > MAX_BOUNCES_LIMIT:
@@ -1214,14 +1370,24 @@ def trace_block_ref(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8,
 
 def _fan(tables, V, at_vertex, shadow, ops):
     """Visibility of a vertex's shadow rays (one bool tensor per light
-    sample), or None when nothing is tested: the BVH walk for the lanes at
-    a vertex, else the brute fan over the occluder table."""
+    sample), or None when nothing is tested: for the lanes at a vertex, the
+    BVH walks as the kernels walk them (the S = 4 instances' four rays in
+    one walk, the generic instances' one ray a walk:
+    csrc/mega_common.cuh `occlude_fan_bvh`), else the brute fan over the
+    occluder table."""
     if not (shadow and V["samples"]):
         return None
-    fan = (V["p_dl"], [s_[0] for s_ in V["samples"]], [s_[1] for s_ in V["samples"]])
-    if tables.use_bvh:
-        return bvh_fan(tables, *fan, at_vertex, ops=ops)
-    return occlude_shared_origin(tables.occ, tables.sph, *fan)
+    o, ws, dists = V["p_dl"], [s_[0] for s_ in V["samples"]], [s_[1] for s_ in V["samples"]]
+    if not tables.use_bvh:
+        return occlude_shared_origin(tables.occ, tables.sph, o, ws, dists)
+    if len(ws) == 4:
+        return bvh_fan(tables, o, ws, dists, at_vertex, ops=ops)
+    # each ray alone, all in one walk over (ray, lane) pairs
+    r, n = len(ws), at_vertex.shape[0]
+    e = tuple(torch.cat([w[k] for w in ws]) for k in range(3))
+    vis = bvh_fan(tables, tuple(x.repeat(r) for x in o), [e], [torch.cat(dists)],
+                  at_vertex.repeat(r), ops=ops)[0]
+    return list(vis.split(n))
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,8 @@
 
 `mega_tables(pack)` cuts the eight tables the brute-force regen kernel reads
 from a `ScenePack`, with the same layouts and float32 arithmetic as the JAX
-function (so they are bitwise equal to it). `bvh_tables(pack)` lays out the
-BVH that the kernel walks for scenes above `MEGA_MAX_TRIS` triangles, and the
+function (so they are bitwise equal to it). `bvh_tables(pack, tri)` lays out
+the BVH that the kernel walks for scenes above `MEGA_MAX_TRIS` triangles, and the
 env map rides along at full resolution. `SceneTables` holds them all as
 registered buffers of an `nn.Module`, so `.to(device)` moves the scene, plus
 the static ints the kernel specializes on.
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mcpt_tpu_torch.constants import EPSILON, T_MAX
+from mcpt_tpu_torch.constants import BVH_STACK, EPSILON, T_MAX
 from mcpt_tpu_torch.scene import MEGA_MAX_TRIS
 
 # Table name → row width. Layouts (mega_tables docstring in mcpt_tpu):
@@ -33,17 +33,25 @@ TABLE_COLS = {
 }
 # Further buffers (dummies when unused):
 #   env  (H, W, 3): the env map, full resolution; (1, 1, 3) without one
-#   bvh  (N, 8): per node min(3), max(3) (inflated by BVH_PAD), miss link,
-#                leaf code start*16 + count (-1 on interior nodes)
-#   prims (P,) int32: leaf-ordered triangle rows of `tri`; -1 for padding
-#                and spheres (the kernel tests spheres by brute force)
-EXTRA = ("env", "bvh", "prims")
+#   bvh  (R, 16): the BVH's child-pair rows, one per interior node (row 0
+#                the root's): child 0's box min(3) max(3), child 1's box
+#                min(3) max(3), both inflated (`bvh_tables`), then per child
+#                (link, count) as int32 bit-cast to float32 (none negative,
+#                so no NaN patterns): count > 0 a leaf of `count` rows of
+#                `leaf_tri` from row `link`; count 0 an interior child whose
+#                row is `link` >= 1 (row 0 is no child), or empty if link 0
+#                (so is a leaf that holds spheres only)
+#   leaf_tri (L, 28): the triangle rows of `tri` (cols 0-24) in leaf order,
+#                at the kernel's 16-byte row stride; col 25 the row's index
+#                in `tri` (int32 bit-cast), which breaks ties; spheres stay
+#                out (the kernel tests them by brute force)
+EXTRA = ("env", "bvh", "leaf_tri")
 STATIC = (
     "n_emitters", "n_sph_emitters", "n_dir_sample", "enable_shadow",
     "any_textured", "use_env", "use_bvh",
 )
-MAX_LEAF = 15  # leaf counts live in the code's low 4 bits
-MAX_LEAF_START = 1 << 20  # start*16 + count stays an exact float32 integer
+NODE_COLS = 16
+LEAF_COLS = 28  # csrc/mega_common.cuh kTriSmem
 
 
 def mega_tables(pack) -> dict:
@@ -77,35 +85,100 @@ def mega_tables(pack) -> dict:
     return {k: np.ascontiguousarray(v, dtype=f32) for k, v in out.items()}
 
 
-def bvh_tables(pack) -> tuple:
-    """(bvh (N, 8) float32, prims (P,) int32) for the kernel's BVH walk,
-    from the pack's flat BVH (`bvh_*` fields, sphere ids >= `t_pad`).
+def bvh_children(miss, leaf) -> list:
+    """[(i + 1, miss[i + 1]) for each interior node i] of the flat tree
+    (`bvh.FlatBVH` layout: DFS preorder, `leaf` marks the leaves), checking
+    that they are i's children: the right child follows the left child's
+    subtree and inherits i's miss link."""
+    kids = []
+    for i in np.flatnonzero(~leaf):
+        c0, c1 = i + 1, miss[i + 1]
+        if not (c0 < c1 and miss[c1] == miss[i]):
+            raise ValueError(f"BVH node {i}: not a threaded DFS preorder")
+        kids.append((c0, c1))
+    return kids
 
-    Node boxes are inflated by max(EPSILON, 1e-5 x the largest coordinate):
+
+def bvh_depth(miss, leaf) -> int:
+    """Levels of the flat tree, from the root to its deepest leaf."""
+    depth = np.ones(len(miss), np.int64)
+    for i, (c0, c1) in zip(np.flatnonzero(~leaf), bvh_children(miss, leaf)):
+        depth[c0] = depth[c1] = depth[i] + 1  # parents precede their children
+    return int(depth.max(initial=0))
+
+
+def bvh_tables(pack, tri) -> tuple:
+    """(bvh (R, 16) float32, leaf_tri (L, 28) float32) for the kernel's BVH
+    walks (see `EXTRA`), from the pack's flat BVH (`bvh_*` fields, sphere
+    ids >= `t_pad`) and the triangle table `tri` (`mega_tables`).
+
+    The flat tree is threaded in DFS preorder: interior node i's children
+    are i + 1 and miss[i + 1], and the right child inherits its parent's
+    miss link, which this function checks. A root that is a leaf becomes
+    one row with an empty second child. Trees of more than BVH_STACK levels
+    raise: the walks' stacks would overflow.
+
+    Child boxes are inflated by max(EPSILON, 1e-5 x the largest coordinate):
     the Woop test can accept a hit a few float32 ULPs of the coordinates
     outside its triangle's exact box, and the slab test rounds too, so exact
-    boxes could cull a grazing hit that the brute sweep finds. The walk stays
+    boxes could cull a grazing hit that the brute sweep finds. The walks stay
     exact: inflation only adds node visits."""
     if not pack.use_bvh:
-        return np.zeros((1, 8), np.float32), np.full(1, -1, np.int32)
+        return np.zeros((1, NODE_COLS), np.float32), np.zeros((1, LEAF_COLS), np.float32)
     lo = np.asarray(pack.bvh_min, np.float64)
     hi = np.asarray(pack.bvh_max, np.float64)
-    count = np.asarray(pack.bvh_leaf_count, np.int64)
+    miss = np.asarray(pack.bvh_miss, np.int64)
     start = np.asarray(pack.bvh_leaf_start, np.int64)
-    if count.max(initial=0) > MAX_LEAF or start.max(initial=0) >= MAX_LEAF_START:
-        raise ValueError(f"BVH leaves must hold <= {MAX_LEAF} prims, start < {MAX_LEAF_START}")
+    count = np.asarray(pack.bvh_leaf_count, np.int64)
+    prims = np.asarray(pack.bvh_prims, np.int64)
+    leaf = start >= 0
+    depth = bvh_depth(miss, leaf)
+    if depth > BVH_STACK:
+        raise ValueError(f"BVH of {depth} levels > {BVH_STACK}, the walks' stack")
     finite = np.isfinite(lo) & np.isfinite(hi)
     scale = float(np.abs(np.where(finite, lo, 0.0)).max(initial=0.0))
     scale = max(scale, float(np.abs(np.where(finite, hi, 0.0)).max(initial=0.0)))
     pad = max(EPSILON, 1e-5 * scale)
-    bvh = np.empty((lo.shape[0], 8), np.float32)
-    bvh[:, 0:3] = lo - pad
-    bvh[:, 3:6] = hi + pad
-    bvh[:, 6] = pack.bvh_miss
-    bvh[:, 7] = np.where(start >= 0, start * 16 + count, -1)
-    prims = np.asarray(pack.bvh_prims, np.int32)
-    prims = np.where(prims >= pack.t_pad, -1, prims).astype(np.int32)
-    return bvh, prims
+    box = np.empty((lo.shape[0], 6), np.float32)
+    box[:, 0:3] = lo - pad
+    box[:, 3:6] = hi + pad
+
+    # leaf triangle rows in leaf (preorder) order; a leaf's (first row, count)
+    rows, first, n_tri = [], np.zeros(len(miss), np.int64), np.zeros(len(miss), np.int64)
+    at = 0
+    for i in np.flatnonzero(leaf):
+        ids = prims[start[i]: start[i] + count[i]]
+        ids = ids[ids < pack.t_pad]  # spheres stay out
+        rows.append(ids)
+        first[i], n_tri[i] = at, ids.size
+        at += ids.size
+    tri_ids = np.concatenate(rows) if rows else np.zeros(0, np.int64)
+    leaf_tri = np.zeros((max(at, 1), LEAF_COLS), np.float32)
+    leaf_tri[:at, : tri.shape[1]] = tri[tri_ids]
+    leaf_tri[:at, 25] = tri_ids.astype(np.int32).view(np.float32)
+
+    interior = np.flatnonzero(~leaf)
+    row_of = np.full(len(miss), -1, np.int64)
+    row_of[interior] = np.arange(interior.size)
+
+    def child(c):  # (link, count) of node c; a leaf of spheres only is empty
+        if not leaf[c]:
+            return row_of[c], 0
+        return (first[c], n_tri[c]) if n_tri[c] else (0, 0)
+
+    # one row per interior node; a root that is a leaf, one row with an
+    # empty second child
+    kids = bvh_children(miss, leaf) if interior.size else [(0, -1)]
+    bvh = np.zeros((len(kids), NODE_COLS), np.float32)
+    links = np.zeros((len(kids), 4), np.int32)
+    for r, (c0, c1) in enumerate(kids):
+        bvh[r, 0:6] = box[c0]
+        links[r, 0:2] = child(c0)
+        if c1 >= 0:
+            bvh[r, 6:12] = box[c1]
+            links[r, 2:4] = child(c1)
+    bvh[:, 12:16] = links.view(np.float32)
+    return bvh, leaf_tri
 
 
 class SceneTables(nn.Module):
@@ -133,14 +206,14 @@ class SceneTables(nn.Module):
                 raise ValueError(f"table {name}: shape {tuple(t.shape)}, want (rows, {cols})")
             self.register_buffer(name, t.to(device).contiguous())
         env = tables.get("env", np.zeros((1, 1, 3), np.float32))
-        bvh = tables.get("bvh", np.zeros((1, 8), np.float32))
-        prims = tables.get("prims", np.full(1, -1, np.int32))
-        for name, arr, dtype in (
-            ("env", env, np.float32), ("bvh", bvh, np.float32), ("prims", prims, np.int32)
-        ):
-            self.register_buffer(name, torch.tensor(np.asarray(arr, dtype)).to(device).contiguous())
-        if self.env.ndim != 3 or self.env.shape[2] != 3 or self.bvh.ndim != 2 or self.bvh.shape[1] != 8:
-            raise ValueError("env must be (H, W, 3) and bvh (N, 8)")
+        bvh = tables.get("bvh", np.zeros((1, NODE_COLS), np.float32))
+        leaf_tri = tables.get("leaf_tri", np.zeros((1, LEAF_COLS), np.float32))
+        for name, arr in (("env", env), ("bvh", bvh), ("leaf_tri", leaf_tri)):
+            self.register_buffer(name, torch.tensor(np.asarray(arr, np.float32)).to(device).contiguous())
+        if (self.env.ndim != 3 or self.env.shape[2] != 3 or self.bvh.shape[1:] != (NODE_COLS,)
+                or self.leaf_tri.shape[1:] != (LEAF_COLS,)):
+            raise ValueError(f"env must be (H, W, 3), bvh (N, {NODE_COLS}), "
+                             f"leaf_tri (L, {LEAF_COLS})")
         self.n_emitters = int(n_emitters)
         self.n_sph_emitters = int(n_sph_emitters)
         self.n_dir_sample = int(n_dir_sample)
@@ -158,7 +231,7 @@ class SceneTables(nn.Module):
                 "compile the scene with cluster_threshold <= its triangle count"
             )
         tables = mega_tables(pack)
-        tables["bvh"], tables["prims"] = bvh_tables(pack)
+        tables["bvh"], tables["leaf_tri"] = bvh_tables(pack, tables["tri"])
         tables["env"] = pack.env_pixels if pack.use_env else np.zeros((1, 1, 3), np.float32)
         return cls(
             tables,

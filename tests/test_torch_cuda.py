@@ -6,7 +6,8 @@ a GPU machine without them; tests/conftest.py imports jax, so there run
 
 The megakernels' flat per-vertex loop is held bitwise to the plain versions
 at its edges (one and many samples a lane, one and 32 bounces, the generic
-light-sample instances, a lane stride). Megakernel bounds elsewhere as in
+light-sample instances, a lane stride), and at light-sample counts above 32,
+which the generic instances take 32 at a time. Megakernel bounds elsewhere as in
 chip_smoke.py: per-lane ray counts equal on at least
 98% of lanes (on every lane for the env, BVH and lockstep instances), radiance off by
 more than 1e-3 on under 2% of lanes (ULP-level nearest-hit flips), means
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from mcpt_tpu_torch.builtin_scenes import demo_scene
+from mcpt_tpu_torch.constants import BVH_STACK
 from mcpt_tpu_torch.kernels import intersect_prims as IP
 from mcpt_tpu_torch.kernels import megakernel as K
 from mcpt_tpu_torch.kernels.intersect_prims_ref import intersect_prims_ref
@@ -133,11 +135,12 @@ def test_cuda_env_and_bvh_instances_match_plain_version(env, bvh):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_dir,cap", [(32, 32), (8, 16)])
+@pytest.mark.parametrize("n_dir,cap", [(32, 32), (8, 16), (33, 32), (40, 32), (64, 32)])
 def test_cuda_generic_light_count_matches_plain_version(n_dir, cap):
     """The generic-S instances on the BVH walk under the sky map: at 32
-    light samples, the count conf.json asks for in fixed mode, and at 8,
-    which the instance capped at 16 takes."""
+    light samples, the count conf.json asks for in fixed mode, at 8, which
+    the instance of 16 takes, and at 33, 40 and 64, which the instance of 32
+    takes 32 at a time."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     sc = demo_scene()
@@ -414,3 +417,87 @@ def test_instance_info_needs_cuda_tables():
     cs = cam_static(dataclasses.replace(demo_scene().camera, width=W, height=H))
     with pytest.raises(ValueError, match="CUDA tables"):
         K.instance_info(tables, cs, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regen", [True, False])
+@pytest.mark.parametrize("bvh", [False, True])
+@pytest.mark.parametrize("n_dir", [33, 40, 64])
+def test_any_light_count_bitwise(cuda_card, n_dir, bvh, regen):
+    """More light samples than the largest generic instance's group (32):
+    both kernels take them 32 at a time, brute force and BVH, and equal the
+    plain version bitwise on every lane, ray counts included."""
+    sc = demo_scene()
+    sc.n_dir_sample = n_dir
+    tables = SceneTables.from_pack(sc.compile(cluster_threshold=8 if bvh else 1024),
+                                   device="cuda")
+    cs = cam_static(dataclasses.replace(demo_scene().camera, width=W, height=H))
+    n = W * H * 3
+    r, ry = K.trace_block(tables, cs, 13, 0, 2, n, 4, regen=regen)
+    torch.cuda.synchronize()
+    b = str(bvh).lower()
+    assert K.trace_block.last_instance == (
+        f"mega_regen<-32, false, {b}>" if regen else f"mega_lockstep<-32, {b}>")
+    plain = trace_block_ref if regen else trace_block_lockstep_ref
+    r2, ry2 = plain(tables, cs, 13, 0, 2, n, 4)
+    assert torch.equal(ry, ry2)
+    assert torch.equal(r, r2), f"{(r != r2).sum().item()} of {n} lanes differ"
+
+
+@pytest.mark.gpu
+def test_deep_bvh_refused_for_the_card(cuda_card):
+    """A tree deeper than the walks' stack is refused when its tables are
+    made, before any launch (tests/test_torch_bvh_walk.py builds it)."""
+    from test_torch_bvh_walk import chain_pack
+
+    before = K.trace_block.launches
+    with pytest.raises(ValueError, match="levels"):
+        SceneTables.from_pack(chain_pack(BVH_STACK + 1), device="cuda")
+    assert K.trace_block.launches == before
+    assert SceneTables.from_pack(chain_pack(BVH_STACK), device="cuda").use_bvh
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regen", [True, False])
+def test_sphere_only_leaves_on_the_card(cuda_card, regen):
+    """A tree whose every other leaf holds a sphere only (empty children in
+    the node table): both kernels' BVH instances equal the plain version
+    bitwise on every lane, ray counts included."""
+    from chip_smoke import cornell_x4
+    from test_torch_bvh_walk import chain_pack
+
+    tables = SceneTables.from_pack(chain_pack(12, sphere_leaves=True), device="cuda")
+    cs = cam_static(dataclasses.replace(cornell_x4(sky=False).camera, width=W, height=H))
+    n = W * H * 3
+    r, ry = K.trace_block(tables, cs, 21, 0, 2, n, 6, regen=regen)
+    torch.cuda.synchronize()
+    assert K.trace_block.last_instance.endswith("true>")
+    plain = trace_block_ref if regen else trace_block_lockstep_ref
+    r2, ry2 = plain(tables, cs, 21, 0, 2, n, 6)
+    assert torch.equal(ry, ry2)
+    assert torch.equal(r, r2), f"{(r != r2).sum().item()} of {n} lanes differ"
+
+
+@pytest.mark.gpu
+def test_conf_cli_takes_more_than_32_light_samples(cuda_card, tmp_path):
+    """`python -m mcpt_tpu_torch --conf ... --no-strict-parity` with
+    directLightSample 40 renders on the card through the megakernel (the
+    instance of 32, two groups a vertex), on small stand-in meshes."""
+    import json
+
+    from chip_smoke import write_stand_in_models
+    from mcpt_tpu_torch.__main__ import main
+
+    write_stand_in_models(tmp_path, segs_steps=(8, 8))
+    conf = json.loads((Path(__file__).resolve().parent.parent / "conf.json").read_text())
+    conf["scene"]["directLightSample"] = 40
+    conf["scene"]["envMap"] = str(SKY)
+    (tmp_path / "conf.json").write_text(json.dumps(conf))
+    name = "mega_regen<-32, true, true>"
+    before = K.trace_block.by_instance[name]
+    out = tmp_path / "out.png"
+    main(["--conf", str(tmp_path / "conf.json"), "--models-dir", str(tmp_path),
+          "--no-strict-parity", "--width", "48", "--height", "27", "--spp", "1",
+          "--out", str(out)])
+    assert K.trace_block.by_instance[name] > before
+    assert out.exists()
