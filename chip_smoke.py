@@ -69,7 +69,16 @@ raises, so the script exits nonzero and prints no result line.
    method's ms on the same rays
 10. (e) K3's range: the DEMO plus one stand-in soldier (2,560 triangles) on
    the floor, 2,592 triangles (more than 1024 rows, padded table <= 4096),
-   which the kernel walks tile by tile; the same checks as (d)
+   with a BVH (above cluster_threshold): the bare table, which the kernel
+   sweeps tile by tile, with the same checks as (d); then the walk modes
+   over the pack's tables (`pack.walk`, from `pack_to(..., walk=True)` as
+   the wavefront render moves such a scene) on the same rays, bitwise equal
+   on every ray to the all-pairs plain version and to the tiled modes
+   (here and in (d) and (f) float32 is compared as int32 bits). Their
+   bound is the plain walk's tally (`intersect_walk_ref` on every 12th ray,
+   scaled to all; bitwise equal to the kernel there too) x `OPS_PER`, or the
+   rays' bytes and every table read once; the sweep's own bound is printed
+   beside it
 11. (f) K4: the triangles-only entry `intersect_tris` on the DEMO's
    triangles at 786,432 (B, 3) rays, bitwise against its plain version
 12. (g) the wavefront main path: `render_radiance` of the DEMO at 1920x1080,
@@ -79,8 +88,9 @@ raises, so the script exits nonzero and prints no result line.
    384x384 DEMO through the wavefront at spp 64 (in one tile) against
    phase 4's megakernel render (spp 256), two independent estimates of one
    image: whole-image means within 3%, correlation of 12x12 block means >
-   0.95; and (e)'s scene through the wavefront at 384x384, spp 8, which
-   must launch the tiled modes
+   0.95; and (e)'s scene through the wavefront at 384x384, spp 8, whose
+   triangles must go through the walk modes alone, then its spp 1 render
+   under torch.profiler for the idle share
 13. (h) the lockstep kernel K1b (`csrc/mega_lockstep.cu`, `render_mega(...,
    regen=False)`) and the lane-strided sharded render:
    (h1) `mega_lockstep<4, false>` against its plain version on the card on
@@ -122,14 +132,15 @@ raises, so the script exits nonzero and prints no result line.
    instance in the kernel table, the card, the kernel table as JSON (each row's launches are those of
    its kernel in its own main-path run: the DEMO 384x384 render, the
    sky-lit DEMO render of (a), the --conf render, the wavefront renders of
-   (g), the lockstep renders of (h2); none launches the triangles-only
-   entry), and the result line
+   (g), the lockstep renders of (h2); no render launches the triangles-only
+   entry or, since the walk, the tiled modes), and the result line
 """
 
 import collections
 import concurrent.futures
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -153,7 +164,7 @@ from mcpt_tpu_torch.io.png import read_png
 from mcpt_tpu_torch.kernels import build as kbuild
 from mcpt_tpu_torch.kernels import intersect_prims as ip
 from mcpt_tpu_torch.kernels import megakernel as mk
-from mcpt_tpu_torch.kernels.intersect_prims_ref import intersect_prims_ref
+from mcpt_tpu_torch.kernels.intersect_prims_ref import intersect_prims_ref, intersect_walk_ref
 from mcpt_tpu_torch.kernels.megakernel_ref import (
     cam_static,
     trace_block_lockstep_ref,
@@ -188,6 +199,9 @@ TILE_PX = 65536
 DEV = "cuda"
 # where (e) stands the stand-in soldier on the DEMO's floor (free of the boxes)
 SOLDIER_AT = (140.0, 0.0, 440.0)
+# (e): the plain walk tallies the work of every WALK_SUBSET-th ray (65,536
+# of the 786,432), scaled to all of them
+WALK_SUBSET = 12
 
 # Stand-ins for the reference's chess meshes, which are not in the repo:
 # closed surfaces of revolution of 2*S*(R-1) triangles (S segments around,
@@ -309,15 +323,19 @@ def build():
     return dt
 
 
-def cuda_ms(fn, reps):
-    """Mean device milliseconds of fn() over reps runs (CUDA events)."""
+def cuda_ms(fn, reps, windows=1):
+    """Device milliseconds of fn(): the mean over reps runs between two CUDA
+    events, the median of `windows` such windows."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    means = []
+    for _ in range(windows):
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / reps)
+    return statistics.median(means)
 
 
 def bound(tables, ops, n_lanes):
@@ -326,6 +344,12 @@ def bound(tables, ops, n_lanes):
     8 bytes per lane written) over its memory rate."""
     flops = sum(OPS_PER[k] * v for k, v in ops.items())
     nbytes = sum(b.numel() * b.element_size() for b in tables.buffers()) + 8 * n_lanes
+    return roofline(flops, nbytes)
+
+
+def roofline(flops, nbytes):
+    """(bound_ms, bound_by): the larger of float32 operations over the
+    card's float32 peak and bytes over its memory rate."""
     t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -675,8 +699,8 @@ def nee_batch(pack, camera, seed=0, shadow=3):
 def intersect_vs_plain(label, kernel, plain, mode, n_rays, n_tris, n_sph, table_bytes, out_bytes):
     """`kernel()` (one launch of csrc/intersect_prims.cu) against `plain()`
     (its plain version on the same CUDA tensors): every output bitwise
-    equal, the launch reported as `mode`; kernel ms (mean of 10), plain ms
-    (one run) and the bound: n_rays x (n_tris Woop tests + n_sph sphere
+    equal, the launch reported as `mode`; kernel ms (the median of 5 means
+    of 10), plain ms (one run) and the bound: n_rays x (n_tris Woop tests + n_sph sphere
     tests) float32 operations, or 24 bytes in per ray, `out_bytes` out and
     the tables read once."""
     kernel()
@@ -687,9 +711,25 @@ def intersect_vs_plain(label, kernel, plain, mode, n_rays, n_tris, n_sph, table_
     want = plain()
     torch.cuda.synchronize()
     plain_ms = (time.monotonic() - t0) * 1e3
-    ms = cuda_ms(kernel, 10)
+    ms = cuda_ms(kernel, 10, windows=5)
     got = kernel()
     torch.cuda.synchronize()
+    err = bitwise(label, got, want, "the plain version")
+    flops = n_rays * (n_tris * OPS_PER["woop"] + n_sph * OPS_PER["sph"])
+    bound_ms, bound_by = roofline(flops, n_rays * (24 + out_bytes) + table_bytes)
+    hits = (got[0] < T_MAX).float().mean().item()
+    phase("kernel", f"{label} [{mode}]: {n_rays} rays x ({n_tris} triangles + {n_sph} spheres), "
+                    f"hit share {hits:.4f}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+                    f"{bound_ms:.4f} ms ({bound_by}); bitwise equal on every ray, max abs err "
+                    f"{err}")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms,
+            "bound_by": bound_by, "got": got, "want": want}
+
+
+def bitwise(label, got, want, what):
+    """Check every output of `got` bitwise equal to `want`'s (None where
+    occlusion returns none; float32 compared as int32, so +0 and -0
+    differ); the largest absolute difference (0.0)."""
     err = 0.0
     for name, g, w in zip(("t", "prim", "u", "v"), got, want):
         if w is None:
@@ -697,24 +737,63 @@ def intersect_vs_plain(label, kernel, plain, mode, n_rays, n_tris, n_sph, table_
             continue
         check(g.dtype == w.dtype and g.shape == w.shape, f"{label}: {name} dtype/shape")
         err = max(err, (g.double() - w.double()).abs().max().item())
-        check(torch.equal(g, w), f"{label}: {name} differs from the plain version on "
-                                 f"{(g != w).sum().item()} of {g.numel()} rays")
-    flops = n_rays * (n_tris * OPS_PER["woop"] + n_sph * OPS_PER["sph"])
-    nbytes = n_rays * (24 + out_bytes) + table_bytes
-    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-    hits = (got[0] < T_MAX).float().mean().item()
-    phase("kernel", f"{label} [{mode}]: {n_rays} rays x ({n_tris} triangles + {n_sph} spheres), "
-                    f"hit share {hits:.4f}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
-                    f"{bound_ms:.4f} ms ({bound_by}); bitwise equal on every ray, max abs err "
-                    f"{err}")
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms,
+        gi, wi = g.view(torch.int32), w.view(torch.int32)
+        check(torch.equal(gi, wi), f"{label}: {name} differs from {what} on "
+                                   f"{(gi != wi).sum().item()} of {g.numel()} rays")
+    return err
+
+
+def walk_vs_plain(label, pack, oc, dc, occ, swept):
+    """The walk mode over `pack.walk` on the rays of `swept` (the tiled
+    mode's result from `intersect_vs_plain`): bitwise equal on every ray to
+    the all-pairs plain version and to the tiled kernel; kernel ms (the
+    median of 9 means of 40: a launch is tens of microseconds); the bound from the plain walk's tally on every WALK_SUBSET-th ray,
+    scaled to all (its answers there equal the kernel's bitwise too)."""
+    mode = ("occlusion" if occ else "nearest") + " walk"
+    walk = pack.walk
+    sph = pack.sph_geom
+
+    def kernel():
+        return ip.intersect_prims_c(pack.tri_sc, sph, pack.n_tris, oc, dc, occlusion=occ,
+                                    walk=walk)
+
+    kernel()
+    torch.cuda.synchronize()
+    check(ip.intersect_prims_c.last_mode == mode,
+          f"{label}: the kernel reported {ip.intersect_prims_c.last_mode!r}, not {mode!r}")
+    ms = cuda_ms(kernel, 40, windows=9)
+    got = kernel()
+    torch.cuda.synchronize()
+    err = bitwise(label, got, swept["want"], "the all-pairs plain version")
+    bitwise(label, got, swept["got"], "the tiled mode")
+    n = oc[0].numel()
+    sub = torch.arange(0, n, WALK_SUBSET, device=DEV)
+    ops = collections.Counter()
+    t0 = time.monotonic()
+    plain = intersect_walk_ref(walk.bvh, walk.leaf, sph, pack.n_tris, tuple(x[sub] for x in oc),
+                               tuple(x[sub] for x in dc), occlusion=occ, ops=ops)
+    torch.cuda.synchronize()
+    walk_ms = (time.monotonic() - t0) * 1e3
+    bitwise(label, [None if x is None else x[sub] for x in got], plain, "the plain walk")
+    per_ray = {k: v / sub.numel() for k, v in ops.items()}
+    flops = n * sum(OPS_PER[k] * v for k, v in per_ray.items())
+    tables = sum(x.numel() * x.element_size() for x in (walk.bvh, walk.leaf, sph))
+    bound_ms, bound_by = roofline(flops, n * (24 + (4 if occ else 16)) + tables)
+    phase("kernel", f"{label} [{mode}]: {n} rays, {walk.bvh.shape[0]} rows, "
+                    f"{walk.leaf.shape[0]} leaf rows, {walk.depth} levels: kernel {ms:.4f} ms "
+                    f"(tiled {swept['ms']:.4f} ms, {swept['ms'] / ms:.2f}x), bound "
+                    f"{bound_ms:.5f} ms ({bound_by}; the sweep's own {swept['bound_ms']:.4f}), "
+                    f"share {bound_ms / ms:.4f}; plain walk on {sub.numel()} rays {walk_ms:.1f} "
+                    f"ms, per ray {({k: round(v, 4) for k, v in per_ray.items()})}; bitwise "
+                    f"equal on every ray to the plain version and the tiled mode")
+    return {"ms": ms, "plain_ms": swept["plain_ms"], "max_abs_err": err, "bound_ms": bound_ms,
             "bound_by": bound_by}
 
 
 def prims_vs_plain(label, pack, oc, dc, tiled):
-    """Nearest and occlusion modes of `intersect_prims_c` on `pack`'s
-    tables, and the dense method's ms on the same rays for reference."""
+    """Nearest and occlusion modes of `intersect_prims_c` on `pack`'s bare
+    tables (with `tiled`, then its walk modes on the same rays), and the
+    dense method's ms on the same rays for reference."""
     tri, sph = pack.tri_sc, pack.sph_geom
     n = oc[0].numel()
     n_tris = int(pack.tri_valid.sum().item())
@@ -727,6 +806,8 @@ def prims_vs_plain(label, pack, oc, dc, tiled):
             label, lambda: ip.intersect_prims_c(tri, sph, pack.n_tris, oc, dc, occlusion=occ),
             lambda: intersect_prims_ref(tri, sph, pack.n_tris, oc, dc, occlusion=occ),
             mode, n, n_tris, n_sph, table_bytes, 4 if occ else 16)
+        if tiled:
+            out[mode.replace("tiled", "walk")] = walk_vs_plain(label, pack, oc, dc, occ, out[mode])
     o, d = torch.stack(oc, 1), torch.stack(dc, 1)
     dense_ms = cuda_ms(lambda: intersect_dense(pack, o, d), 3)
     phase("kernel", f"{label}: the dense method (torch.matmul) on the same rays {dense_ms:.3f} ms")
@@ -757,10 +838,11 @@ def intersect_kernels(soldier):
     phase("d", f"{time.monotonic() - t0:.1f} s")
 
     t0 = time.monotonic()
-    pack = pack_to(soldier.compile(), DEV)
+    pack = pack_to(soldier.compile(), DEV, walk=True)
     n_tris = sum(m.positions.shape[0] for m in soldier.meshes)
-    check(pack.tri_sc.shape[0] > 1024 and pack.n_tris <= 4096,
-          f"(e) table {tuple(pack.tri_sc.shape)}, padded {pack.n_tris}")
+    check(pack.tri_sc.shape[0] > 1024 and pack.n_tris <= 4096 and pack.walk is not None,
+          f"(e) table {tuple(pack.tri_sc.shape)}, padded {pack.n_tris}, a BVH: "
+          f"{pack.walk is not None}")
     phase("e", f"DEMO + soldier: {n_tris} triangles, table rows {pack.tri_sc.shape[0]}, "
                f"padded {pack.n_tris}")
     oc_e, dc_e = nee_batch(pack, cam, seed=1)
@@ -820,16 +902,22 @@ def wavefront_path(mega_img, soldier):
     check(rel < 0.03 and corr > 0.95, "wavefront and megakernel images disagree")
 
     reset_counts()
+    t1 = time.monotonic()
     img_s, st_s = render_radiance(soldier, soldier.camera, 8, 0, max_bounces=8,
                                   tile_pixels=one_tile, device=DEV)
-    tiled = dict(ip.intersect_prims_c.by_mode)
-    check(tiled.get("nearest tiled", 0) > 0 and tiled.get("occlusion tiled", 0) > 0,
-          f"the DEMO + soldier render launched {tiled}")
+    wall = time.monotonic() - t1
+    walked = dict(ip.intersect_prims_c.by_mode)
+    check(set(walked) == {"nearest walk", "occlusion walk"},
+          f"the DEMO + soldier render launched {walked}")
     check(bool(np.isfinite(img_s).all()) and float(img_s.mean()) > 0.0, "DEMO + soldier image")
-    phase("g", f"DEMO + soldier 384x384 spp 8 mb 8: {st_s['elapsed_s']:.3f} s, {st_s['rays']} "
-               f"rays, {st_s['rays_per_s']:.4e} rays/s, launches {tiled}; "
-               f"{time.monotonic() - t0:.1f} s")
-    return by_mode, tiled
+    phase("g", f"DEMO + soldier 384x384 spp 8 mb 8: wall {wall:.3f} s, render "
+               f"{st_s['elapsed_s']:.3f} s, {st_s['rays']} rays, {st_s['rays_per_s']:.4e} "
+               f"rays/s, launches {walked}")
+    device_profile("DEMO + soldier 384x384 spp 1 mb 8", lambda: render_radiance(
+        soldier, soldier.camera, 1, 5, max_bounces=8, tile_pixels=one_tile, device=DEV),
+        kernel="intersect_walk")
+    phase("g", f"{time.monotonic() - t0:.1f} s")
+    return by_mode, walked
 
 
 def lockstep_path(pack, regen_img):
@@ -1007,7 +1095,7 @@ def main():
     with tempfile.TemporaryDirectory() as models:
         soldier = soldier_demo(models)
     at_prims = intersect_kernels(soldier)
-    wf_launches, tiled_launches = wavefront_path(mega_img, soldier)
+    wf_launches, soldier_launches = wavefront_path(mega_img, soldier)
     ls_demo, ls_bvh = lockstep_path(pack, mega_img)
     t1 = time.monotonic()
     throughput(tables, regen=False, earlier=("the regen kernel, phase 5", regen_rate))
@@ -1048,8 +1136,10 @@ def main():
     k2 = "mcpt_tpu/kernels/intersect_pallas.py:326"
     k3 = "mcpt_tpu/kernels/intersect_pallas.py:135"
     for mode, replaces, counts in (("nearest", k2, wf_launches), ("occlusion", k2, wf_launches),
-                                   ("nearest tiled", k3, tiled_launches),
-                                   ("occlusion tiled", k3, tiled_launches)):
+                                   ("nearest tiled", k3, soldier_launches),
+                                   ("occlusion tiled", k3, soldier_launches),
+                                   ("nearest walk", k3, soldier_launches),
+                                   ("occlusion walk", k3, soldier_launches)):
         rows.append((f"intersect_prims<{mode}>", src, replaces, counts.get(mode, 0),
                      at_prims[mode]))
     # no render launches the triangles-only entry (K4 has no render path)

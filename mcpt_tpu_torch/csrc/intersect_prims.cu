@@ -15,12 +15,12 @@
 //
 // What it computes: one thread per ray. The thread reads its ray's six
 // components from six contiguous float32 arrays (the wavefront's component
-// form: no (B, 3) rows, no transposes), tests every triangle row in table
-// order with `_tri_candidate`'s arithmetic (the Woop transform through the
+// form: no (B, 3) rows, no transposes), tests triangle rows with
+// `_tri_candidate`'s arithmetic (the Woop transform through the
 // EPSILON-guarded determinant, inclusive barycentric bounds, t >= 0, and the
 // row's `valid` flag; pad rows have nr2 = 0 and fail the determinant guard),
-// then every sphere with `_sph_candidate`'s q-form roots. A candidate wins
-// only with a strictly smaller t, so ties go to the lower primitive and
+// then every sphere with `_sph_candidate`'s q-form roots. The nearest hit is
+// the first minimum in table order (ties go to the lower primitive) and
 // triangles beat spheres. Sphere ids start at `sph_base` (the JAX pack's
 // 128-padded triangle count, so ids index its shading tables). The float32
 // expressions are the JAX ones in the JAX order; build with -fmad=false and
@@ -29,22 +29,46 @@
 //
 // Modes, chosen here from the arguments and reported back to the caller:
 //   nearest   (occlusion = 0, n_sph > 0): t, prim (int32, -1 on a miss), u, v
-//   occlusion (occlusion = 1): t only, with no winner bookkeeping
+//   occlusion (occlusion = 1): t only (the sweep keeps no winner; the walk
+//             keeps the winner's row, for the tie rule)
 //   tris      (occlusion = 0, n_sph = 0): K4, triangles only
-// The triangle table is staged through dynamic shared memory in tiles of at
-// most kTile = 1024 rows (64 KB, above the 48 KB default: the launch sets
-// cudaFuncAttributeMaxDynamicSharedMemorySize and reports any refusal). A
-// table of at most kTile rows is one tile; a longer one (K3's range) is walked
-// tile by tile with __syncthreads() between tiles, every thread still testing
-// every row in order. The spheres sit in shared memory after the tile.
+// and two forms, also chosen from the arguments and reported:
 //
-// What bounds it on this card: operations. Each (ray, triangle) pair is about
-// 47 float32 operations and each (ray, sphere) pair about 25, on data that
-// every thread of a warp reads from the same shared-memory address (a
-// broadcast); bytes are 24 per ray in and at most 16 out. The design keeps
-// the pair loop free of global loads and divergence other than the winner
-// update. Packing rows for fewer shared-memory loads, or testing rays in
-// warps against register-cached rows, is later work.
+// The sweep (a bare table): the triangle table is staged through dynamic
+// shared memory in tiles of at most kTile = 1024 rows (64 KB, above the 48 KB
+// default: the launch sets cudaFuncAttributeMaxDynamicSharedMemorySize and
+// reports any refusal). A table of at most kTile rows is one tile (K2's
+// range); a longer one is swept tile by tile ("tiled") with __syncthreads()
+// between tiles, every thread testing every row in order (a candidate wins
+// only with a strictly smaller t). What bounds
+// it on this card: operations. Each (ray, triangle) pair is about 47 float32
+// operations and each (ray, sphere) pair about 25, on data that every thread
+// of a warp reads from the same shared-memory address (a broadcast); bytes
+// are 24 per ray in and at most 16 out.
+//
+// The walk (a table with its BVH, kernels/tables.py `walk_tables`; K3's
+// range on Hopper): all pairs is a TPU form (the MXU and the SMEM budget),
+// and past a thousand rows the sweep is bound by its own instruction stream.
+// The walk changes the work instead: each thread walks the pack's child-pair
+// rows near-first with a stack of kStack entries (local memory), descends
+// rows until it holds a leaf (while-while: the warp then tests leaves
+// together), and tests the leaf's tri_sc rows, read in leaf order through the
+// read-only path, as the sweep tests them. An entry is taken while its entry
+// t - EPSILON <= the best t so far, so the winner's boxes are always entered
+// (the child boxes are inflated, tables.py `bvh_tables`); nearest keeps the
+// lowest t with equal t to the lower tri_sc row (float kWalkId of a leaf
+// row), which is the sweep's first minimum, bit for bit; occlusion keeps the
+// same winner (equal t differ there only in the sign of a zero, the t of a
+// ray whose origin lies on two triangles' planes) and returns its t. The
+// megakernels' `nearest_bvh` (mega_common.cuh) is the same walk over the
+// same rows; it is not shared, so that no megakernel instance's register
+// allocation moves. Bound: the rows and leaf rows a ray loads (L1 and L2
+// hits) and the SIMT divergence between walks; the operations are ~26 a box
+// test and ~47 a triangle test, the plain walk's tally (intersect_prims_ref.py
+// `intersect_walk_ref`).
+//
+// The spheres sit in shared memory and are tested after the triangles in
+// both forms.
 
 #include <cuda_runtime.h>
 
@@ -56,8 +80,13 @@ constexpr int kCols = 16;      // tri_sc row: w00..w22, c0..c2, nr2, valid, pad
 constexpr int kTile = 1024;    // triangle rows per shared-memory tile
 constexpr int kMaxSph = 4096;  // spheres held in shared memory
 constexpr int kThreads = 256;
+// entries of a walk's per-thread stack (constants.py BVH_STACK): a walk
+// pushes at most one entry per tree level; deeper trees are refused
+constexpr int kStack = 32;
+constexpr int kWalkId = 15;  // a walk leaf row's index in tri_sc (int bits)
 
 enum Mode { kNearest = 0, kOcclusion = 1, kTris = 2 };
+enum Form { kSweep = 0, kTiled = 1, kWalk = 2 };
 
 struct Rays {
   const float *o0, *o1, *o2, *d0, *d1, *d2;
@@ -70,64 +99,35 @@ struct Out {
   float* v;
 };
 
+// _tri_candidate (intersect_pallas.py:262-298), in its order: t, or kTMax
+// when the row is missed; u and v its barycentrics. Pad rows have nr2 = 0
+// and fail the determinant guard.
+__device__ __forceinline__ float tri_candidate(const float* w, float o0, float o1, float o2,
+                                               float d0, float d1, float d2, float& u, float& v) {
+  const float dp2 = d0 * w[6] + d1 * w[7] + d2 * w[8];
+  const float op2 = o0 * w[6] + o1 * w[7] + o2 * w[8] - w[11];
+  const float det = -(dp2 * w[12]);
+  const bool okd = fabsf(det) >= kEps;
+  const float det_g = okd ? det : 1.f;
+  const float t = op2 * w[12] / det_g;
+  const float dp0 = d0 * w[0] + d1 * w[1] + d2 * w[2];
+  const float op0 = o0 * w[0] + o1 * w[1] + o2 * w[2] - w[9];
+  u = op0 + t * dp0;
+  const float dp1 = d0 * w[3] + d1 * w[4] + d2 * w[5];
+  const float op1 = o0 * w[3] + o1 * w[4] + o2 * w[5] - w[10];
+  v = op1 + t * dp1;
+  const bool ok = okd && u >= 0.f && u <= 1.f && v >= 0.f && u + v <= 1.f && t >= 0.f &&
+                  w[13] > 0.5f;
+  return ok ? t : kTMax;
+}
+
+// _sph_candidate (intersect_pallas.py:301-323) with the per-ray invariants
+// of `_kernel_sc`, over the spheres in shared memory: a sphere wins only with
+// a strictly smaller t.
 template <bool OCC>
-__global__ void __launch_bounds__(kThreads)
-    intersect_prims(Rays r, const float* __restrict__ tri, int n_tri, const float* __restrict__ sph,
-                    int n_sph, int sph_base, int n, Out out) {
-  extern __shared__ float smem[];
-  const int tile = n_tri < kTile ? n_tri : kTile;
-  float* s_tri = smem;
-  float* s_sph = smem + tile * kCols;
-  for (int k = threadIdx.x; k < n_sph * 4; k += blockDim.x) s_sph[k] = sph[k];
-  __syncthreads();
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  const float o0 = live ? r.o0[i] : 0.f, o1 = live ? r.o1[i] : 0.f, o2 = live ? r.o2[i] : 0.f;
-  const float d0 = live ? r.d0[i] : 0.f, d1 = live ? r.d1[i] : 0.f, d2 = live ? r.d2[i] : 0.f;
-  float t_best = kTMax, u_best = 0.f, v_best = 0.f;
-  int prim = -1;
-
-  for (int base = 0; base < n_tri; base += tile) {
-    const int rows = n_tri - base < tile ? n_tri - base : tile;
-    __syncthreads();  // the previous tile is consumed
-    for (int k = threadIdx.x; k < rows * kCols; k += blockDim.x) {
-      s_tri[k] = tri[static_cast<size_t>(base) * kCols + k];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < rows; ++j) {
-      const float* w = s_tri + j * kCols;
-      // _tri_candidate (intersect_pallas.py:262-298), in its order
-      const float dp2 = d0 * w[6] + d1 * w[7] + d2 * w[8];
-      const float op2 = o0 * w[6] + o1 * w[7] + o2 * w[8] - w[11];
-      const float det = -(dp2 * w[12]);
-      const bool okd = fabsf(det) >= kEps;
-      const float det_g = okd ? det : 1.f;
-      const float t = op2 * w[12] / det_g;
-      const float dp0 = d0 * w[0] + d1 * w[1] + d2 * w[2];
-      const float op0 = o0 * w[0] + o1 * w[1] + o2 * w[2] - w[9];
-      const float u = op0 + t * dp0;
-      const float dp1 = d0 * w[3] + d1 * w[4] + d2 * w[5];
-      const float op1 = o0 * w[3] + o1 * w[4] + o2 * w[5] - w[10];
-      const float v = op1 + t * dp1;
-      const bool ok = okd && u >= 0.f && u <= 1.f && v >= 0.f && u + v <= 1.f && t >= 0.f &&
-                      w[13] > 0.5f;
-      const float tc = ok ? t : kTMax;
-      if (tc < t_best) {
-        t_best = tc;
-        if (!OCC) {
-          prim = base + j;
-          u_best = u;
-          v_best = v;
-        }
-      }
-    }
-  }
-  if (!live) return;
-
-  // _sph_candidate (intersect_pallas.py:301-323) with the per-ray
-  // invariants of `_kernel_sc`
+__device__ __forceinline__ void spheres(const float* s_sph, int n_sph, int sph_base, float o0,
+                                        float o1, float o2, float d0, float d1, float d2,
+                                        float& t_best, int& prim, float& u_best, float& v_best) {
   const float a = d0 * d0 + d1 * d1 + d2 * d2;
   const bool a_ok = a > 1e-12f;
   const float a_safe = fmaxf(a, 1e-12f);
@@ -159,12 +159,202 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  out.t[i] = t_best;
+}
+
+template <bool OCC>
+__device__ __forceinline__ void store(const Out& out, int i, float t, int prim, float u, float v) {
+  out.t[i] = t;
   if (!OCC) {
     out.prim[i] = prim;
-    out.u[i] = u_best;
-    out.v[i] = v_best;
+    out.u[i] = u;
+    out.v[i] = v;
   }
+}
+
+template <bool OCC>
+__global__ void __launch_bounds__(kThreads)
+    intersect_prims(Rays r, const float* __restrict__ tri, int n_tri, const float* __restrict__ sph,
+                    int n_sph, int sph_base, int n, Out out) {
+  extern __shared__ float smem[];
+  const int tile = n_tri < kTile ? n_tri : kTile;
+  float* s_tri = smem;
+  float* s_sph = smem + tile * kCols;
+  for (int k = threadIdx.x; k < n_sph * 4; k += blockDim.x) s_sph[k] = sph[k];
+  __syncthreads();
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n;
+  const float o0 = live ? r.o0[i] : 0.f, o1 = live ? r.o1[i] : 0.f, o2 = live ? r.o2[i] : 0.f;
+  const float d0 = live ? r.d0[i] : 0.f, d1 = live ? r.d1[i] : 0.f, d2 = live ? r.d2[i] : 0.f;
+  float t_best = kTMax, u_best = 0.f, v_best = 0.f;
+  int prim = -1;
+
+  for (int base = 0; base < n_tri; base += tile) {
+    const int rows = n_tri - base < tile ? n_tri - base : tile;
+    __syncthreads();  // the previous tile is consumed
+    for (int k = threadIdx.x; k < rows * kCols; k += blockDim.x) {
+      s_tri[k] = tri[static_cast<size_t>(base) * kCols + k];
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int j = 0; j < rows; ++j) {
+      float u, v;
+      const float tc = tri_candidate(s_tri + j * kCols, o0, o1, o2, d0, d1, d2, u, v);
+      if (tc < t_best) {
+        t_best = tc;
+        if (!OCC) {
+          prim = base + j;
+          u_best = u;
+          v_best = v;
+        }
+      }
+    }
+  }
+  if (!live) return;
+  spheres<OCC>(s_sph, n_sph, sph_base, o0, o1, o2, d0, d1, d2, t_best, prim, u_best, v_best);
+  store<OCC>(out, i, t_best, prim, u_best, v_best);
+}
+
+// One child-pair row of the walk table (tables.py `bvh_tables`): the boxes
+// of children 0 and 1 (min3 max3 each), then per child its link and count
+// (count > 0: a leaf of `count` leaf rows from `link`; count 0: interior with
+// row `link` >= 1, or empty if link is 0), read as four float4 loads through
+// the read-only path.
+struct NodeRow {
+  float box[12];
+  int link0, cnt0, link1, cnt1;
+};
+
+__device__ __forceinline__ NodeRow load_row(const float* bvh, int row) {
+  const float4* q = reinterpret_cast<const float4*>(bvh) + row * 4;
+  NodeRow r;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float4 a = __ldg(q + k);
+    r.box[4 * k] = a.x;
+    r.box[4 * k + 1] = a.y;
+    r.box[4 * k + 2] = a.z;
+    r.box[4 * k + 3] = a.w;
+  }
+  const float4 e = __ldg(q + 3);
+  r.link0 = __float_as_int(e.x);
+  r.cnt0 = __float_as_int(e.y);
+  r.link1 = __float_as_int(e.z);
+  r.cnt1 = __float_as_int(e.w);
+  return r;
+}
+
+// Entry and exit t of the ray (o, 1/d) through box bx (min bx[0..2], max
+// bx[3..5]); fminf / fmaxf drop the NaN of 0 * inf (a zero direction
+// component with the origin on a box plane).
+__device__ __forceinline__ void slab(const float* bx, float o0, float o1, float o2, float i0,
+                                     float i1, float i2, float& tmin, float& tmax) {
+  const float a0 = (bx[0] - o0) * i0, b0 = (bx[3] - o0) * i0;
+  const float a1 = (bx[1] - o1) * i1, b1 = (bx[4] - o1) * i1;
+  const float a2 = (bx[2] - o2) * i2, b2 = (bx[5] - o2) * i2;
+  tmin = fmaxf(fmaxf(fminf(a0, b0), fminf(a1, b1)), fminf(a2, b2));
+  tmax = fminf(fminf(fmaxf(a0, b0), fmaxf(a1, b1)), fmaxf(a2, b2));
+}
+
+__device__ __forceinline__ bool passes(float tmin, float tmax) {
+  return tmin - kEps <= tmax && tmax >= -kEps;
+}
+
+template <bool OCC>
+__global__ void __launch_bounds__(kThreads)
+    intersect_walk(Rays r, const float* __restrict__ bvh, const float* __restrict__ leaf,
+                   const float* __restrict__ sph, int n_sph, int sph_base, int n, Out out) {
+  extern __shared__ float smem[];
+  for (int k = threadIdx.x; k < n_sph * 4; k += blockDim.x) smem[k] = sph[k];
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float o0 = r.o0[i], o1 = r.o1[i], o2 = r.o2[i];
+  const float d0 = r.d0[i], d1 = r.d1[i], d2 = r.d2[i];
+  const float i0 = 1.f / d0, i1 = 1.f / d1, i2 = 1.f / d2;
+  float t_best = kTMax, u_best = 0.f, v_best = 0.f;
+  int prim = -1;
+  int stack_link[kStack], stack_cnt[kStack];
+  float stack_t[kStack];
+  int sp = 0;
+  int link = 0, cnt = 0;  // the item to visit: a row (cnt 0) or a leaf; link -1: none
+  auto pop = [&] {  // the next entry still in reach
+    link = -1;
+    while (sp > 0) {
+      --sp;
+      if (stack_t[sp] - kEps <= t_best) {
+        link = stack_link[sp];
+        cnt = stack_cnt[sp];
+        return;
+      }
+    }
+  };
+  while (link >= 0) {
+    while (link >= 0 && cnt == 0) {
+      const NodeRow nr = load_row(bvh, link);
+      float t0, x0, t1, x1;
+      slab(nr.box, o0, o1, o2, i0, i1, i2, t0, x0);
+      slab(nr.box + 6, o0, o1, o2, i0, i1, i2, t1, x1);
+      const bool swap = t1 < t0;  // child 1 is entered first: it is child a
+      const float ta = swap ? t1 : t0, tb = swap ? t0 : t1;
+      const int la = swap ? nr.link1 : nr.link0, lb = swap ? nr.link0 : nr.link1;
+      const int ca = swap ? nr.cnt1 : nr.cnt0, cb = swap ? nr.cnt0 : nr.cnt1;
+      const bool ea = (ca > 0 || la > 0) && passes(ta, swap ? x1 : x0) && ta - kEps <= t_best;
+      const bool eb = (cb > 0 || lb > 0) && passes(tb, swap ? x0 : x1) && tb - kEps <= t_best;
+      if (ea) {
+        if (eb) {
+          stack_link[sp] = lb;
+          stack_cnt[sp] = cb;
+          stack_t[sp] = tb;
+          ++sp;
+        }
+        link = la;
+        cnt = ca;
+      } else if (eb) {
+        link = lb;
+        cnt = cb;
+      } else {
+        pop();
+      }
+    }
+    if (link < 0) break;
+    for (int j = 0; j < cnt; ++j) {
+      const float4* q = reinterpret_cast<const float4*>(leaf) + (link + j) * 4;
+      float w[16];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float4 a = __ldg(q + k);
+        w[4 * k] = a.x;
+        w[4 * k + 1] = a.y;
+        w[4 * k + 2] = a.z;
+        w[4 * k + 3] = a.w;
+      }
+      float u, v;
+      const float tc = tri_candidate(w, o0, o1, o2, d0, d1, d2, u, v);
+      // both modes: equal t (+0 against -0 too) goes to the lower row
+      if (tc < t_best || (tc == t_best && tc < kTMax)) {
+        const int id = __float_as_int(w[kWalkId]);
+        if (tc < t_best || id < prim) {
+          t_best = tc;
+          prim = id;
+          u_best = u;
+          v_best = v;
+        }
+      }
+    }
+    pop();
+  }
+  spheres<OCC>(smem, n_sph, sph_base, o0, o1, o2, d0, d1, d2, t_best, prim, u_best, v_best);
+  store<OCC>(out, i, t_best, prim, u_best, v_best);
+}
+
+// Allow `smem` bytes of dynamic shared memory for `kernel` where that is
+// above the 48 KB default; the refusal, if any.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 template <bool OCC>
@@ -173,14 +363,23 @@ cudaError_t launch(const Rays& r, const float* tri, int n_tri, const float* sph,
   const int tile = n_tri < kTile ? n_tri : kTile;
   const size_t smem = (static_cast<size_t>(tile) * kCols + static_cast<size_t>(n_sph) * 4) *
                       sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        intersect_prims<OCC>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e = allow_smem(intersect_prims<OCC>, smem);
+  if (e != cudaSuccess) return e;
   const int blocks = (n + kThreads - 1) / kThreads;
   intersect_prims<OCC><<<blocks, kThreads, smem, stream>>>(r, tri, n_tri, sph, n_sph, sph_base, n,
                                                            out);
+  return cudaGetLastError();
+}
+
+template <bool OCC>
+cudaError_t launch_walk(const Rays& r, const float* bvh, const float* leaf, const float* sph,
+                        int n_sph, int sph_base, int n, const Out& out, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(n_sph) * 4 * sizeof(float);
+  cudaError_t e = allow_smem(intersect_walk<OCC>, smem);
+  if (e != cudaSuccess) return e;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  intersect_walk<OCC><<<blocks, kThreads, smem, stream>>>(r, bvh, leaf, sph, n_sph, sph_base, n,
+                                                          out);
   return cudaGetLastError();
 }
 
@@ -188,22 +387,29 @@ cudaError_t launch(const Rays& r, const float* tri, int n_tri, const float* sph,
 
 // C interface (loaded with ctypes by kernels/intersect_prims.py).
 //   rays:   6 device pointers to float32 (n,) arrays: o0, o1, o2, d0, d1, d2
-//   tri:    float32 (n_tri, 16) rows in tri_sc's layout
+//   tri:    float32 (n_tri, 16) rows in tri_sc's layout; with a walk, the
+//           leaf rows (tables.py `walk_tables`: tri_sc rows in leaf order,
+//           float kWalkId the row's index in tri_sc as int bits)
+//   bvh:    null for the sweep, or float32 (n_rows >= 1, 16) child-pair rows
+//           of a tree of `depth` levels (<= kStack, else refused)
 //   sph:    float32 (n_sph, 4) rows: center, radius (n_sph = 0: triangles only)
 //   out:    4 device pointers: t float32, prim int32, u float32, v float32
 //           (only t is written, and only t need be given, with occlusion)
 //   launched: 2 ints written back: the mode run (0 nearest, 1 occlusion,
-//           2 triangles only; -1 if nothing was launched) and 1 if the
-//           triangle table took more than one shared-memory tile
+//           2 triangles only; -1 if nothing was launched) and the form (0
+//           the sweep in one shared-memory tile, 1 tiled, 2 the walk)
 // Returns 0 or the cudaError_t of a refused launch.
 extern "C" int mcpt_intersect_prims(const void* const* rays, const void* tri, int n_tri,
-                                    const void* sph, int n_sph, int sph_base, int n,
-                                    int occlusion, void* const* out, void* stream,
-                                    int* launched) {
+                                    const void* bvh, int n_rows, int depth, const void* sph,
+                                    int n_sph, int sph_base, int n, int occlusion,
+                                    void* const* out, void* stream, int* launched) {
   launched[0] = -1;
   launched[1] = 0;
   if (n <= 0) return 0;
   if (n_tri < 0 || n_sph < 0 || n_sph > kMaxSph || n_tri + n_sph <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (bvh != nullptr && (n_rows < 1 || n_tri < 1 || depth < 1 || depth > kStack)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Rays r{static_cast<const float*>(rays[0]), static_cast<const float*>(rays[1]),
@@ -215,8 +421,16 @@ extern "C" int mcpt_intersect_prims(const void* const* rays, const void* tri, in
   const float* s = static_cast<const float*>(sph);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   launched[0] = occlusion ? kOcclusion : (n_sph == 0 ? kTris : kNearest);
-  launched[1] = n_tri > kTile;
-  cudaError_t e = occlusion ? launch<true>(r, t, n_tri, s, n_sph, sph_base, n, o, st)
-                            : launch<false>(r, t, n_tri, s, n_sph, sph_base, n, o, st);
+  cudaError_t e;
+  if (bvh != nullptr) {
+    launched[1] = kWalk;
+    const float* b = static_cast<const float*>(bvh);
+    e = occlusion ? launch_walk<true>(r, b, t, s, n_sph, sph_base, n, o, st)
+                  : launch_walk<false>(r, b, t, s, n_sph, sph_base, n, o, st);
+  } else {
+    launched[1] = n_tri > kTile ? kTiled : kSweep;
+    e = occlusion ? launch<true>(r, t, n_tri, s, n_sph, sph_base, n, o, st)
+                  : launch<false>(r, t, n_tri, s, n_sph, sph_base, n, o, st);
+  }
   return static_cast<int>(e);
 }

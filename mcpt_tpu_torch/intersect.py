@@ -8,7 +8,9 @@ quadratic's stable q-form, AABB slabs with ±EPSILON slack, nearest hit wins
 
 - **kernel**: the hand-written CUDA kernel `csrc/intersect_prims.cu`
   (`kernels/intersect_prims.py`), K2/K3 of the JAX package, for a CUDA pack
-  of at most `DENSE_MAX_TRIS` triangles; on a CPU pack its plain version.
+  of at most `DENSE_MAX_TRIS` triangles: it walks the pack's BVH where the
+  pack has one (`pack.walk`, above `cluster_threshold` triangles) and sweeps
+  the table where it has none; on a CPU pack its plain version (the sweep).
 - **dense**: two (B, 3) @ (3, 3T) products (`torch.matmul` in full float32)
   into every triangle's unit frame, then elementwise accept tests and an
   argmin — what JAX computes outside any Pallas kernel.
@@ -282,8 +284,10 @@ def intersect_bvh(pack, o, d) -> Hit:
 
 def intersect_kernel_c(pack, oc, dc) -> Hit:
     """All primitives in one launch of the CUDA kernel (its plain version
-    on a CPU pack): K2 for at most 1024 triangle rows, K3's range above."""
-    t, prim, u, v = intersect_prims_c(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc)
+    on a CPU pack): the walk over the pack's BVH where it has one, else the
+    sweep (K2 for at most 1024 triangle rows)."""
+    t, prim, u, v = intersect_prims_c(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc,
+                                      walk=pack.walk)
     return Hit(t=t, prim=prim, u=u, v=v)
 
 
@@ -317,7 +321,7 @@ def occlude_t_c(pack, oc, dc, method: str = "auto") -> torch.Tensor:
     method = resolve_method(pack, method)
     if method == "kernel":
         return intersect_prims_c(
-            pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc, occlusion=True
+            pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc, occlusion=True, walk=pack.walk
         )[0]
     return intersect_c(pack, oc, dc, method=method).t
 

@@ -6,8 +6,11 @@
 (`intersect_prims_ref`) for tensors on the CPU and launch the CUDA kernel
 `csrc/intersect_prims.cu` for tensors on a CUDA device; there is no fallback
 between the two. One kernel serves K2 (at most 1024 triangle rows, one
-shared-memory tile), K3's range (longer tables, walked tile by tile) and K4
-(triangles only).
+shared-memory tile), K3's range and K4 (triangles only). A bare table is
+swept (tile by tile above 1024 rows); a table given with its BVH
+(`walk=`, `kernels/tables.py::walk_tables`) is walked, with the same
+answers bit for bit (`intersect_prims_ref.intersect_walk_ref` is the walk's
+plain version, and the source of its work tally).
 """
 
 import collections
@@ -20,6 +23,7 @@ from mcpt_tpu_torch.kernels.intersect_prims_ref import intersect_prims_ref
 
 SOURCE = _build.CSRC / "intersect_prims.cu"
 MODES = ("nearest", "occlusion", "tris")  # csrc/intersect_prims.cu `Mode`
+FORMS = ("", " tiled", " walk")  # csrc/intersect_prims.cu `Form`
 MAX_SPHERES = 4096  # csrc/intersect_prims.cu kMaxSph
 
 
@@ -33,8 +37,8 @@ def _bind(lib):
     fn = lib.mcpt_intersect_prims
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
 
@@ -44,22 +48,30 @@ def load_library():
     return _build.load(SOURCE, _bind)
 
 
-def mode_name(mode: int, tiled: int) -> str:
+def mode_name(mode: int, form: int) -> str:
     """The launch-count key of a launch the C side reports."""
-    return MODES[mode] + (" tiled" if tiled else "")
+    return MODES[mode] + FORMS[form]
 
 
-def _launch(tri, sph, sph_base, oc, dc, occlusion):
+def _launch(tri, sph, sph_base, oc, dc, occlusion, walk=None):
+    """One launch: the sweep over `tri`, or with `walk` the walk over its
+    tables (`tri` is then unused: the leaf rows are the table)."""
     dev = tri.device
     b = oc[0].shape[0]
+    bvh, depth = None, 0
+    if walk is not None:
+        bvh, tri, depth = walk.bvh.contiguous(), walk.leaf, int(walk.depth)
     tri = tri.contiguous()
     sph = sph.contiguous()
     rays = [x.contiguous() for x in (*oc, *dc)]
-    for name, x in (("tri", tri), ("sph", sph), *zip(("o0", "o1", "o2", "d0", "d1", "d2"), rays)):
+    named = [("tri", tri), ("sph", sph)] + ([("bvh", bvh)] if walk is not None else [])
+    for name, x in (*named, *zip(("o0", "o1", "o2", "d0", "d1", "d2"), rays)):
         if x.device != dev or x.dtype != torch.float32:
             raise ValueError(f"{name}: need float32 on {dev}, got {x.dtype} on {x.device}")
     if tri.ndim != 2 or tri.shape[1] != 16 or sph.ndim != 2 or sph.shape[1] != 4:
         raise ValueError(f"tri {tuple(tri.shape)} must be (T, 16), sph {tuple(sph.shape)} (S, 4)")
+    if walk is not None and (bvh.ndim != 2 or bvh.shape[1] != 16):
+        raise ValueError(f"bvh {tuple(bvh.shape)} must be (R, 16)")
     if any(x.shape != (b,) for x in rays):
         raise ValueError("the six ray components must be (B,) tensors")
     if sph.shape[0] > MAX_SPHERES:
@@ -81,6 +93,7 @@ def _launch(tri, sph, sph_base, oc, dc, occlusion):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.mcpt_intersect_prims(
             ctypes.cast(ray_ptrs, ctypes.c_void_p), tri.data_ptr(), tri.shape[0],
+            None if bvh is None else bvh.data_ptr(), 0 if bvh is None else bvh.shape[0], depth,
             sph.data_ptr(), sph.shape[0], int(sph_base), b, int(bool(occlusion)),
             ctypes.cast(out_ptrs, ctypes.c_void_p), stream, ctypes.cast(launched, ctypes.c_void_p),
         )
@@ -94,24 +107,27 @@ def _launch(tri, sph, sph_base, oc, dc, occlusion):
     return t, prim, u, v
 
 
-def _run(tri, sph, sph_base, oc, dc, occlusion):
+def _run(tri, sph, sph_base, oc, dc, occlusion, walk=None):
     dev = tri.device
     if dev.type == "cpu":
         return intersect_prims_ref(tri, sph, sph_base, oc, dc, occlusion=occlusion)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    return _launch(tri, sph, sph_base, oc, dc, occlusion)
+    return _launch(tri, sph, sph_base, oc, dc, occlusion, walk=walk)
 
 
-def intersect_prims_c(tri_sc, sph_geom, sph_base, oc, dc, occlusion=False):
+def intersect_prims_c(tri_sc, sph_geom, sph_base, oc, dc, occlusion=False, walk=None):
     """Nearest hit over all primitives (triangles, then spheres) of the
     rays (oc, dc), 3-tuples of (B,) float32 tensors: `tri_sc` (T8, 16) rows
     (any T8: above 1024 the kernel tiles the table, K3's range), `sph_geom`
     (S, 4) [c, r], `sph_base` the prim id of sphere 0. Returns (t, prim, u,
     v) as `intersect_prims_pallas_c` does; occlusion=True returns t and
-    three Nones. Each kernel launch adds one to `intersect_prims_c.launches`
-    and to `intersect_prims_c.by_mode[<mode the C side reports>]`."""
-    return _run(tri_sc, sph_geom, sph_base, oc, dc, occlusion)
+    three Nones. `walk`, the table's `kernels/tables.py::WalkTables`, has
+    the kernel walk the BVH instead of sweeping the table (the same answers;
+    on the CPU the plain sweep runs either way). Each kernel launch adds one
+    to `intersect_prims_c.launches` and to
+    `intersect_prims_c.by_mode[<mode the C side reports>]`."""
+    return _run(tri_sc, sph_geom, sph_base, oc, dc, occlusion, walk)
 
 
 def intersect_tris(tri_rows, o, d):

@@ -616,6 +616,35 @@ def _within(at, sub):
     return out
 
 
+def near_first_step(walk, at_leaf, o, inv, best_t, ops=None):
+    """One step of a near-first nearest-hit walk after its leaf tests: the
+    rays at rows (not `at_leaf`) test both children's boxes, take the one
+    entered first (child 0 on equal entry t) and push the other with its
+    entry t; a child is entered while its entry t - EPSILON <= `best_t`.
+    Rays that tested a leaf, or entered neither child, pop the next entry
+    still in reach; those whose stack ran out retire."""
+    at_row = ~at_leaf
+    lanes = walk.lanes[at_row]
+    _tally(ops, "slab", 2 * lanes.numel())
+    ol, il, bt = [x[lanes] for x in o], [x[lanes] for x in inv], best_t[lanes]
+    kids = []
+    for box, link, cnt, full in walk.children(at_row):
+        tmin, tmax = _slab(box, ol, il)
+        kids.append((tmin, link, cnt, full & _passes(tmin, tmax) & (tmin - EPSILON <= bt)))
+    swap = kids[1][0] < kids[0][0]  # child 1 is entered first: it is child a
+    ta, la, ca, ea = (torch.where(swap, x1, x0) for x0, x1 in zip(*kids))
+    tb, lb, cb, eb = (torch.where(swap, x0, x1) for x0, x1 in zip(*kids))
+    walk.push(_within(at_row, ea & eb), lb[ea & eb], cb[ea & eb], tb[ea & eb])
+    go = ea | eb
+    walk.take(_within(at_row, go), torch.where(ea, la, lb)[go], torch.where(ea, ca, cb)[go],
+              torch.where(ea, ta, tb)[go])
+
+    def in_reach(lanes, t_in):
+        return t_in - EPSILON <= best_t[lanes], t_in
+
+    walk.retire(walk.pop(at_leaf | _within(at_row, ~go), in_reach))
+
+
 def bvh_nearest(tables, o, d, live, textured=True, ops=None):
     """Nearest hit through the BVH: the brute sweep's answer, ties included
     (equal t goes to the lower triangle row, triangles beat spheres).
@@ -635,10 +664,6 @@ def bvh_nearest(tables, o, d, live, textured=True, ops=None):
     inv = [1.0 / x for x in d]
     leaf_id = tables.leaf_tri.view(torch.int32)[:, 25].to(torch.int64)
     walk = _Walk(tables, live, torch.zeros_like(best_t), ops)
-
-    def in_reach(lanes, t_in):
-        return t_in - EPSILON <= best_t[lanes], t_in
-
     while walk.lanes.numel():
         at_leaf = walk.cnt > 0
         for m, rows in walk.leaf_rows(at_leaf):
@@ -653,23 +678,7 @@ def bvh_nearest(tables, o, d, live, textured=True, ops=None):
             best_i[sel] = ids[better]
             best_u[sel] = u[better]
             best_v[sel] = v[better]
-        at_row = ~at_leaf
-        lanes = walk.lanes[at_row]
-        _tally(ops, "slab", 2 * lanes.numel())
-        ol, il, bt = [x[lanes] for x in o], [x[lanes] for x in inv], best_t[lanes]
-        kids = []
-        for box, link, cnt, full in walk.children(at_row):
-            tmin, tmax = _slab(box, ol, il)
-            kids.append((tmin, link, cnt, full & _passes(tmin, tmax) & (tmin - EPSILON <= bt)))
-        swap = kids[1][0] < kids[0][0]  # child 1 is entered first: it is child a
-        ta, la, ca, ea = (torch.where(swap, x1, x0) for x0, x1 in zip(*kids))
-        tb, lb, cb, eb = (torch.where(swap, x0, x1) for x0, x1 in zip(*kids))
-        walk.push(_within(at_row, ea & eb), lb[ea & eb], cb[ea & eb], tb[ea & eb])
-        go = ea | eb
-        walk.take(_within(at_row, go), torch.where(ea, la, lb)[go], torch.where(ea, ca, cb)[go],
-                  torch.where(ea, ta, tb)[go])
-        done = walk.pop(at_leaf | _within(at_row, ~go), in_reach)
-        walk.retire(done)
+        near_first_step(walk, at_leaf, o, inv, best_t, ops)
     t_sph = _sph_candidates(sph, o, d)
     best_s = torch.full_like(best_i, -1)
     for k in range(sph.shape[0]):

@@ -7,8 +7,11 @@ function (so they are bitwise equal to it). `bvh_tables(pack, tri)` lays out
 the BVH that the kernel walks for scenes above `MEGA_MAX_TRIS` triangles, and the
 env map rides along at full resolution. `SceneTables` holds them all as
 registered buffers of an `nn.Module`, so `.to(device)` moves the scene, plus
-the static ints the kernel specializes on.
+the static ints the kernel specializes on. `walk_tables(pack)` cuts the same
+tree for the wavefront intersector's walk (`csrc/intersect_prims.cu`).
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -52,6 +55,12 @@ STATIC = (
 )
 NODE_COLS = 16
 LEAF_COLS = 28  # csrc/mega_common.cuh kTriSmem
+# the column of `leaf_tri` that holds a row's index in `tri`
+LEAF_ID = 25
+# the column of a walk leaf row (tri_sc's layout) that holds its index in
+# tri_sc, as int32 bits: tri_sc's last pad column (csrc/intersect_prims.cu
+# kWalkId)
+WALK_ID = 15
 
 
 def mega_tables(pack) -> dict:
@@ -155,7 +164,7 @@ def bvh_tables(pack, tri) -> tuple:
     tri_ids = np.concatenate(rows) if rows else np.zeros(0, np.int64)
     leaf_tri = np.zeros((max(at, 1), LEAF_COLS), np.float32)
     leaf_tri[:at, : tri.shape[1]] = tri[tri_ids]
-    leaf_tri[:at, 25] = tri_ids.astype(np.int32).view(np.float32)
+    leaf_tri[:at, LEAF_ID] = tri_ids.astype(np.int32).view(np.float32)
 
     interior = np.flatnonzero(~leaf)
     row_of = np.full(len(miss), -1, np.int64)
@@ -179,6 +188,32 @@ def bvh_tables(pack, tri) -> tuple:
             links[r, 2:4] = child(c1)
     bvh[:, 12:16] = links.view(np.float32)
     return bvh, leaf_tri
+
+
+class WalkTables(NamedTuple):
+    """The wavefront intersector's BVH walk tables (`walk_tables`), numpy
+    arrays or, on a moved pack (`scene.pack_to`), tensors."""
+
+    bvh: object  # (R, 16) float32: `bvh_tables`' child-pair rows
+    leaf: object  # (L, 16) float32: tri_sc rows in leaf order, col WALK_ID the row
+    depth: int  # the tree's levels (<= BVH_STACK), for the kernel's refusal
+
+
+def walk_tables(pack) -> WalkTables:
+    """The tables of the wavefront intersector's walk mode for a pack with a
+    BVH: the child-pair rows exactly as `bvh_tables` lays them out (the
+    same inflation, empty children for leaves of spheres only, the same
+    refusal of trees deeper than BVH_STACK), and the pack's tri_sc rows in
+    leaf order in tri_sc's 16-column layout, column WALK_ID holding each
+    row's index in tri_sc as non-negative int32 bits (the tie rule and the
+    returned prim). Spheres stay out: the kernel tests them after the walk."""
+    if not pack.use_bvh:
+        raise ValueError("the pack has no BVH to walk")
+    bvh, rows = bvh_tables(pack, np.asarray(pack.tri_sc))
+    leaf = np.ascontiguousarray(rows[:, :NODE_COLS])
+    leaf[:, WALK_ID] = rows[:, LEAF_ID]
+    miss = np.asarray(pack.bvh_miss, np.int64)
+    return WalkTables(bvh, leaf, bvh_depth(miss, np.asarray(pack.bvh_leaf_start) >= 0))
 
 
 class SceneTables(nn.Module):

@@ -212,14 +212,17 @@ def render_radiance(
     is a `Scene` or a `ScenePack`; `key` a `prng` key or an int seed
     (default `prng.key(0)`). `method` is the intersector (`intersect.
     resolve_method`): on a CUDA device `auto` launches the CUDA kernel for
-    scenes of at most 4096 padded triangles."""
+    scenes of at most 4096 padded triangles, which walks the scene's BVH
+    where it has one."""
     dev = resolve_device(device)
     host = scene_or_pack if isinstance(scene_or_pack, ScenePack) else scene_or_pack.compile()
     pack = pack_to(host, dev)
     method = resolve_method(pack, method)
-    if method == "bvh":
-        pack = pack_to(host, dev, bvh=True)
-    if method == "kernel" and dev.type == "cuda":
+    # the card's kernel walks the scene's BVH where it has one
+    walk = method == "kernel" and dev.type == "cuda"
+    if method == "bvh" or (walk and host.use_bvh):
+        pack = pack_to(host, dev, bvh=method == "bvh", walk=walk)
+    if walk:
         intersect_prims.load_library()  # build outside the timed region
     if key is None or isinstance(key, int):
         key = prng.key(key or 0, dev)

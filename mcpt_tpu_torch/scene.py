@@ -124,6 +124,8 @@ class ScenePack:
       prim_emissive (T + S, 1): 1.0 where a primitive's material emits
       bvh_fat (N, 8 + L): min, max, miss link, leaf count and L leaf prim
           ids per node; built by `fat_bvh` when the BVH method first needs it
+      walk: the intersector's walk tables (`kernels/tables.py::WalkTables`)
+          of a pack with a BVH, attached by `pack_to(..., walk=True)`
     """
 
     tri_sc: np.ndarray
@@ -162,6 +164,7 @@ class ScenePack:
     tri_mt: Optional[np.ndarray] = None
     prim_emissive: Optional[np.ndarray] = None
     bvh_fat: Optional[np.ndarray] = None
+    walk: Optional[tuple] = None
 
     @property
     def use_bvh(self) -> bool:
@@ -213,19 +216,30 @@ def fat_bvh(pack: ScenePack) -> np.ndarray:
     return fat
 
 
-def pack_to(pack: ScenePack, device, bvh: bool = False) -> ScenePack:
+def pack_to(pack: ScenePack, device, bvh: bool = False, walk: bool = False) -> ScenePack:
     """A copy of `pack` whose arrays are torch tensors on `device`, as the
     wavefront path reads it; with `bvh`, `bvh_fat` is built first
-    (`fat_bvh`). Scalars and the three background floats stay on the
-    host."""
+    (`fat_bvh`); with `walk`, a pack with a BVH gets the intersector's walk
+    tables (`kernels/tables.py::walk_tables`, kept on `pack` at first use;
+    a tree deeper than BVH_STACK raises). Scalars and the three background
+    floats stay on the host."""
     if bvh:
         fat_bvh(pack)
+    tensor = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)
     moved = {
-        f.name: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        f.name: tensor(v)
         for f in dataclasses.fields(pack)
         if isinstance(v := getattr(pack, f.name), np.ndarray) and v.ndim > 0
         and f.name != "background"
     }
+    if walk and pack.use_bvh:
+        from mcpt_tpu_torch.kernels.tables import walk_tables  # it imports this module
+
+        if pack.walk is None:
+            pack.walk = walk_tables(pack)
+        moved["walk"] = pack.walk._replace(bvh=tensor(pack.walk.bvh), leaf=tensor(pack.walk.leaf))
+    else:
+        moved["walk"] = None
     return dataclasses.replace(pack, **moved)
 
 

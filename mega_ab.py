@@ -1,4 +1,5 @@
-"""Old-against-new timing of the two megakernels on one GPU, in one process:
+"""Old-against-new timing of the two megakernels (in one process) and of the
+wavefront intersector and render (a process per turn) on one GPU:
 `python3 mega_ab.py --parent _checkout/parent [--tree NAME=DIR ...]`.
 
 `--parent DIR` holds another tree (for example the parent commit, unpacked
@@ -26,11 +27,24 @@ reverse order), `--rounds` times:
   which takes conf.json's 32 light samples, at spp 4;
 - `mega_lockstep<4, false>`: the 384x384 DEMO at spp 256 (and spp 2);
 - `mega_lockstep<4, true>`: the x4 Cornell box at 384x384, spp 16.
-`--shapes A,B` keeps only those shapes. Every tree's output planes must
-equal the parent's bitwise on every lane (radiance and ray counts), or the
-script fails. It prints one JSON object as its last line, and with `--out
-FILE` writes it there too. `--rounds 0` checks the trees and times
-nothing.
+and one wavefront shape, `wavefront DEMO + soldier`, for which each tree
+runs in a process of its own (`python -P mega_ab.py --wavefront-turn`,
+with the tree's root first on the import path: the wavefront's modules
+import each other by package name, so a tree cannot be loaded beside
+another): the intersector as the wavefront calls it (`intersect_c` and
+`occlude_t_c`, method kernel, on the pack as `render_radiance` moves it) at
+`chip_smoke.py` phase (e)'s 786,432 NEE rays of the DEMO plus one stand-in
+soldier (CUDA events: the median of 9 means of 40 launches), then that
+scene's wavefront render at 384x384, spp 8, mb 8, in one tile (the host's
+wall time, after a warm-up render at spp 1), and, on a tree's first turn,
+the spp 1 render under `chip_smoke.device_profile` (device busy time and
+idle share, printed).
+`--shapes A,B` keeps only those shapes. Every tree's output planes, and its
+intersector answers and wavefront image, must equal the parent's bitwise on
+every lane, or the script fails. It prints one JSON object as its last line,
+and with `--out FILE` writes it there too. `--rounds 0` checks the trees
+and times nothing (the wavefront shape runs one turn per tree, for its
+check).
 """
 
 import argparse
@@ -38,11 +52,14 @@ import concurrent.futures
 import ctypes
 import dataclasses
 import importlib
+import inspect
 import json
+import os
 import re
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -60,6 +77,7 @@ ROOT = Path(__file__).resolve().parent
 AB_DIR = kbuild.BUILD_DIR / "ab"
 SOURCES = {True: ("megakernel.cu", "mcpt_mega_trace"),
            False: ("mega_lockstep.cu", "mcpt_mega_lockstep")}
+WAVEFRONT = "wavefront DEMO + soldier"
 
 
 KERNEL_MODULES = ("tables", "megakernel", "megakernel_ref")
@@ -219,7 +237,109 @@ def run_shape(lib, tables, sh):
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
+def wavefront_turn(out, profile):
+    """One turn of the wavefront shape in this process, on the tree first on
+    the import path: writes its answers and image to `out`.npz and its
+    numbers to `out`.json."""
+    import collections
+
+    import numpy as np
+
+    from mcpt_tpu_torch.intersect import intersect_c, occlude_t_c
+    from mcpt_tpu_torch.kernels import intersect_prims as ip
+    from mcpt_tpu_torch.render import render_radiance
+    from mcpt_tpu_torch.scene import pack_to
+
+    with tempfile.TemporaryDirectory() as d:
+        soldier = chip_smoke.soldier_demo(d)
+    # as render_radiance moves the scene on the card (a tree's walk tables
+    # where the tree's pack_to takes them)
+    walk = {"walk": True} if "walk" in inspect.signature(pack_to).parameters else {}
+    pack = pack_to(soldier.compile(), "cuda", **walk)
+    cam = dataclasses.replace(demo_scene().camera, width=1920, height=1080)
+    oc, dc = chip_smoke.nee_batch(pack, cam, seed=1)
+    res, answers = {"modes": {}}, {}
+    for name, fn in (("nearest", lambda: intersect_c(pack, oc, dc, method="kernel")),
+                     ("occlusion", lambda: (occlude_t_c(pack, oc, dc, method="kernel"),))):
+        got = fn()
+        torch.cuda.synchronize()
+        res["modes"][name] = ip.intersect_prims_c.last_mode
+        res[f"{name}_ms"] = sorted(chip_smoke.cuda_ms(fn, 40) for _ in range(9))[4]
+        answers.update({f"{name}_{k}": x.cpu().numpy() for k, x in zip("tpuv", got)})
+
+    def render(spp, seed):
+        return render_radiance(soldier, soldier.camera, spp, seed, max_bounces=8,
+                               tile_pixels=384 * 384, device="cuda")
+
+    render(1, 1)  # warm-up
+    ip.intersect_prims_c.by_mode = collections.Counter()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    answers["image"], stats = render(8, 0)
+    torch.cuda.synchronize()
+    res["render_wall_s"] = time.monotonic() - t0
+    res["render_launches"] = dict(ip.intersect_prims_c.by_mode)
+    res["rays"] = int(stats["rays"])
+    if profile:
+        chip_smoke.device_profile("DEMO + soldier 384x384 spp 1 mb 8", lambda: render(1, 5),
+                                  kernel="intersect_")
+    np.savez(f"{out}.npz", **answers)
+    Path(f"{out}.json").write_text(json.dumps(res))
+
+
+def wavefront_ab(roots, rounds, result):
+    """The wavefront shape: each tree's turns, each in a process of its own
+    from the tree's root, the trees in turns; every tree's answers and image
+    bitwise equal to the parent's (the first turn's)."""
+    import numpy as np
+
+    trees = tuple(roots)
+    ref = None
+    with tempfile.TemporaryDirectory() as work:
+        for r in range(max(rounds, 1)):
+            for t in (trees if r % 2 == 0 else trees[::-1]):
+                out = Path(work) / f"{t}_{r}"
+                turns = result["trees"][t].setdefault("wavefront", [])
+                cmd = [sys.executable, "-P", str(Path(__file__).resolve()), "--wavefront-turn",
+                       str(out)] + ([] if turns else ["--profile"])
+                env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+                    [str(roots[t].resolve())] + [x for x in [os.environ.get("PYTHONPATH")] if x])}
+                t0 = time.monotonic()
+                proc = subprocess.run(cmd, cwd=roots[t], env=env, capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"{t}: wavefront turn failed\n{proc.stdout[-3000:]}\n"
+                                       f"{proc.stderr[-6000:]}")
+                for line in proc.stdout.splitlines():
+                    if line.startswith("[profile]"):
+                        print(f"[ab] {t}: {line}", flush=True)
+                res = json.loads(Path(f"{out}.json").read_text())
+                turns.append(res)
+                got = dict(np.load(f"{out}.npz"))
+                ref = ref or got
+                for key, want in ref.items():
+                    if not np.array_equal(got[key], want):
+                        raise AssertionError(f"{t} {WAVEFRONT}: {key} differs from the parent's "
+                                             f"on {(got[key] != want).sum()} entries")
+                print(f"[ab] {t} {WAVEFRONT} turn {r + 1}: nearest {res['nearest_ms']:.4f} ms "
+                      f"[{res['modes']['nearest']}], occlusion {res['occlusion_ms']:.4f} ms "
+                      f"[{res['modes']['occlusion']}], render spp 8 wall "
+                      f"{res['render_wall_s']:.3f} s, launches {res['render_launches']}; "
+                      f"{time.monotonic() - t0:.1f} s; bitwise equal to the parent's", flush=True)
+    if rounds:
+        for t in trees:
+            turns = result["trees"][t]["wavefront"]
+            med = {k: sorted(x[k] for x in turns)[len(turns) // 2]
+                   for k in ("nearest_ms", "occlusion_ms", "render_wall_s")}
+            result["trees"][t]["median_ms"].update(
+                {f"{WAVEFRONT} (e) nearest": med["nearest_ms"],
+                 f"{WAVEFRONT} (e) occlusion": med["occlusion_ms"],
+                 f"{WAVEFRONT} render spp 8 wall (s)": med["render_wall_s"]})
+
+
 def main():
+    if "--wavefront-turn" in sys.argv:
+        i = sys.argv.index("--wavefront-turn")
+        return wavefront_turn(sys.argv[i + 1], "--profile" in sys.argv)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, help="a tree holding mcpt_tpu_torch/")
     ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
@@ -232,6 +352,34 @@ def main():
         raise SystemExit("mega_ab.py needs a CUDA GPU")
     roots = {"parent": Path(args.parent), "new": ROOT,
              **dict((n, Path(d)) for n, d in (t.split("=", 1) for t in args.tree))}
+    keep = args.shapes.split(",") if args.shapes else None
+    cases = shapes() if keep != [WAVEFRONT] else {}
+    if keep:
+        unknown = set(keep) - set(cases) - {WAVEFRONT}
+        if unknown:
+            raise SystemExit(f"unknown shapes {sorted(unknown)}; known: "
+                             f"{sorted(cases) + [WAVEFRONT]}")
+        cases = {k: v for k, v in cases.items() if k in keep}
+    result = {"card": card(), "trees": {t: {"root": str(r), "median_ms": {}}
+                                        for t, r in roots.items()}}
+    if cases:
+        megakernel_ab(roots, cases, args.rounds, result)
+    if keep is None or WAVEFRONT in keep:
+        wavefront_ab(roots, args.rounds, result)
+    for t, rec in result["trees"].items():
+        print(f"[ab] {t}: medians " +
+              ", ".join(f"{k} {m:.4f}" for k, m in rec["median_ms"].items()), flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    print(card(), flush=True)
+    print(json.dumps(result), flush=True)
+
+
+def megakernel_ab(roots, cases, rounds, result):
+    """The megakernel shapes, in this process: every tree's two sources
+    built at once, each tree's planes bitwise equal to the parent's, then
+    `rounds` timed rounds (ms per launch, medians in `result`)."""
     trees = tuple(roots)
     mods = {t: load_tree(r) for t, r in roots.items()}
     jobs = [(t, regen) for t in trees for regen in (True, False)]
@@ -239,21 +387,13 @@ def main():
         built = dict(zip(jobs, pool.map(
             lambda j: build_one(j[0], j[1], roots[j[0]] / "mcpt_tpu_torch" / "csrc"), jobs)))
     libs = {j: Library(path, j[1], mods[j[0]]["megakernel"]) for j, (path, _) in built.items()}
-    cases = shapes()
-    if args.shapes:
-        keep = args.shapes.split(",")
-        unknown = set(keep) - set(cases)
-        if unknown:
-            raise SystemExit(f"unknown shapes {sorted(unknown)}; known: {sorted(cases)}")
-        cases = {k: v for k, v in cases.items() if k in keep}
     tables = {(t, label): mods[t]["tables"].SceneTables.from_pack(sh.pack, device="cuda")
               for t in trees for label, sh in cases.items()}
-    result = {"card": card(), "trees": {}}
     ref = {}
     for t in trees:
         regs = {**built[t, True][1], **built[t, False][1]}
-        rec = result["trees"][t] = {"root": str(roots[t]), "ptxas": regs, "instances": {},
-                                    "ms": {}}
+        rec = result["trees"][t]
+        rec.update({"ptxas": regs, "instances": {}, "ms": {}})
         for label, sh in cases.items():
             lib = libs[t, sh.regen]
             inst = rec["instances"].setdefault(sh.instance, dict(regs.get(sh.instance, {})))
@@ -274,7 +414,7 @@ def main():
                   f"stack, {r['spill_stores']}/{r['spill_loads']} bytes spill stores/loads",
                   flush=True)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for r in range(args.rounds):
+    for r in range(rounds):
         order = trees if r % 2 == 0 else trees[::-1]
         for label, sh in cases.items():
             for t in order:
@@ -283,17 +423,10 @@ def main():
                 end.record()
                 torch.cuda.synchronize()
                 result["trees"][t]["ms"][label].append(start.elapsed_time(end) / len(sh.blocks))
-        print(f"[ab] round {r + 1}/{args.rounds} done", flush=True)
+        print(f"[ab] round {r + 1}/{rounds} done", flush=True)
     for t in trees:
-        med = {k: sorted(x)[len(x) // 2] for k, x in result["trees"][t]["ms"].items() if x}
-        result["trees"][t]["median_ms"] = med
-        print(f"[ab] {t}: median ms per launch " +
-              ", ".join(f"{k} {m:.3f}" for k, m in med.items()), flush=True)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(result, indent=1))
-    print(card(), flush=True)
-    print(json.dumps(result), flush=True)
+        result["trees"][t]["median_ms"].update(
+            {k: sorted(x)[len(x) // 2] for k, x in result["trees"][t]["ms"].items() if x})
 
 
 if __name__ == "__main__":

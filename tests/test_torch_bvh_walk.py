@@ -18,7 +18,9 @@ sweeps, on the x4-scaled Cornell box of tests/test_megakernel.py:207-279
   brute fan's visibility bits for fans of 1 to 32 rays from one origin.
 
 This file imports neither jax nor mcpt_tpu: the card's test file
-(tests/test_torch_cuda.py) borrows `chain_pack`.
+(tests/test_torch_cuda.py) borrows `chain_pack`, and with
+tests/test_torch_intersect_walk.py `fold_case`, the intersector walk's
+signed-zero ties.
 """
 
 import dataclasses
@@ -36,7 +38,15 @@ from mcpt_tpu_torch.kernels.megakernel_ref import (
     intersect_tile,
     occlude_shared_origin,
 )
-from mcpt_tpu_torch.kernels.tables import SceneTables, bvh_depth, mega_tables
+from mcpt_tpu_torch.kernels.tables import (
+    WALK_ID,
+    SceneTables,
+    WalkTables,
+    bvh_depth,
+    mega_tables,
+)
+from mcpt_tpu_torch.materials import Material
+from mcpt_tpu_torch.scene import Scene, TriangleMesh, pack_to
 
 K = 4.0
 
@@ -83,6 +93,31 @@ def chain_pack(levels, sphere_leaves=False):
 
 def _t3(x):
     return tuple(torch.tensor(np.ascontiguousarray(x[:, k], np.float32)) for k in range(3))
+
+
+def fold_case():
+    """Two triangles that meet at the origin in different planes, their
+    tri_sc rows (0 and 1) held by hand-made walk tables in one leaf in the
+    other order (row 1 tested first), and 64 rays from the origin: each
+    triangle returns t = +0 or -0 there (the sign of zero follows the
+    direction's side of its plane). Returns (pack, tables, oc, dc, tie),
+    `tie` marking the rays whose two zeros differ in sign."""
+    pos = np.float32([[[0, 0, 0], [1, 0, 0], [0, 1, 0]], [[0, 0, 0], [0, 0, 1], [1, 0, 0]]])
+    sc = Scene()
+    sc.add(TriangleMesh(pos, np.zeros((2, 3, 2), np.float32), Material(), "fold"))
+    pack = pack_to(sc.compile(), "cpu")
+    node = np.zeros((1, 16), np.float32)
+    node[0, 0:6] = (-1.0, -1.0, -1.0, 2.0, 2.0, 2.0)  # child 0's box; child 1 empty
+    node.view(np.int32)[0, 12:16] = (0, 2, 0, 0)  # child 0: leaf rows 0-1
+    leaf = pack.tri_sc[[1, 0]].clone()
+    leaf.view(torch.int32)[:, WALK_ID] = torch.tensor([1, 0], dtype=torch.int32)
+    tables = WalkTables(torch.from_numpy(node), leaf, 1)
+    d = np.random.default_rng(1).normal(size=(64, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    oc, dc = _t3(np.zeros((64, 3), np.float32)), _t3(d)
+    t, _, _ = _tri_candidates(pack.tri_sc[:2], oc, dc)
+    tie = (t[:, 0] == 0) & (t[:, 1] == 0) & (torch.signbit(t[:, 0]) != torch.signbit(t[:, 1]))
+    return pack, tables, oc, dc, tie
 
 
 def _random_rays(rng, n):

@@ -12,8 +12,9 @@ chip_smoke.py: per-lane ray counts equal on at least
 98% of lanes (on every lane for the env, BVH and lockstep instances), radiance off by
 more than 1e-3 on under 2% of lanes (ULP-level nearest-hit flips), means
 within 5e-3. The wavefront intersector (`csrc/intersect_prims.cu`) is held
-bitwise to its plain version in every mode, and a wavefront render through
-it bitwise to the same render through the plain version. Renders strided
+bitwise to its plain version in every mode, its walk modes also to the
+tiled sweep, and wavefront renders through it (with and without a BVH)
+bitwise to the same renders through the plain version. Renders strided
 over one card listed three times equal the single render bitwise.
 """
 
@@ -35,10 +36,10 @@ from mcpt_tpu_torch.kernels.megakernel_ref import (
     trace_block_lockstep_ref,
     trace_block_ref,
 )
-from mcpt_tpu_torch.kernels.tables import SceneTables
+from mcpt_tpu_torch.kernels.tables import SceneTables, walk_tables
 from mcpt_tpu_torch.materials import Material
 from mcpt_tpu_torch.render import render_mega, render_mega_sharded, render_radiance
-from mcpt_tpu_torch.scene import Scene, Sphere, TriangleMesh
+from mcpt_tpu_torch.scene import Scene, Sphere, TriangleMesh, pack_to
 
 W, H = 32, 24
 SKY = Path(__file__).resolve().parent.parent / "assets" / "sky.png"
@@ -232,6 +233,137 @@ def test_intersect_tris_rows_bitwise():
         assert torch.equal(g, w)
 
 
+def _soldier_scene(tmp_path, segs_steps=None):
+    """chip_smoke.py's DEMO plus one stand-in soldier (2,560 triangles), or
+    a smaller one of (segments, steps)."""
+    from chip_smoke import SOLDIER_AT, STAND_INS, write_lathe_obj
+
+    segs, steps, height, radius, center, shape = STAND_INS["low_soldier.obj"]
+    segs, steps = segs_steps or (segs, steps)
+    path = tmp_path / "soldier.obj"
+    write_lathe_obj(path, segs, steps, height, radius, center, shape)
+    sc = demo_scene()
+    sc.add(TriangleMesh.from_obj(path, Material(), translation=SOLDIER_AT, name="soldier"))
+    return sc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["soup", "soldier"])
+@pytest.mark.parametrize("occlusion", [False, True])
+def test_intersect_walk_bitwise(cuda_card, tmp_path, scene, occlusion):
+    """The walk modes (the pack's BVH tables) against the all-pairs plain
+    version and against the tiled sweep (the bare table) on the same CUDA
+    rays: every output bitwise equal."""
+    if scene == "soup":
+        pack = pack_to(_soup_scene().compile(), "cuda", walk=True)
+        oc, dc = _cuda_rays(20000, -3.0, 3.0, ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0)), 4)
+    else:
+        pack = pack_to(_soldier_scene(tmp_path).compile(), "cuda", walk=True)
+        oc, dc = _cuda_rays(50000, (1.0, 1.0, 1.0), (555.0, 547.0, 558.0),
+                            ((40.0, 0.0, 340.0), (240.0, 260.0, 540.0)), 6)
+    assert pack.walk is not None and pack.tri_sc.shape[0] > 1024
+    base = "occlusion" if occlusion else "nearest"
+    before = IP.intersect_prims_c.by_mode[base + " walk"]
+    got = IP.intersect_prims_c(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc,
+                               occlusion=occlusion, walk=pack.walk)
+    torch.cuda.synchronize()
+    assert IP.intersect_prims_c.by_mode[base + " walk"] == before + 1
+    tiled = IP.intersect_prims_c(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc,
+                                 occlusion=occlusion)
+    assert IP.intersect_prims_c.last_mode == base + " tiled"
+    want = intersect_prims_ref(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc,
+                               occlusion=occlusion)
+    assert (want[0] < 1e30).float().mean().item() > 0.5
+    _bits_equal(got, tiled, want)
+
+
+def _bits_equal(got, *wants):
+    """Outputs (t, prim, u, v; Nones in occlusion mode) on the card equal
+    each of `wants` bit for bit: float32 as int32, so +0 and -0 differ."""
+    for g, *ws in zip(got, *wants, strict=True):
+        for w in ws:
+            assert (g is None) == (w is None)
+            if w is not None:
+                assert g.device.type == "cuda" and g.dtype == w.dtype
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("occlusion", [False, True])
+def test_intersect_walk_signed_zero_ties(cuda_card, occlusion):
+    """Rays from the vertex where two triangles meet in different planes
+    (t = +0 from one, -0 from the other; the walk tests row 1 first):
+    both walk modes return the lower row's t, as the sweep and the plain
+    version do, bit for bit."""
+    from test_torch_bvh_walk import fold_case
+
+    pack, tables, oc, dc, tie = fold_case()
+    assert tie.sum().item() >= 10
+    cuda = lambda x: tuple(c.cuda() for c in x)
+    tri, sph = pack.tri_sc.cuda(), pack.sph_geom.cuda()
+    walk = tables._replace(bvh=tables.bvh.cuda(), leaf=tables.leaf.cuda())
+    got = IP.intersect_prims_c(tri, sph, pack.n_tris, cuda(oc), cuda(dc), occlusion=occlusion,
+                               walk=walk)
+    assert IP.intersect_prims_c.last_mode.endswith(" walk")
+    swept = IP.intersect_prims_c(tri, sph, pack.n_tris, cuda(oc), cuda(dc), occlusion=occlusion)
+    want = intersect_prims_ref(tri, sph, pack.n_tris, cuda(oc), cuda(dc), occlusion=occlusion)
+    _bits_equal(got, swept, want)
+
+
+@pytest.mark.gpu
+def test_intersect_walk_refuses_a_deep_tree(cuda_card):
+    """A tree deeper than the walk's stack: `walk_tables` refuses it, so a
+    wavefront render through the kernel refuses it (no fallback to the
+    sweep) while the `bvh` method renders it; the C entry refuses tables
+    that claim more levels than the stack, before any launch."""
+    from chip_smoke import cornell_x4
+    from test_torch_bvh_walk import chain_pack
+
+    deep = chain_pack(BVH_STACK + 1)
+    with pytest.raises(ValueError, match="levels"):
+        walk_tables(deep)
+    cam = dataclasses.replace(cornell_x4(sky=False).camera, width=8, height=6)
+    with pytest.raises(ValueError, match="levels"):
+        render_radiance(deep, cam, 1, 2, max_bounces=2, method="kernel", device="cuda")
+    img, _ = render_radiance(deep, cam, 1, 2, max_bounces=2, method="bvh", device="cuda")
+    assert np.isfinite(img).all() and img.mean() > 0
+    pack = pack_to(chain_pack(BVH_STACK), "cuda", walk=True)
+    assert pack.walk.depth == BVH_STACK
+    oc, dc = _cuda_rays(256, 0.0, 500.0, ((0.0, 0.0, 0.0), (500.0, 500.0, 500.0)), 7)
+    before = IP.intersect_prims_c.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        IP.intersect_prims_c(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc,
+                             walk=pack.walk._replace(depth=BVH_STACK + 1))
+    assert IP.intersect_prims_c.launches == before
+    got = IP.intersect_prims_c(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc, walk=pack.walk)
+    want = intersect_prims_ref(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc)
+    assert IP.intersect_prims_c.last_mode == "nearest walk"
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_wavefront_render_walks_a_tree(cuda_card, tmp_path, monkeypatch):
+    """render_radiance of a scene with a BVH (the DEMO plus a small
+    soldier, cluster_threshold 64) on the card launches only the walk modes,
+    and its image equals, bitwise, the same render with the plain sweep in
+    the kernel's place."""
+    sc = _soldier_scene(tmp_path, (12, 10))
+    host = sc.compile(cluster_threshold=64)
+    cam = dataclasses.replace(sc.camera, width=W, height=H)
+    kw = dict(max_bounces=4, tile_pixels=256, spp_chunk=2, device="cuda")
+    IP.intersect_prims_c.by_mode.clear()
+    img, stats = render_radiance(host, cam, 4, 3, **kw)
+    modes = dict(IP.intersect_prims_c.by_mode)
+    assert set(modes) == {"nearest walk", "occlusion walk"}, modes
+    assert img.shape == (H, W, 3) and np.isfinite(img).all() and img.mean() > 0
+    monkeypatch.setattr(IP, "_launch", lambda tri, sph, base, oc, dc, occ, walk=None:
+                        intersect_prims_ref(tri, sph, base, oc, dc, occlusion=occ))
+    img2, stats2 = render_radiance(host, cam, 4, 3, **kw)
+    assert stats["rays"] == stats2["rays"]
+    np.testing.assert_array_equal(img, img2)
+
+
 @pytest.mark.gpu
 def test_wavefront_render_goes_through_the_kernel(monkeypatch):
     """render_radiance on the card launches the kernel in nearest and
@@ -247,8 +379,8 @@ def test_wavefront_render_goes_through_the_kernel(monkeypatch):
     assert IP.intersect_prims_c.by_mode["nearest"] > 0
     assert IP.intersect_prims_c.by_mode["occlusion"] > 0
     assert img.shape == (H, W, 3) and np.isfinite(img).all() and img.mean() > 0
-    monkeypatch.setattr(IP, "_launch", lambda tri, sph, base, oc, dc, occ: intersect_prims_ref(
-        tri, sph, base, oc, dc, occlusion=occ))
+    monkeypatch.setattr(IP, "_launch", lambda tri, sph, base, oc, dc, occ, walk=None:
+                        intersect_prims_ref(tri, sph, base, oc, dc, occlusion=occ))
     img2, stats2 = render_radiance(sc, cam, 4, 3, **kw)
     assert stats["rays"] == stats2["rays"]
     np.testing.assert_array_equal(img, img2)
