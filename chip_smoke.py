@@ -66,7 +66,13 @@ raises, so the script exits nonzero and prints no result line.
    rays per lane toward light samples, 786,432 rays. Nearest and occlusion
    modes against the plain version on the same CUDA tensors: t, prim, u, v
    bitwise equal on every ray; kernel ms, plain ms, bound, and the dense
-   method's ms on the same rays
+   method's ms on the same rays. Then the render's own shadow batch in the
+   occlusion sweep's fan form (`fan_vs_plain`): the same tile's first hits
+   as B = 196,608 origins with FAN = 4 directions each, ray k·B + i from
+   origin i, as `direct_lighting_c` sends it; the fan form and the generic
+   occlusion mode on the origins expanded, each bitwise against the plain
+   version and against each other, with their times and bounds (the fan's
+   bound counts each origin's terms once)
 10. (e) K3's range: the DEMO plus one stand-in soldier (2,560 triangles) on
    the floor, 2,592 triangles (more than 1024 rows, padded table <= 4096),
    with a BVH (above cluster_threshold): the bare table, which the kernel
@@ -74,17 +80,22 @@ raises, so the script exits nonzero and prints no result line.
    over the pack's tables (`pack.walk`, from `pack_to(..., walk=True)` as
    the wavefront render moves such a scene) on the same rays, bitwise equal
    on every ray to the all-pairs plain version and to the tiled modes
-   (here and in (d) and (f) float32 is compared as int32 bits). Their
+   (here and in (d) and (f) float32 is compared as int32 bits), and the fan
+   form tiled on that scene's fan batch as in (d). Their
    bound is the plain walk's tally (`intersect_walk_ref` on every 12th ray,
    scaled to all; bitwise equal to the kernel there too) x `OPS_PER`, or the
    rays' bytes and every table read once; the sweep's own bound is printed
    beside it
-11. (f) K4: the triangles-only entry `intersect_tris` on the DEMO's
-   triangles at 786,432 (B, 3) rays, bitwise against its plain version
+11. (f) K4: the triangles-only mode on the DEMO's triangles at (d)'s
+   786,432 rays, bitwise against its plain version; timed as the launch
+   alone on the component planes, and `intersect_tris` on (B, 3) rows
+   (its two transposing copies included) checked and timed beside it
 12. (g) the wavefront main path: `render_radiance` of the DEMO at 1920x1080,
    spp WF_SPP, mb 8, method auto, tiles of 65,536 pixels, spp chunks of 8,
-   which must launch the kernel in nearest and occlusion modes; one tile's
-   render (256x256, spp 1) under torch.profiler for the idle share; the
+   which must launch the kernel in its nearest mode and the occlusion fan
+   form; one tile's render (256x256, spp 1) under torch.profiler for the
+   idle share, the device ms a launch of each kernel instance and the rays
+   a launch of each mode; the
    384x384 DEMO through the wavefront at spp 64 (in one tile) against
    phase 4's megakernel render (spp 256), two independent estimates of one
    image: whole-image means within 3%, correlation of 12x12 block means >
@@ -164,7 +175,11 @@ from mcpt_tpu_torch.io.png import read_png
 from mcpt_tpu_torch.kernels import build as kbuild
 from mcpt_tpu_torch.kernels import intersect_prims as ip
 from mcpt_tpu_torch.kernels import megakernel as mk
-from mcpt_tpu_torch.kernels.intersect_prims_ref import intersect_prims_ref, intersect_walk_ref
+from mcpt_tpu_torch.kernels.intersect_prims_ref import (
+    fan_origins,
+    intersect_prims_ref,
+    intersect_walk_ref,
+)
 from mcpt_tpu_torch.kernels.megakernel_ref import (
     cam_static,
     trace_block_lockstep_ref,
@@ -202,6 +217,9 @@ SOLDIER_AT = (140.0, 0.0, 440.0)
 # (e): the plain walk tallies the work of every WALK_SUBSET-th ray (65,536
 # of the 786,432), scaled to all of them
 WALK_SUBSET = 12
+# (d), (e): the shadow rays a vertex of the fan batch (the DEMO's
+# n_dir_sample)
+FAN = 4
 
 # Stand-ins for the reference's chess meshes, which are not in the repo:
 # closed surfaces of revolution of 2*S*(R-1) triangles (S segments around,
@@ -223,10 +241,16 @@ STAND_INS = {
 # evaluation, the bounce's evaluation and pdf, the clamp fold).
 OPS_PER = {
     "woop": 47, "fan_tri": 31, "fan_origin": 19, "sph": 25, "slab": 26,
+    # of a Woop test and a sphere test, the terms of the origin alone, which
+    # the intersector's fan form computes once for the fan's rays
+    "woop_origin": 18, "sph_origin": 10,
     "env": 60, "camera": 40, "vertex": 800,
     "row": 0,  # a BVH row load: bytes, which `bound` counts once per table
 }
 PEAK_F32 = 67e12  # float32 outside the tensor cores, H100 SXM
+# `cuda_ms`: device clocks of spin a timed run (0.5 ms at 1,980 MHz, several
+# times the host's issue of one intersector launch)
+SPIN_CYCLES = 1_000_000
 PEAK_BYTES = 3.35e12
 
 
@@ -325,10 +349,16 @@ def build():
 
 def cuda_ms(fn, reps, windows=1):
     """Device milliseconds of fn(): the mean over reps runs between two CUDA
-    events, the median of `windows` such windows."""
+    events, the median of `windows` such windows. Each window is queued
+    behind a spin of the device (SPIN_CYCLES a run) that outlasts the
+    host's issue of its runs, so a kernel shorter than its launch's host
+    work still runs back to back with the next: the window times the
+    device, not the host."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     means = []
     for _ in range(windows):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES * reps)
         start.record()
         for _ in range(reps):
             fn()
@@ -441,13 +471,15 @@ def device_profile(label, fn, kernel="mega_regen", attempts=3):
                 made = launch_count() - made
                 prof.step()
         busy = collections.Counter()  # device events run one at a time on one stream
-        launches = []
+        launches, by_instance = [], collections.defaultdict(list)
         for e in events:  # the step's own device-side range is no device work
             if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
                 ms = (e.time_range.end - e.time_range.start) / 1e3
-                busy[e.name.replace("(anonymous namespace)::", "")] += ms
+                name = e.name.replace("(anonymous namespace)::", "")
+                busy[name] += ms
                 if kernel in e.name:
                     launches.append(round(ms, 3))
+                    by_instance[name.split("(")[0].removeprefix("void ")].append(ms)
         if len(launches) >= made:
             break
     total = sum(busy.values())
@@ -458,6 +490,9 @@ def device_profile(label, fn, kernel="mega_regen", attempts=3):
     phase("profile", f"{label} (attempt {attempt}): wall {wall_ms:.1f} ms, device busy "
                      f"{total:.1f} ms, {idle}; {kernel} launches {shown} ms; "
                      + "; ".join(f"{k[:45]} {v:.2f} ms" for k, v in busy.most_common(4)))
+    phase("profile", f"{label}: device ms a launch by instance: " + "; ".join(
+        f"{k} {len(v)} launches, mean {statistics.mean(v):.4f}"
+        for k, v in sorted(by_instance.items())))
 
 
 def ms_per_launch(fn):
@@ -487,6 +522,7 @@ def reset_counts():
     mk.trace_block.by_instance = collections.Counter()
     ip.intersect_prims_c.launches = 0
     ip.intersect_prims_c.by_mode = collections.Counter()
+    ip.intersect_prims_c.rays_by_mode = collections.Counter()
 
 
 def main_path(pack):
@@ -696,13 +732,15 @@ def nee_batch(pack, camera, seed=0, shadow=3):
             tuple(torch.cat([d3[k], ws[k]]) for k in range(3)))
 
 
-def intersect_vs_plain(label, kernel, plain, mode, n_rays, n_tris, n_sph, table_bytes, out_bytes):
+def intersect_vs_plain(label, kernel, plain, mode, n_rays, n_tris, n_sph, table_bytes, out_bytes,
+                       fan=None):
     """`kernel()` (one launch of csrc/intersect_prims.cu) against `plain()`
     (its plain version on the same CUDA tensors): every output bitwise
     equal, the launch reported as `mode`; kernel ms (the median of 5 means
     of 10), plain ms (one run) and the bound: n_rays x (n_tris Woop tests + n_sph sphere
     tests) float32 operations, or 24 bytes in per ray, `out_bytes` out and
-    the tables read once."""
+    the tables read once. With `fan`, n_rays / fan origins: the origin's
+    terms of each test count once per origin, and its 12 bytes once."""
     kernel()
     torch.cuda.synchronize()
     check(ip.intersect_prims_c.last_mode == mode,
@@ -712,14 +750,25 @@ def intersect_vs_plain(label, kernel, plain, mode, n_rays, n_tris, n_sph, table_
     torch.cuda.synchronize()
     plain_ms = (time.monotonic() - t0) * 1e3
     ms = cuda_ms(kernel, 10, windows=5)
+    t0 = time.monotonic()
+    for _ in range(10):
+        kernel()
+    torch.cuda.synchronize()
+    issued_ms = (time.monotonic() - t0) * 1e2
     got = kernel()
     torch.cuda.synchronize()
     err = bitwise(label, got, want, "the plain version")
     flops = n_rays * (n_tris * OPS_PER["woop"] + n_sph * OPS_PER["sph"])
-    bound_ms, bound_by = roofline(flops, n_rays * (24 + out_bytes) + table_bytes)
+    nbytes = n_rays * (24 + out_bytes) + table_bytes
+    if fan:
+        shared = n_tris * OPS_PER["woop_origin"] + n_sph * OPS_PER["sph_origin"]
+        flops -= (n_rays - n_rays // fan) * shared
+        nbytes -= (n_rays - n_rays // fan) * 12
+    bound_ms, bound_by = roofline(flops, nbytes)
     hits = (got[0] < T_MAX).float().mean().item()
     phase("kernel", f"{label} [{mode}]: {n_rays} rays x ({n_tris} triangles + {n_sph} spheres), "
-                    f"hit share {hits:.4f}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+                    f"hit share {hits:.4f}: kernel {ms:.4f} ms (issued back to back from the "
+                    f"host: {issued_ms:.4f} ms a call), plain {plain_ms:.1f} ms, bound "
                     f"{bound_ms:.4f} ms ({bound_by}); bitwise equal on every ray, max abs err "
                     f"{err}")
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms,
@@ -814,6 +863,39 @@ def prims_vs_plain(label, pack, oc, dc, tiled):
     return out
 
 
+def fan_vs_plain(label, pack, camera, seed, tiled):
+    """The occlusion sweep's fan form on the render's own shadow batch:
+    `nee_batch`'s first hits (B = 3·TILE_PX origins) with FAN directions
+    each, ray k·B + i from origin i, as `direct_lighting_c` sends them. The
+    fan form and the generic occlusion mode on the origins expanded (the
+    same rays), each against the plain version, and the two against each
+    other, bitwise; both forms' times and bounds."""
+    oc, dc = nee_batch(pack, camera, seed=seed, shadow=FAN)
+    b = 3 * TILE_PX
+    p, ws = tuple(x[b:2 * b] for x in oc), tuple(x[b:] for x in dc)
+    px = fan_origins(p, FAN)
+    tri, sph, base = pack.tri_sc, pack.sph_geom, pack.n_tris
+    n_tris = int(pack.tri_valid.sum().item())
+    n_sph = int((sph[:, 3] > 0).sum().item())
+    table_bytes = (tri.numel() + sph.numel()) * 4
+    form = " tiled" if tiled else ""
+    fan = intersect_vs_plain(
+        f"{label} fan batch", lambda: ip.intersect_prims_c(tri, sph, base, p, ws, occlusion=True,
+                                                           fan=FAN),
+        lambda: intersect_prims_ref(tri, sph, base, p, ws, occlusion=True, fan=FAN),
+        "occlusion fan" + form, FAN * b, n_tris, n_sph, table_bytes, 4, fan=FAN)
+    gen = intersect_vs_plain(
+        f"{label} fan batch, origins expanded",
+        lambda: ip.intersect_prims_c(tri, sph, base, px, ws, occlusion=True),
+        lambda: intersect_prims_ref(tri, sph, base, px, ws, occlusion=True),
+        "occlusion" + form, FAN * b, n_tris, n_sph, table_bytes, 4)
+    bitwise(label, fan["got"], gen["got"], "the generic occlusion mode")
+    phase("kernel", f"{label} fan batch ({b} origins x {FAN}): the fan form {fan['ms']:.4f} ms, "
+                    f"the generic occlusion mode {gen['ms']:.4f} ms on the same rays "
+                    f"({gen['ms'] / fan['ms']:.3f}x); bitwise equal")
+    return fan
+
+
 def soldier_demo(directory):
     """The DEMO plus one stand-in soldier (2,560 triangles) standing on its
     floor."""
@@ -835,6 +917,7 @@ def intersect_kernels(soldier):
     oc, dc = nee_batch(demo, cam)
     check(oc[0].numel() == 4 * 3 * TILE_PX, "NEE batch size")
     out = prims_vs_plain("(d) K2 DEMO", demo, oc, dc, tiled=False)
+    out["occlusion fan"] = fan_vs_plain("(d) K2 DEMO", demo, cam, 2, tiled=False)
     phase("d", f"{time.monotonic() - t0:.1f} s")
 
     t0 = time.monotonic()
@@ -847,17 +930,24 @@ def intersect_kernels(soldier):
                f"padded {pack.n_tris}")
     oc_e, dc_e = nee_batch(pack, cam, seed=1)
     out.update(prims_vs_plain("(e) K3 range", pack, oc_e, dc_e, tiled=True))
+    out["occlusion fan tiled"] = fan_vs_plain("(e) K3 range", pack, cam, 3, tiled=True)
     phase("e", f"{time.monotonic() - t0:.1f} s")
 
     t0 = time.monotonic()
     rows = demo.tri_sc
-    o, d = torch.stack(oc, 1), torch.stack(dc, 1)
-    no_sph = torch.zeros((0, 4), dtype=torch.float32, device=DEV)
+    no_sph = rows.new_empty((0, 4))
+    # K4's launch alone, on the component planes: (B, 3) rows through
+    # `intersect_tris` add two transposing copies
     out["tris"] = intersect_vs_plain(
-        "(f) K4 DEMO triangles", lambda: ip.intersect_tris(rows, o, d),
-        lambda: intersect_prims_ref(rows, no_sph, 0, oc, dc), "tris", o.shape[0],
+        "(f) K4 DEMO triangles", lambda: ip.intersect_prims_c(rows, no_sph, 0, oc, dc),
+        lambda: intersect_prims_ref(rows, no_sph, 0, oc, dc), "tris", oc[0].numel(),
         int(demo.tri_valid.sum().item()), 0, rows.numel() * 4, 16)
-    phase("f", f"{time.monotonic() - t0:.1f} s; no render launches the triangles-only entry "
+    o, d = torch.stack(oc, 1), torch.stack(dc, 1)
+    bitwise("(f) intersect_tris", ip.intersect_tris(rows, o, d), out["tris"]["want"],
+            "the plain version")
+    rows_ms = cuda_ms(lambda: ip.intersect_tris(rows, o, d), 10, windows=5)
+    phase("f", f"{time.monotonic() - t0:.1f} s; `intersect_tris` on (B, 3) rows, bitwise equal: "
+               f"{rows_ms:.4f} ms with its copies. No render launches the triangles-only entry "
                f"(K4 has no render path), so its row's launches are 0")
     return out
 
@@ -872,7 +962,7 @@ def wavefront_path(mega_img, soldier):
     img, stats = render_radiance(sc, cam, WF_SPP, 0, max_bounces=8, device=DEV)
     wall = time.monotonic() - t1
     by_mode = dict(ip.intersect_prims_c.by_mode)
-    check(by_mode.get("nearest", 0) > 0 and by_mode.get("occlusion", 0) > 0,
+    check(by_mode.get("nearest", 0) > 0 and by_mode.get("occlusion fan", 0) > 0,
           f"the wavefront render launched {by_mode}")
     check(img.shape == (1080, 1920, 3) and bool(np.isfinite(img).all()), "wavefront image")
     check(0.0 < float(img.mean()) < 10.0, f"wavefront image mean {img.mean()}")
@@ -883,8 +973,12 @@ def wavefront_path(mega_img, soldier):
     # one tile's work (65,536 pixels, spp 1) under the profiler: a whole
     # 1080p render is 32 such tiles, about 1.5M launches to trace
     tile_cam = dataclasses.replace(sc.camera, width=256, height=256)
+    reset_counts()
     device_profile("wavefront one 65,536-pixel tile, spp 1 mb 8", lambda: render_radiance(
-        sc, tile_cam, 1, 5, max_bounces=8, device=DEV), kernel="intersect_prims")
+        sc, tile_cam, 1, 5, max_bounces=8, device=DEV), kernel="intersect_")
+    phase("g", "that render's rays a launch, by mode: " + ", ".join(
+        f"{m} {n / ip.intersect_prims_c.by_mode[m]:.0f}"
+        for m, n in sorted(ip.intersect_prims_c.rays_by_mode.items())))
 
     # 384x384 renders in one tile of 147,456 pixels (the default 65,536
     # would pad the third tile to a full one)
@@ -1136,8 +1230,10 @@ def main():
     k2 = "mcpt_tpu/kernels/intersect_pallas.py:326"
     k3 = "mcpt_tpu/kernels/intersect_pallas.py:135"
     for mode, replaces, counts in (("nearest", k2, wf_launches), ("occlusion", k2, wf_launches),
+                                   ("occlusion fan", k2, wf_launches),
                                    ("nearest tiled", k3, soldier_launches),
                                    ("occlusion tiled", k3, soldier_launches),
+                                   ("occlusion fan tiled", k3, soldier_launches),
                                    ("nearest walk", k3, soldier_launches),
                                    ("occlusion walk", k3, soldier_launches)):
         rows.append((f"intersect_prims<{mode}>", src, replaces, counts.get(mode, 0),

@@ -13,9 +13,9 @@
 // On Hopper all three are one kernel: the MXU form and the SMEM budget were
 // TPU constraints, not the function's.
 //
-// What it computes: one thread per ray. The thread reads its ray's six
-// components from six contiguous float32 arrays (the wavefront's component
-// form: no (B, 3) rows, no transposes), tests triangle rows with
+// What it computes, per ray: its six components come from six contiguous
+// float32 arrays (the wavefront's component form: no (B, 3) rows, no
+// transposes); it is tested against the triangle rows with
 // `_tri_candidate`'s arithmetic (the Woop transform through the
 // EPSILON-guarded determinant, inclusive barycentric bounds, t >= 0, and the
 // row's `valid` flag; pad rows have nr2 = 0 and fail the determinant guard),
@@ -32,19 +32,37 @@
 //   occlusion (occlusion = 1): t only (the sweep keeps no winner; the walk
 //             keeps the winner's row, for the tie rule)
 //   tris      (occlusion = 0, n_sph = 0): K4, triangles only
-// and two forms, also chosen from the arguments and reported:
+// and three forms, also chosen from the arguments and reported:
 //
-// The sweep (a bare table): the triangle table is staged through dynamic
-// shared memory in tiles of at most kTile = 1024 rows (64 KB, above the 48 KB
-// default: the launch sets cudaFuncAttributeMaxDynamicSharedMemorySize and
-// reports any refusal). A table of at most kTile rows is one tile (K2's
-// range); a longer one is swept tile by tile ("tiled") with __syncthreads()
-// between tiles, every thread testing every row in order (a candidate wins
-// only with a strictly smaller t). What bounds
-// it on this card: operations. Each (ray, triangle) pair is about 47 float32
-// operations and each (ray, sphere) pair about 25, on data that every thread
-// of a warp reads from the same shared-memory address (a broadcast); bytes
-// are 24 per ray in and at most 16 out.
+// The sweep (a bare table; `intersect_sweep`): the triangle table is staged
+// through dynamic shared memory in tiles of at most kTile = 1024 rows (64 KB,
+// above the 48 KB default: the launch sets
+// cudaFuncAttributeMaxDynamicSharedMemorySize and reports any refusal). A
+// table of at most kTile rows is one tile (K2's range); a longer one is swept
+// tile by tile ("tiled") with __syncthreads() between tiles, every ray tested
+// against every row in order (a candidate wins only with a strictly smaller
+// t). What bounds it on this card: its instruction stream. Each (ray,
+// triangle) pair is 47 counted float32 operations and each (ray, sphere)
+// pair about 25, on rows that every thread of a warp reads from the same
+// shared-memory address (a broadcast); bytes are 24 per ray in and at most 16
+// out. Under -fmad=false, which bitwise equality with the plain version
+// needs, every product and sum issues alone, the IEEE division adds its
+// reciprocal, Newton steps and check, and the winner's selects and the
+// compares come on top, so a pair issues some 70 instructions at one warp
+// instruction a clock per scheduler. The design cuts the instructions that
+// are not the pair's own arithmetic: a thread holds kRays rays, reads each
+// row once as four 16-byte broadcast loads and tests it against all of
+// them, so the row's loads and the loop's own work are shared by kRays
+// pairs, which give the scheduler independent chains.
+//
+// The fan form of the occlusion sweep (`fan` > 0): n / fan origins, and ray
+// k * (n / fan) + i starts at origin i, the layout in which the wavefront's
+// next-event estimation sends a vertex's fan of shadow rays. A thread holds
+// one origin and takes its fan kRays directions at a time; per row it
+// computes the terms that depend on the origin alone (o . w_k - c_k for k =
+// 0, 1, 2: 18 of the pair's 47 operations; l = o - c and cq for a sphere)
+// once for those rays. They are the generic form's expressions on the same inputs, so
+// the answers are the same bit for bit.
 //
 // The walk (a table with its BVH, kernels/tables.py `walk_tables`; K3's
 // range on Hopper): all pairs is a TPU form (the MXU and the SMEM budget),
@@ -68,7 +86,7 @@
 // `intersect_walk_ref`).
 //
 // The spheres sit in shared memory and are tested after the triangles in
-// both forms.
+// every form.
 
 #include <cuda_runtime.h>
 
@@ -80,13 +98,16 @@ constexpr int kCols = 16;      // tri_sc row: w00..w22, c0..c2, nr2, valid, pad
 constexpr int kTile = 1024;    // triangle rows per shared-memory tile
 constexpr int kMaxSph = 4096;  // spheres held in shared memory
 constexpr int kThreads = 256;
+// rays a sweep thread holds (the fan form: directions a pass); 4 beat 2
+// and 8 in every mode on the H100 (PERF.md)
+constexpr int kRays = 4;
 // entries of a walk's per-thread stack (constants.py BVH_STACK): a walk
 // pushes at most one entry per tree level; deeper trees are refused
 constexpr int kStack = 32;
 constexpr int kWalkId = 15;  // a walk leaf row's index in tri_sc (int bits)
 
 enum Mode { kNearest = 0, kOcclusion = 1, kTris = 2 };
-enum Form { kSweep = 0, kTiled = 1, kWalk = 2 };
+enum Form { kSweep = 0, kTiled = 1, kWalk = 2, kFan = 3, kFanTiled = 4 };
 
 struct Rays {
   const float *o0, *o1, *o2, *d0, *d1, *d2;
@@ -161,6 +182,67 @@ __device__ __forceinline__ void spheres(const float* s_sph, int n_sph, int sph_b
   }
 }
 
+// The sweep's form of the same two tests, split at the terms that depend on
+// the ray's origin alone, which a fan of rays from one origin shares. The
+// expressions are the ones above on the same inputs, so the bits are the
+// same; the walk keeps the forms above, so that its generated code stays
+// as it is.
+struct OriginTerms {
+  float op0, op1, op2;  // op_k = o . w_k - c_k
+};
+
+__device__ __forceinline__ OriginTerms origin_terms(const float* w, float o0, float o1, float o2) {
+  return {o0 * w[0] + o1 * w[1] + o2 * w[2] - w[9], o0 * w[3] + o1 * w[4] + o2 * w[5] - w[10],
+          o0 * w[6] + o1 * w[7] + o2 * w[8] - w[11]};
+}
+
+// tri_candidate given the origin's terms.
+__device__ __forceinline__ float tri_candidate_at(const float* w, const OriginTerms& op, float d0,
+                                                  float d1, float d2, float& u, float& v) {
+  const float dp2 = d0 * w[6] + d1 * w[7] + d2 * w[8];
+  const float det = -(dp2 * w[12]);
+  const bool okd = fabsf(det) >= kEps;
+  const float det_g = okd ? det : 1.f;
+  const float t = op.op2 * w[12] / det_g;
+  const float dp0 = d0 * w[0] + d1 * w[1] + d2 * w[2];
+  u = op.op0 + t * dp0;
+  const float dp1 = d0 * w[3] + d1 * w[4] + d2 * w[5];
+  v = op.op1 + t * dp1;
+  const bool ok = okd && u >= 0.f && u <= 1.f && v >= 0.f && u + v <= 1.f && t >= 0.f &&
+                  w[13] > 0.5f;
+  return ok ? t : kTMax;
+}
+
+struct SphTerms {
+  float l0, l1, l2, cq;  // l = o - c, cq = l . l - r^2
+};
+
+__device__ __forceinline__ SphTerms sph_terms(const float* c, float o0, float o1, float o2) {
+  const float l0 = o0 - c[0];
+  const float l1 = o1 - c[1];
+  const float l2 = o2 - c[2];
+  return {l0, l1, l2, l0 * l0 + l1 * l1 + l2 * l2 - c[3] * c[3]};
+}
+
+// One sphere of `spheres` given the origin's terms and the ray's invariants
+// a_ok, a_safe: t, or kTMax when the sphere is missed.
+__device__ __forceinline__ float sph_candidate_at(const float* c, const SphTerms& l, float d0,
+                                                  float d1, float d2, bool a_ok, float a_safe) {
+  const float bq = 2.f * (d0 * l.l0 + d1 * l.l1 + d2 * l.l2);
+  const float disc = bq * bq - 4.f * a_safe * l.cq;
+  bool ok = disc >= 0.f && a_ok && c[3] > 0.f;
+  const float sq = sqrtf(fmaxf(disc, 0.f));
+  const float q = bq > 0.f ? -0.5f * (bq + sq) : -0.5f * (bq - sq);
+  const float qs = fabsf(q) > 1e-10f ? q : 1.f;
+  const float x0 = q / a_safe;
+  const float x1 = l.cq / qs;
+  const float lo = fminf(x0, x1);
+  const float hi = fmaxf(x0, x1);
+  const float t = lo < 0.f ? hi : lo;
+  ok = ok && t >= 0.f;
+  return ok ? t : kTMax;
+}
+
 template <bool OCC>
 __device__ __forceinline__ void store(const Out& out, int i, float t, int prim, float u, float v) {
   out.t[i] = t;
@@ -171,48 +253,145 @@ __device__ __forceinline__ void store(const Out& out, int i, float t, int prim, 
   }
 }
 
-template <bool OCC>
+// A triangle row of shared memory into registers, as four 16-byte loads
+// (every thread of a warp reads the same row: a broadcast).
+__device__ __forceinline__ void load_tri(const float* s_tri, int j, float* w) {
+  const float4* q = reinterpret_cast<const float4*>(s_tri) + j * 4;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4 a = q[k];
+    w[4 * k] = a.x;
+    w[4 * k + 1] = a.y;
+    w[4 * k + 2] = a.z;
+    w[4 * k + 3] = a.w;
+  }
+}
+
+// The sweep: R = kRays rays a thread, each table row read once for all R.
+// Without FAN, `n` rays; thread t of block b holds rays b * blockDim * R + k
+// * blockDim + t (k < R, coalesced). With FAN, `n` origins and fan * n rays,
+// ray k * n + i from origin i: thread i holds origin i and takes its fan
+// R rays a pass, computing the origin's terms once per row and pass.
+template <bool OCC, bool FAN>
 __global__ void __launch_bounds__(kThreads)
-    intersect_prims(Rays r, const float* __restrict__ tri, int n_tri, const float* __restrict__ sph,
-                    int n_sph, int sph_base, int n, Out out) {
-  extern __shared__ float smem[];
+    intersect_sweep(Rays r, const float* __restrict__ tri, int n_tri,
+                    const float* __restrict__ sph, int n_sph, int sph_base, int n, int fan,
+                    Out out) {
+  constexpr int R = kRays;
+  extern __shared__ __align__(16) float sweep_smem[];
   const int tile = n_tri < kTile ? n_tri : kTile;
-  float* s_tri = smem;
-  float* s_sph = smem + tile * kCols;
+  float* s_tri = sweep_smem;
+  float* s_sph = sweep_smem + tile * kCols;
   for (int k = threadIdx.x; k < n_sph * 4; k += blockDim.x) s_sph[k] = sph[k];
   __syncthreads();
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  const float o0 = live ? r.o0[i] : 0.f, o1 = live ? r.o1[i] : 0.f, o2 = live ? r.o2[i] : 0.f;
-  const float d0 = live ? r.d0[i] : 0.f, d1 = live ? r.d1[i] : 0.f, d2 = live ? r.d2[i] : 0.f;
-  float t_best = kTMax, u_best = 0.f, v_best = 0.f;
-  int prim = -1;
-
-  for (int base = 0; base < n_tri; base += tile) {
-    const int rows = n_tri - base < tile ? n_tri - base : tile;
-    __syncthreads();  // the previous tile is consumed
-    for (int k = threadIdx.x; k < rows * kCols; k += blockDim.x) {
-      s_tri[k] = tri[static_cast<size_t>(base) * kCols + k];
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x * (FAN ? 1 : R) +
+                          threadIdx.x;
+  float fo0 = 0.f, fo1 = 0.f, fo2 = 0.f;  // FAN: the thread's origin
+  if (FAN && first < n) {
+    fo0 = r.o0[first];
+    fo1 = r.o1[first];
+    fo2 = r.o2[first];
+  }
+  const int passes = FAN ? (fan + R - 1) / R : 1;
+  for (int p = 0; p < passes; ++p) {
+    // ray k of this pass, and whether it is one of the n (FAN: fan * n)
+    auto ray = [&](int k) {
+      return FAN ? static_cast<long long>(p * R + k) * n + first
+                 : first + static_cast<long long>(k) * blockDim.x;
+    };
+    auto live = [&](int k) { return FAN ? first < n && p * R + k < fan : ray(k) < n; };
+    float o0[R], o1[R], o2[R], d0[R], d1[R], d2[R];
+    float t_best[R], u_best[R], v_best[R];
+    int prim[R];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const bool lk = live(k);
+      const long long i = ray(k);
+      any = any || lk;
+      o0[k] = FAN ? fo0 : (lk ? r.o0[i] : 0.f);
+      o1[k] = FAN ? fo1 : (lk ? r.o1[i] : 0.f);
+      o2[k] = FAN ? fo2 : (lk ? r.o2[i] : 0.f);
+      d0[k] = lk ? r.d0[i] : 0.f;
+      d1[k] = lk ? r.d1[i] : 0.f;
+      d2[k] = lk ? r.d2[i] : 0.f;
+      t_best[k] = kTMax;
+      u_best[k] = 0.f;
+      v_best[k] = 0.f;
+      prim[k] = -1;
     }
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < rows; ++j) {
-      float u, v;
-      const float tc = tri_candidate(s_tri + j * kCols, o0, o1, o2, d0, d1, d2, u, v);
-      if (tc < t_best) {
-        t_best = tc;
-        if (!OCC) {
-          prim = base + j;
-          u_best = u;
-          v_best = v;
+
+    for (int base = 0; base < n_tri; base += tile) {
+      const int rows = n_tri - base < tile ? n_tri - base : tile;
+      __syncthreads();  // the previous tile is consumed
+      for (int k = threadIdx.x; k < rows * kCols; k += blockDim.x) {
+        s_tri[k] = tri[static_cast<size_t>(base) * kCols + k];
+      }
+      __syncthreads();
+      if (!any) continue;
+      for (int j = 0; j < rows; ++j) {
+        float w[16];
+        load_tri(s_tri, j, w);
+        OriginTerms shared{};
+        if (FAN) shared = origin_terms(w, fo0, fo1, fo2);
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          float u, v;
+          const float tc = tri_candidate_at(
+              w, FAN ? shared : origin_terms(w, o0[k], o1[k], o2[k]), d0[k], d1[k], d2[k], u, v);
+          if (tc < t_best[k]) {
+            t_best[k] = tc;
+            if (!OCC) {
+              prim[k] = base + j;
+              u_best[k] = u;
+              v_best[k] = v;
+            }
+          }
         }
       }
     }
+    if (!any) continue;
+
+    bool a_ok[R];
+    float a_safe[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const float a = d0[k] * d0[k] + d1[k] * d1[k] + d2[k] * d2[k];
+      a_ok[k] = a > 1e-12f;
+      a_safe[k] = fmaxf(a, 1e-12f);
+    }
+    for (int s = 0; s < n_sph; ++s) {
+      const float4 c4 = reinterpret_cast<const float4*>(s_sph)[s];
+      const float c[4] = {c4.x, c4.y, c4.z, c4.w};
+      SphTerms shared{};
+      if (FAN) shared = sph_terms(c, fo0, fo1, fo2);
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const float tc = sph_candidate_at(c, FAN ? shared : sph_terms(c, o0[k], o1[k], o2[k]),
+                                          d0[k], d1[k], d2[k], a_ok[k], a_safe[k]);
+        if (tc < t_best[k]) {
+          t_best[k] = tc;
+          if (!OCC) {
+            prim[k] = sph_base + s;
+            u_best[k] = 0.f;
+            v_best[k] = 0.f;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      if (!live(k)) continue;
+      const long long i = ray(k);
+      out.t[i] = t_best[k];
+      if (!OCC) {
+        out.prim[i] = prim[k];
+        out.u[i] = u_best[k];
+        out.v[i] = v_best[k];
+      }
+    }
   }
-  if (!live) return;
-  spheres<OCC>(s_sph, n_sph, sph_base, o0, o1, o2, d0, d1, d2, t_best, prim, u_best, v_best);
-  store<OCC>(out, i, t_best, prim, u_best, v_best);
 }
 
 // One child-pair row of the walk table (tables.py `bvh_tables`): the boxes
@@ -357,17 +536,19 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <bool OCC>
-cudaError_t launch(const Rays& r, const float* tri, int n_tri, const float* sph, int n_sph,
-                   int sph_base, int n, const Out& out, cudaStream_t stream) {
+// One launch of the sweep; `n` rays, or with FAN `n` origins.
+template <bool OCC, bool FAN>
+cudaError_t launch_sweep(const Rays& r, const float* tri, int n_tri, const float* sph, int n_sph,
+                         int sph_base, int n, int fan, const Out& out, cudaStream_t stream) {
   const int tile = n_tri < kTile ? n_tri : kTile;
   const size_t smem = (static_cast<size_t>(tile) * kCols + static_cast<size_t>(n_sph) * 4) *
                       sizeof(float);
-  cudaError_t e = allow_smem(intersect_prims<OCC>, smem);
+  cudaError_t e = allow_smem(intersect_sweep<OCC, FAN>, smem);
   if (e != cudaSuccess) return e;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  intersect_prims<OCC><<<blocks, kThreads, smem, stream>>>(r, tri, n_tri, sph, n_sph, sph_base, n,
-                                                           out);
+  const long long threads = FAN ? n : (static_cast<long long>(n) + kRays - 1) / kRays;
+  const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
+  intersect_sweep<OCC, FAN><<<blocks, kThreads, smem, stream>>>(r, tri, n_tri, sph, n_sph,
+                                                                sph_base, n, fan, out);
   return cudaGetLastError();
 }
 
@@ -386,22 +567,27 @@ cudaError_t launch_walk(const Rays& r, const float* bvh, const float* leaf, cons
 }  // namespace
 
 // C interface (loaded with ctypes by kernels/intersect_prims.py).
-//   rays:   6 device pointers to float32 (n,) arrays: o0, o1, o2, d0, d1, d2
+//   rays:   6 device pointers to float32 arrays: o0, o1, o2 and d0, d1, d2,
+//           (n,) each; with a fan of S the origins are (n / S,), ray k * n /
+//           S + i from origin i
 //   tri:    float32 (n_tri, 16) rows in tri_sc's layout; with a walk, the
 //           leaf rows (tables.py `walk_tables`: tri_sc rows in leaf order,
 //           float kWalkId the row's index in tri_sc as int bits)
 //   bvh:    null for the sweep, or float32 (n_rows >= 1, 16) child-pair rows
 //           of a tree of `depth` levels (<= kStack, else refused)
 //   sph:    float32 (n_sph, 4) rows: center, radius (n_sph = 0: triangles only)
+//   fan:    0, or S >= 1 for the fan form of the occlusion sweep (n a
+//           multiple of S; refused with a walk or in the other modes)
 //   out:    4 device pointers: t float32, prim int32, u float32, v float32
 //           (only t is written, and only t need be given, with occlusion)
 //   launched: 2 ints written back: the mode run (0 nearest, 1 occlusion,
 //           2 triangles only; -1 if nothing was launched) and the form (0
-//           the sweep in one shared-memory tile, 1 tiled, 2 the walk)
+//           the sweep in one shared-memory tile, 1 tiled, 2 the walk, 3 the
+//           fan in one tile, 4 the fan tiled)
 // Returns 0 or the cudaError_t of a refused launch.
 extern "C" int mcpt_intersect_prims(const void* const* rays, const void* tri, int n_tri,
                                     const void* bvh, int n_rows, int depth, const void* sph,
-                                    int n_sph, int sph_base, int n, int occlusion,
+                                    int n_sph, int sph_base, int n, int occlusion, int fan,
                                     void* const* out, void* stream, int* launched) {
   launched[0] = -1;
   launched[1] = 0;
@@ -410,6 +596,9 @@ extern "C" int mcpt_intersect_prims(const void* const* rays, const void* tri, in
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bvh != nullptr && (n_rows < 1 || n_tri < 1 || depth < 1 || depth > kStack)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (fan < 0 || (fan > 0 && (!occlusion || bvh != nullptr || n % fan != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Rays r{static_cast<const float*>(rays[0]), static_cast<const float*>(rays[1]),
@@ -427,10 +616,13 @@ extern "C" int mcpt_intersect_prims(const void* const* rays, const void* tri, in
     const float* b = static_cast<const float*>(bvh);
     e = occlusion ? launch_walk<true>(r, b, t, s, n_sph, sph_base, n, o, st)
                   : launch_walk<false>(r, b, t, s, n_sph, sph_base, n, o, st);
+  } else if (fan > 0) {
+    launched[1] = n_tri > kTile ? kFanTiled : kFan;
+    e = launch_sweep<true, true>(r, t, n_tri, s, n_sph, sph_base, n / fan, fan, o, st);
   } else {
     launched[1] = n_tri > kTile ? kTiled : kSweep;
-    e = occlusion ? launch<true>(r, t, n_tri, s, n_sph, sph_base, n, o, st)
-                  : launch<false>(r, t, n_tri, s, n_sph, sph_base, n, o, st);
+    e = occlusion ? launch_sweep<true, false>(r, t, n_tri, s, n_sph, sph_base, n, 0, o, st)
+                  : launch_sweep<false, false>(r, t, n_tri, s, n_sph, sph_base, n, 0, o, st);
   }
   return static_cast<int>(e);
 }

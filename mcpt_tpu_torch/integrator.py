@@ -13,7 +13,8 @@ The random numbers are `jax.random`'s, reproduced by `prng`: per bounce
 `kd = fold_in(key, depth)`, the vertex draws `uniform(fold_in(kd, 0), (B,
 4))` and the light draws `uniform(fold_in(kd, 1), (S·B, 4))`, so a lane
 draws what it draws in the JAX function. The NEE problem keeps the (S, B)
-plane-major layout; its S·B shadow rays go to `occlude_t_c` as one batch.
+plane-major layout; its S·B shadow rays go to `occlude_t_c` as one batch,
+in its fan form: the B points once, ray k·B + i from point i.
 
 With `early_exit` the bounce loop is a Python loop that stops once no lane
 is alive (one host sync per bounce); records are preallocated (D, B). No
@@ -66,8 +67,9 @@ def direct_lighting_c(pack, key, wo, p, n, uv, m, lam, chan, is_reflect, method)
     inv_dist = 1.0 / dist
     ws = tuple(x * inv_dist for x in delta)
     if pack.enable_shadow:
-        flat = lambda c: tuple(x.expand(s, b).reshape(s * b) for x in c)
-        sh_t = occlude_t_c(pack, flat(p), flat(ws), method=method).reshape(s, b)
+        # a fan of s shadow rays from each of the b points, ray k·b + i from p[i]
+        sh_t = occlude_t_c(pack, p, tuple(x.reshape(s * b) for x in ws), method=method,
+                           fan=s).reshape(s, b)
         # no hit strictly closer than the light sample, by a relative margin
         visible = sh_t >= dist - torch.clamp_min(REL_EPS * dist, EPSILON)
     else:

@@ -31,6 +31,7 @@ import torch
 
 from mcpt_tpu_torch.constants import EPSILON, T_MAX
 from mcpt_tpu_torch.kernels.intersect_prims import intersect_prims_c
+from mcpt_tpu_torch.kernels.intersect_prims_ref import fan_origins
 from mcpt_tpu_torch.kernels.megakernel_ref import sph_roots, sqrt_f32
 
 T_MAX_F = float(T_MAX)
@@ -315,14 +316,20 @@ def intersect_c(pack, oc, dc, method: str = "auto") -> Hit:
     return intersect_bvh(pack, _rows(oc), _rows(dc))
 
 
-def occlude_t_c(pack, oc, dc, method: str = "auto") -> torch.Tensor:
+def occlude_t_c(pack, oc, dc, method: str = "auto", fan=None) -> torch.Tensor:
     """Nearest-hit distance only (T_MAX on a miss), the shadow-ray query;
-    the kernel runs its occlusion mode, which keeps no winner."""
+    the kernel runs its occlusion mode, which keeps no winner. With
+    `fan=S`, `oc` holds B origins and `dc` S·B directions, ray k·B + i from
+    origin i: the kernel's sweep takes them as they are, every other route
+    expands the origins first."""
     method = resolve_method(pack, method)
     if method == "kernel":
         return intersect_prims_c(
-            pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc, occlusion=True, walk=pack.walk
+            pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc, occlusion=True, walk=pack.walk,
+            fan=fan,
         )[0]
+    if fan:
+        oc = fan_origins(oc, fan)
     return intersect_c(pack, oc, dc, method=method).t
 
 

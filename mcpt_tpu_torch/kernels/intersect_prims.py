@@ -10,7 +10,10 @@ shared-memory tile), K3's range and K4 (triangles only). A bare table is
 swept (tile by tile above 1024 rows); a table given with its BVH
 (`walk=`, `kernels/tables.py::walk_tables`) is walked, with the same
 answers bit for bit (`intersect_prims_ref.intersect_walk_ref` is the walk's
-plain version, and the source of its work tally).
+plain version, and the source of its work tally). The occlusion sweep has a
+fan form (`fan=S`: B origins, S·B directions, ray k·B + i from origin i),
+which the card sweeps one origin a thread; every other route expands the
+origins first (`fan_origins`).
 """
 
 import collections
@@ -19,11 +22,11 @@ import ctypes
 import torch
 
 from mcpt_tpu_torch.kernels import build as _build
-from mcpt_tpu_torch.kernels.intersect_prims_ref import intersect_prims_ref
+from mcpt_tpu_torch.kernels.intersect_prims_ref import fan_origins, intersect_prims_ref
 
 SOURCE = _build.CSRC / "intersect_prims.cu"
 MODES = ("nearest", "occlusion", "tris")  # csrc/intersect_prims.cu `Mode`
-FORMS = ("", " tiled", " walk")  # csrc/intersect_prims.cu `Form`
+FORMS = ("", " tiled", " walk", " fan", " fan tiled")  # csrc/intersect_prims.cu `Form`
 MAX_SPHERES = 4096  # csrc/intersect_prims.cu kMaxSph
 
 
@@ -38,7 +41,7 @@ def _bind(lib):
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
 
@@ -53,14 +56,17 @@ def mode_name(mode: int, form: int) -> str:
     return MODES[mode] + FORMS[form]
 
 
-def _launch(tri, sph, sph_base, oc, dc, occlusion, walk=None):
-    """One launch: the sweep over `tri`, or with `walk` the walk over its
-    tables (`tri` is then unused: the leaf rows are the table)."""
+def _launch(tri, sph, sph_base, oc, dc, occlusion, walk=None, fan=0):
+    """One launch: the sweep over `tri` (with `fan`, its fan form), or with
+    `walk` the walk over its tables (`tri` is then unused: the leaf rows are
+    the table; a fan's origins are expanded for it)."""
     dev = tri.device
-    b = oc[0].shape[0]
+    b = dc[0].shape[0]
     bvh, depth = None, 0
     if walk is not None:
         bvh, tri, depth = walk.bvh.contiguous(), walk.leaf, int(walk.depth)
+        if fan:
+            oc, fan = fan_origins(oc, fan), 0
     tri = tri.contiguous()
     sph = sph.contiguous()
     rays = [x.contiguous() for x in (*oc, *dc)]
@@ -72,8 +78,9 @@ def _launch(tri, sph, sph_base, oc, dc, occlusion, walk=None):
         raise ValueError(f"tri {tuple(tri.shape)} must be (T, 16), sph {tuple(sph.shape)} (S, 4)")
     if walk is not None and (bvh.ndim != 2 or bvh.shape[1] != 16):
         raise ValueError(f"bvh {tuple(bvh.shape)} must be (R, 16)")
-    if any(x.shape != (b,) for x in rays):
-        raise ValueError("the six ray components must be (B,) tensors")
+    n_o = b // fan if fan else b
+    if any(x.shape != (n_o,) for x in rays[:3]) or any(x.shape != (b,) for x in rays[3:]):
+        raise ValueError("the six ray components must be (B,) tensors (origins (B / fan,))")
     if sph.shape[0] > MAX_SPHERES:
         raise ValueError(f"{sph.shape[0]} spheres > {MAX_SPHERES}")
     t = torch.empty(b, dtype=torch.float32, device=dev)
@@ -94,7 +101,7 @@ def _launch(tri, sph, sph_base, oc, dc, occlusion, walk=None):
         status = lib.mcpt_intersect_prims(
             ctypes.cast(ray_ptrs, ctypes.c_void_p), tri.data_ptr(), tri.shape[0],
             None if bvh is None else bvh.data_ptr(), 0 if bvh is None else bvh.shape[0], depth,
-            sph.data_ptr(), sph.shape[0], int(sph_base), b, int(bool(occlusion)),
+            sph.data_ptr(), sph.shape[0], int(sph_base), b, int(bool(occlusion)), fan,
             ctypes.cast(out_ptrs, ctypes.c_void_p), stream, ctypes.cast(launched, ctypes.c_void_p),
         )
     if status != 0:
@@ -103,20 +110,27 @@ def _launch(tri, sph, sph_base, oc, dc, occlusion, walk=None):
         name = mode_name(launched[0], launched[1])
         intersect_prims_c.launches += 1
         intersect_prims_c.by_mode[name] += 1
+        intersect_prims_c.rays_by_mode[name] += b
         intersect_prims_c.last_mode = name
     return t, prim, u, v
 
 
-def _run(tri, sph, sph_base, oc, dc, occlusion, walk=None):
+def _run(tri, sph, sph_base, oc, dc, occlusion, walk=None, fan=None):
+    if fan is not None:
+        if not occlusion:
+            raise ValueError("fan= is a form of the occlusion query")
+        if int(fan) < 1 or dc[0].shape[0] != int(fan) * oc[0].shape[0]:
+            raise ValueError(f"fan={fan}: need (B,) origins and (fan·B,) directions, got "
+                             f"{oc[0].shape[0]} and {dc[0].shape[0]}")
     dev = tri.device
     if dev.type == "cpu":
-        return intersect_prims_ref(tri, sph, sph_base, oc, dc, occlusion=occlusion)
+        return intersect_prims_ref(tri, sph, sph_base, oc, dc, occlusion=occlusion, fan=fan)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    return _launch(tri, sph, sph_base, oc, dc, occlusion, walk=walk)
+    return _launch(tri, sph, sph_base, oc, dc, occlusion, walk=walk, fan=int(fan or 0))
 
 
-def intersect_prims_c(tri_sc, sph_geom, sph_base, oc, dc, occlusion=False, walk=None):
+def intersect_prims_c(tri_sc, sph_geom, sph_base, oc, dc, occlusion=False, walk=None, fan=None):
     """Nearest hit over all primitives (triangles, then spheres) of the
     rays (oc, dc), 3-tuples of (B,) float32 tensors: `tri_sc` (T8, 16) rows
     (any T8: above 1024 the kernel tiles the table, K3's range), `sph_geom`
@@ -124,22 +138,27 @@ def intersect_prims_c(tri_sc, sph_geom, sph_base, oc, dc, occlusion=False, walk=
     v) as `intersect_prims_pallas_c` does; occlusion=True returns t and
     three Nones. `walk`, the table's `kernels/tables.py::WalkTables`, has
     the kernel walk the BVH instead of sweeping the table (the same answers;
-    on the CPU the plain sweep runs either way). Each kernel launch adds one
-    to `intersect_prims_c.launches` and to
-    `intersect_prims_c.by_mode[<mode the C side reports>]`."""
-    return _run(tri_sc, sph_geom, sph_base, oc, dc, occlusion, walk)
+    on the CPU the plain sweep runs either way). With occlusion=True,
+    `fan=S` takes B origins `oc` and S·B directions `dc`, ray k·B + i from
+    origin i (the same answers as the origins expanded, bit for bit). Each
+    kernel launch adds one to `intersect_prims_c.launches` and to
+    `intersect_prims_c.by_mode[<mode the C side reports>]`, and its rays to
+    `intersect_prims_c.rays_by_mode[<mode>]`."""
+    return _run(tri_sc, sph_geom, sph_base, oc, dc, occlusion, walk, fan)
 
 
 def intersect_tris(tri_rows, o, d):
     """Nearest triangle hit of (B, 3) rays against `tri_rows` (T, 16), the
     transposed (16, T) table of `intersect_tris_pallas` (K4). Returns (t,
     prim int32 (-1 miss), u, v)."""
-    no_sph = torch.zeros((0, 4), dtype=torch.float32, device=tri_rows.device)
+    no_sph = tri_rows.new_empty((0, 4))
     # one transposing copy each gives three contiguous component planes
     return _run(tri_rows, no_sph, 0, tuple(o.t().contiguous()), tuple(d.t().contiguous()), False)
 
 
-# launches of the kernel, in all and by the mode the C side reports
+# launches of the kernel, in all and by the mode the C side reports, and
+# their rays by mode
 intersect_prims_c.launches = 0
 intersect_prims_c.by_mode = collections.Counter()
+intersect_prims_c.rays_by_mode = collections.Counter()
 intersect_prims_c.last_mode = None

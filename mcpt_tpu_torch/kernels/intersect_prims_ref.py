@@ -68,13 +68,21 @@ def _no_hit(b, dev):
     return t, prim, torch.zeros_like(t), torch.zeros_like(t)
 
 
-def intersect_prims_ref(tri, sph, sph_base, oc, dc, occlusion=False):
+def fan_origins(oc, fan):
+    """The fan form's origins expanded to one a ray: ray k·B + i of a fan
+    of `fan` rays from each of B origins starts at origin i."""
+    return tuple(x.repeat(fan) for x in oc)
+
+
+def intersect_prims_ref(tri, sph, sph_base, oc, dc, occlusion=False, fan=None):
     """Nearest hit of the rays (oc, dc) (3-tuples of (B,) float32) against
     the triangle rows `tri` (T, 16) in tri_sc's layout and the spheres `sph`
     (S, 4), S = 0 for triangles only. Returns (t, prim, u, v): t float32
     (T_MAX on a miss), prim int32 (-1 on a miss, `sph_base + s` for sphere
     s), u and v (0 unless a triangle wins); occlusion=True returns t and
-    three Nones."""
+    three Nones. With `fan`, `oc` holds one origin per fan (`fan_origins`)."""
+    if fan:
+        oc = fan_origins(oc, fan)
     b = oc[0].shape[0]
     t_best, prim, u_best, v_best = _no_hit(b, oc[0].device)
     step = max(8, CHUNK_PAIRS // max(b, 1))

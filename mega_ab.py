@@ -27,18 +27,30 @@ reverse order), `--rounds` times:
   which takes conf.json's 32 light samples, at spp 4;
 - `mega_lockstep<4, false>`: the 384x384 DEMO at spp 256 (and spp 2);
 - `mega_lockstep<4, true>`: the x4 Cornell box at 384x384, spp 16.
-and one wavefront shape, `wavefront DEMO + soldier`, for which each tree
-runs in a process of its own (`python -P mega_ab.py --wavefront-turn`,
-with the tree's root first on the import path: the wavefront's modules
-import each other by package name, so a tree cannot be loaded beside
-another): the intersector as the wavefront calls it (`intersect_c` and
-`occlude_t_c`, method kernel, on the pack as `render_radiance` moves it) at
-`chip_smoke.py` phase (e)'s 786,432 NEE rays of the DEMO plus one stand-in
-soldier (CUDA events: the median of 9 means of 40 launches), then that
-scene's wavefront render at 384x384, spp 8, mb 8, in one tile (the host's
-wall time, after a warm-up render at spp 1), and, on a tree's first turn,
-the spp 1 render under `chip_smoke.device_profile` (device busy time and
-idle share, printed).
+and two wavefront shapes, for which each tree runs in a process of its own
+(`python -P mega_ab.py --wavefront-turn`, with the tree's root first on the
+import path: the wavefront's modules import each other by package name, so
+a tree cannot be loaded beside another):
+- `wavefront DEMO`: the intersector's sweep (K2) as the wavefront calls it
+  (`intersect_c` and `occlude_t_c`, method kernel) at `chip_smoke.py` phase
+  (d)'s 786,432 NEE rays of the DEMO, then the render's own shadow batch
+  (B = 196,608 first hits with 4 directions each, phase (d)'s fan batch)
+  in the fan form (`occlude_t_c(..., fan=4)`; a tree without it takes the
+  origins expanded) and in the generic form on the origins expanded, then
+  the DEMO's wavefront render at 384x384, spp 8, mb 8, in one tile;
+- `wavefront DEMO + soldier`: the intersector (the walk) at phase
+  (e)'s 786,432 NEE rays of the DEMO plus one stand-in soldier, on the pack
+  as `render_radiance` moves it, then that scene's render at 384x384, spp
+  8, mb 8, in one tile.
+Each intersector call is timed with CUDA events (the median of 9 means of
+40 launches, queued behind a spin of the device: `queued_ms`), each render by the host's wall clock after a warm-up render
+at spp 1; on a tree's first turn the spp 1 render runs under
+`chip_smoke.device_profile` (device busy time, idle share and ms a launch
+by kernel instance, printed). With `--sass DIR` each tree's first turn also
+disassembles its intersector library with the toolkit's `cuobjdump -sass`,
+writes it to DIR/<tree>.sass, and counts the instructions of each sweep
+kernel's row loop per (ray, row) pair (`sweep_sass`), with the time that
+count takes at the card's issue rate.
 `--shapes A,B` keeps only those shapes. Every tree's output planes, and its
 intersector answers and wavefront image, must equal the parent's bitwise on
 every lane, or the script fails. It prints one JSON object as its last line,
@@ -51,6 +63,7 @@ import argparse
 import concurrent.futures
 import ctypes
 import dataclasses
+import hashlib
 import importlib
 import inspect
 import json
@@ -77,7 +90,7 @@ ROOT = Path(__file__).resolve().parent
 AB_DIR = kbuild.BUILD_DIR / "ab"
 SOURCES = {True: ("megakernel.cu", "mcpt_mega_trace"),
            False: ("mega_lockstep.cu", "mcpt_mega_lockstep")}
-WAVEFRONT = "wavefront DEMO + soldier"
+WAVEFRONT = ("wavefront DEMO", "wavefront DEMO + soldier")
 
 
 KERNEL_MODULES = ("tables", "megakernel", "megakernel_ref")
@@ -237,8 +250,86 @@ def run_shape(lib, tables, sh):
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
-def wavefront_turn(out, profile):
-    """One turn of the wavefront shape in this process, on the tree first on
+def sweep_sass(lib, dump=None):
+    """The intersector library `lib` in the toolkit's `cuobjdump -sass`
+    (written to `dump` if given). Returns {"loops": {sweep kernel: [{
+    instructions, pairs, per_pair, lds}, ...]}, "walk": {walk kernel: sha1
+    of its instructions}}. The loops are each sweep kernel's innermost loops
+    (a backward branch and what it closes) that hold a triangle test: a
+    (ray, row) pair divides once (`op2 * w12 / det_g`: one FCHK, the IEEE
+    division's check) and takes no sqrt, so a loop's pairs an iteration are
+    its FCHKs; per_pair counts every instruction of its body statically, the
+    call of the division's slow path included."""
+    tools = Path(kbuild.nvcc()).parent
+    sass = subprocess.run([str(tools / "cuobjdump"), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    if dump:
+        Path(dump).parent.mkdir(parents=True, exist_ok=True)
+        Path(dump).write_text(sass)
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            name = funcs.setdefault(m[1], [])
+        elif name is not None and (m := re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)):
+            name.append((int(m[1], 16), m[2].strip()))
+    out = {"loops": {}, "walk": {}}
+    for mangled, ins in funcs.items():
+        pretty = subprocess.run(["c++filt", mangled], capture_output=True, text=True).stdout
+        kernel = pretty.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+        if kernel.startswith("intersect_walk<"):
+            text = "\n".join(t for _, t in ins)
+            out["walk"][kernel] = hashlib.sha1(text.encode()).hexdigest()
+            continue
+        loops = []
+        for addr, text in ins:
+            m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+            if m and int(m[1], 16) < addr:
+                loops.append((int(m[1], 16), addr))
+        rows = []
+        for lo, hi in loops:
+            if any(o != (lo, hi) and lo <= o[0] and o[1] <= hi for o in loops):
+                continue  # not innermost
+            ops = [next(w for w in t.split() if not w.startswith("@")) for a, t in ins
+                   if lo <= a <= hi]
+            fchk = sum(op.startswith("FCHK") for op in ops)
+            if fchk and not any(op.startswith(("MUFU.RSQ", "MUFU.SQRT")) for op in ops):
+                rows.append({"instructions": len(ops), "pairs": fchk,
+                             "per_pair": len(ops) / fchk,
+                             "lds": sum(op.startswith("LDS") for op in ops)})
+        if rows:
+            out["loops"][kernel] = rows
+    return out
+
+
+def queued_ms(fn, reps):
+    """Device ms of fn(), the mean of `reps` runs queued behind a spin of
+    the device that outlasts their issue from the host (`chip_smoke.cuda_ms`'s
+    method; a turn imports its own tree's chip_smoke, which may time
+    otherwise)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000 * reps)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def issue_ms(instructions):
+    """The least time the card issues `instructions` thread instructions in:
+    each SM issues one warp instruction a clock from each of its 4
+    schedulers, at the SM clock's maximum (`nvidia-smi clocks.max.sm`)."""
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                               check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return instructions / (sms * 4 * 32 * mhz * 1e6) * 1e3, sms, mhz
+
+
+def wavefront_turn(out, shape, profile, sass=None):
+    """One turn of a wavefront shape in this process, on the tree first on
     the import path: writes its answers and image to `out`.npz and its
     numbers to `out`.json."""
     import collections
@@ -250,25 +341,44 @@ def wavefront_turn(out, profile):
     from mcpt_tpu_torch.render import render_radiance
     from mcpt_tpu_torch.scene import pack_to
 
-    with tempfile.TemporaryDirectory() as d:
-        soldier = chip_smoke.soldier_demo(d)
-    # as render_radiance moves the scene on the card (a tree's walk tables
-    # where the tree's pack_to takes them)
-    walk = {"walk": True} if "walk" in inspect.signature(pack_to).parameters else {}
-    pack = pack_to(soldier.compile(), "cuda", **walk)
     cam = dataclasses.replace(demo_scene().camera, width=1920, height=1080)
-    oc, dc = chip_smoke.nee_batch(pack, cam, seed=1)
+    if shape == "wavefront DEMO":
+        scene = demo_scene()
+        pack = pack_to(scene.compile(), "cuda")
+        oc, dc = chip_smoke.nee_batch(pack, cam)
+        # the fan batch: B first hits, 4 directions each, ray k·B + i from hit i
+        fo, fd = chip_smoke.nee_batch(pack, cam, seed=2, shadow=4)
+        b = 3 * chip_smoke.TILE_PX
+        p, ws = tuple(x[b:2 * b] for x in fo), tuple(x[b:] for x in fd)
+        px = tuple(x.repeat(4) for x in p)
+        if "fan" in inspect.signature(occlude_t_c).parameters:
+            fan = lambda: (occlude_t_c(pack, p, ws, method="kernel", fan=4),)
+        else:  # a tree without the fan form
+            fan = lambda: (occlude_t_c(pack, px, ws, method="kernel"),)
+        calls = (("nearest", lambda: intersect_c(pack, oc, dc, method="kernel")),
+                 ("occlusion", lambda: (occlude_t_c(pack, oc, dc, method="kernel"),)),
+                 ("fan", fan),
+                 ("fan expanded", lambda: (occlude_t_c(pack, px, ws, method="kernel"),)))
+    else:
+        with tempfile.TemporaryDirectory() as d:
+            scene = chip_smoke.soldier_demo(d)
+        # as render_radiance moves the scene on the card (a tree's walk tables
+        # where the tree's pack_to takes them)
+        walk = {"walk": True} if "walk" in inspect.signature(pack_to).parameters else {}
+        pack = pack_to(scene.compile(), "cuda", **walk)
+        oc, dc = chip_smoke.nee_batch(pack, cam, seed=1)
+        calls = (("nearest", lambda: intersect_c(pack, oc, dc, method="kernel")),
+                 ("occlusion", lambda: (occlude_t_c(pack, oc, dc, method="kernel"),)))
     res, answers = {"modes": {}}, {}
-    for name, fn in (("nearest", lambda: intersect_c(pack, oc, dc, method="kernel")),
-                     ("occlusion", lambda: (occlude_t_c(pack, oc, dc, method="kernel"),))):
+    for name, fn in calls:
         got = fn()
         torch.cuda.synchronize()
         res["modes"][name] = ip.intersect_prims_c.last_mode
-        res[f"{name}_ms"] = sorted(chip_smoke.cuda_ms(fn, 40) for _ in range(9))[4]
+        res[f"{name}_ms"] = sorted(queued_ms(fn, 40) for _ in range(9))[4]
         answers.update({f"{name}_{k}": x.cpu().numpy() for k, x in zip("tpuv", got)})
 
     def render(spp, seed):
-        return render_radiance(soldier, soldier.camera, spp, seed, max_bounces=8,
+        return render_radiance(scene, scene.camera, spp, seed, max_bounces=8,
                                tile_pixels=384 * 384, device="cuda")
 
     render(1, 1)  # warm-up
@@ -281,65 +391,105 @@ def wavefront_turn(out, profile):
     res["render_launches"] = dict(ip.intersect_prims_c.by_mode)
     res["rays"] = int(stats["rays"])
     if profile:
-        chip_smoke.device_profile("DEMO + soldier 384x384 spp 1 mb 8", lambda: render(1, 5),
+        chip_smoke.device_profile(f"{shape} 384x384 spp 1 mb 8", lambda: render(1, 5),
                                   kernel="intersect_")
+    if sass:
+        res["sass"] = sweep_sass(ip.build(), sass)
+        # each timed sweep's row loop at the card's issue rate: the loop of
+        # most pairs an iteration of the instance that ran its mode
+        res["issue_ms"] = {}
+        low = lambda x: str(x).lower()
+        new = any(k.startswith("intersect_sweep<") for k in res["sass"]["loops"])
+        for name, _ in calls:
+            mode = res["modes"][name]
+            if mode.endswith("walk"):
+                continue
+            occ, fan = mode.startswith("occlusion"), " fan" in mode
+            key = f"intersect_sweep<{low(occ)}, {low(fan)}" if new else \
+                f"intersect_prims<{low(occ)}>"
+            loops = [lp for k, v in res["sass"]["loops"].items() if k.startswith(key) for lp in v]
+            if loops:
+                per_pair = max(loops, key=lambda lp: lp["pairs"])["per_pair"]
+                pairs = answers[f"{name}_t"].size * pack.tri_sc.shape[0]
+                res["issue_ms"][name] = issue_ms(pairs * per_pair)[0]
     np.savez(f"{out}.npz", **answers)
     Path(f"{out}.json").write_text(json.dumps(res))
 
 
-def wavefront_ab(roots, rounds, result):
-    """The wavefront shape: each tree's turns, each in a process of its own
+def wavefront_ab(roots, shapes, rounds, result, sass=None):
+    """The wavefront shapes: each tree's turns, each in a process of its own
     from the tree's root, the trees in turns; every tree's answers and image
     bitwise equal to the parent's (the first turn's)."""
     import numpy as np
 
     trees = tuple(roots)
-    ref = None
     with tempfile.TemporaryDirectory() as work:
-        for r in range(max(rounds, 1)):
-            for t in (trees if r % 2 == 0 else trees[::-1]):
-                out = Path(work) / f"{t}_{r}"
-                turns = result["trees"][t].setdefault("wavefront", [])
-                cmd = [sys.executable, "-P", str(Path(__file__).resolve()), "--wavefront-turn",
-                       str(out)] + ([] if turns else ["--profile"])
-                env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-                    [str(roots[t].resolve())] + [x for x in [os.environ.get("PYTHONPATH")] if x])}
-                t0 = time.monotonic()
-                proc = subprocess.run(cmd, cwd=roots[t], env=env, capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"{t}: wavefront turn failed\n{proc.stdout[-3000:]}\n"
-                                       f"{proc.stderr[-6000:]}")
-                for line in proc.stdout.splitlines():
-                    if line.startswith("[profile]"):
-                        print(f"[ab] {t}: {line}", flush=True)
-                res = json.loads(Path(f"{out}.json").read_text())
-                turns.append(res)
-                got = dict(np.load(f"{out}.npz"))
-                ref = ref or got
-                for key, want in ref.items():
-                    if not np.array_equal(got[key], want):
-                        raise AssertionError(f"{t} {WAVEFRONT}: {key} differs from the parent's "
-                                             f"on {(got[key] != want).sum()} entries")
-                print(f"[ab] {t} {WAVEFRONT} turn {r + 1}: nearest {res['nearest_ms']:.4f} ms "
-                      f"[{res['modes']['nearest']}], occlusion {res['occlusion_ms']:.4f} ms "
-                      f"[{res['modes']['occlusion']}], render spp 8 wall "
-                      f"{res['render_wall_s']:.3f} s, launches {res['render_launches']}; "
-                      f"{time.monotonic() - t0:.1f} s; bitwise equal to the parent's", flush=True)
-    if rounds:
-        for t in trees:
-            turns = result["trees"][t]["wavefront"]
-            med = {k: sorted(x[k] for x in turns)[len(turns) // 2]
-                   for k in ("nearest_ms", "occlusion_ms", "render_wall_s")}
-            result["trees"][t]["median_ms"].update(
-                {f"{WAVEFRONT} (e) nearest": med["nearest_ms"],
-                 f"{WAVEFRONT} (e) occlusion": med["occlusion_ms"],
-                 f"{WAVEFRONT} render spp 8 wall (s)": med["render_wall_s"]})
+        for shape in shapes:
+            ref = None
+            for r in range(max(rounds, 1)):
+                for t in (trees if r % 2 == 0 else trees[::-1]):
+                    out = Path(work) / f"{t}_{r}"
+                    turns = result["trees"][t].setdefault("wavefront", {}).setdefault(shape, [])
+                    first = not turns
+                    cmd = [sys.executable, "-P", str(Path(__file__).resolve()),
+                           "--wavefront-turn", str(out), shape] + (["--profile"] if first else [])
+                    if first and sass:
+                        cmd += ["--sass", str(Path(sass).resolve() / f"{t}.sass")]
+                    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+                        [str(roots[t].resolve())]
+                        + [x for x in [os.environ.get("PYTHONPATH")] if x])}
+                    t0 = time.monotonic()
+                    proc = subprocess.run(cmd, cwd=roots[t], env=env, capture_output=True,
+                                          text=True)
+                    if proc.returncode != 0:
+                        raise RuntimeError(f"{t}: {shape} turn failed\n{proc.stdout[-3000:]}\n"
+                                           f"{proc.stderr[-6000:]}")
+                    for line in proc.stdout.splitlines():
+                        if line.startswith("[profile]"):
+                            print(f"[ab] {t}: {line}", flush=True)
+                    res = json.loads(Path(f"{out}.json").read_text())
+                    turns.append(res)
+                    got = dict(np.load(f"{out}.npz"))
+                    ref = ref or got
+                    for key, want in ref.items():
+                        if not np.array_equal(got[key], want):
+                            raise AssertionError(f"{t} {shape}: {key} differs from the parent's "
+                                                 f"on {(got[key] != want).sum()} entries")
+                    timed = ", ".join(f"{k} {res[f'{k}_ms']:.4f} ms [{m}]"
+                                      for k, m in res["modes"].items())
+                    print(f"[ab] {t} {shape} turn {r + 1}: {timed}, render spp 8 wall "
+                          f"{res['render_wall_s']:.3f} s, launches {res['render_launches']}; "
+                          f"{time.monotonic() - t0:.1f} s; bitwise equal to the parent's",
+                          flush=True)
+                    if res.get("issue_ms"):
+                        print(f"[ab] {t} {shape}: the row loops at the card's issue rate "
+                              + ", ".join(f"{k} {v:.4f} ms" for k, v in res["issue_ms"].items()),
+                              flush=True)
+                    if "sass" in res:
+                        walk = result["trees"][t]["walk_sass"] = res["sass"]["walk"]
+                        same = walk == result["trees"][trees[0]].get("walk_sass")
+                        print(f"[ab] {t} sass: the walk kernels' instructions "
+                              f"{'equal' if same else 'differ from'} {trees[0]}'s", flush=True)
+                    for kernel, loops in res.get("sass", {}).get("loops", {}).items():
+                        for lp in loops:
+                            print(f"[ab] {t} sass {kernel}: row loop of {lp['instructions']} "
+                                  f"instructions, {lp['pairs']} pairs, {lp['lds']} shared "
+                                  f"loads: {lp['per_pair']:.2f} instructions a pair", flush=True)
+            if rounds:
+                for t in trees:
+                    turns = result["trees"][t]["wavefront"][shape]
+                    for k in [*turns[0]["modes"], "render_wall"]:
+                        key = "render_wall_s" if k == "render_wall" else f"{k}_ms"
+                        label = "render spp 8 wall (s)" if k == "render_wall" else k
+                        result["trees"][t]["median_ms"][f"{shape} {label}"] = sorted(
+                            x[key] for x in turns)[len(turns) // 2]
 
 
 def main():
     if "--wavefront-turn" in sys.argv:
         i = sys.argv.index("--wavefront-turn")
-        return wavefront_turn(sys.argv[i + 1], "--profile" in sys.argv)
+        sass = sys.argv[sys.argv.index("--sass") + 1] if "--sass" in sys.argv else None
+        return wavefront_turn(sys.argv[i + 1], sys.argv[i + 2], "--profile" in sys.argv, sass)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, help="a tree holding mcpt_tpu_torch/")
     ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
@@ -347,25 +497,29 @@ def main():
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--shapes", help="comma-separated shape labels to keep (default: all)")
     ap.add_argument("--out", help="also write the JSON object to this file")
+    ap.add_argument("--sass", metavar="DIR",
+                    help="disassemble each tree's intersector into DIR and count its sweep's "
+                         "instructions a pair")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("mega_ab.py needs a CUDA GPU")
     roots = {"parent": Path(args.parent), "new": ROOT,
              **dict((n, Path(d)) for n, d in (t.split("=", 1) for t in args.tree))}
     keep = args.shapes.split(",") if args.shapes else None
-    cases = shapes() if keep != [WAVEFRONT] else {}
+    cases = shapes() if keep is None or set(keep) - set(WAVEFRONT) else {}
     if keep:
-        unknown = set(keep) - set(cases) - {WAVEFRONT}
+        unknown = set(keep) - set(cases) - set(WAVEFRONT)
         if unknown:
             raise SystemExit(f"unknown shapes {sorted(unknown)}; known: "
-                             f"{sorted(cases) + [WAVEFRONT]}")
+                             f"{sorted(cases) + list(WAVEFRONT)}")
         cases = {k: v for k, v in cases.items() if k in keep}
     result = {"card": card(), "trees": {t: {"root": str(r), "median_ms": {}}
                                         for t, r in roots.items()}}
     if cases:
         megakernel_ab(roots, cases, args.rounds, result)
-    if keep is None or WAVEFRONT in keep:
-        wavefront_ab(roots, args.rounds, result)
+    waves = [w for w in WAVEFRONT if keep is None or w in keep]
+    if waves:
+        wavefront_ab(roots, waves, args.rounds, result, args.sass)
     for t, rec in result["trees"].items():
         print(f"[ab] {t}: medians " +
               ", ".join(f"{k} {m:.4f}" for k, m in rec["median_ms"].items()), flush=True)

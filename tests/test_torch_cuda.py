@@ -12,9 +12,11 @@ chip_smoke.py: per-lane ray counts equal on at least
 98% of lanes (on every lane for the env, BVH and lockstep instances), radiance off by
 more than 1e-3 on under 2% of lanes (ULP-level nearest-hit flips), means
 within 5e-3. The wavefront intersector (`csrc/intersect_prims.cu`) is held
-bitwise to its plain version in every mode, its walk modes also to the
-tiled sweep, and wavefront renders through it (with and without a BVH)
-bitwise to the same renders through the plain version. Renders strided
+bitwise to its plain version in every mode (the sweep at ray counts around
+its blocks, the occlusion fan form at 1, 4 and 33 directions an origin, ties
+to the lower row), its walk modes also to the tiled sweep, and wavefront
+renders through it (with and without a BVH) bitwise to the same renders
+through the plain version. Renders strided
 over one card listed three times equal the single render bitwise.
 """
 
@@ -233,6 +235,102 @@ def test_intersect_tris_rows_bitwise():
         assert torch.equal(g, w)
 
 
+# the sweep's scenes: the DEMO (one shared-memory tile) and the soup (more
+# than 1024 rows, tiled), each with its origin box and the box rays aim into
+SWEEP_SCENES = {
+    "demo": (demo_scene, (1.0, 1.0, 1.0), (555.0, 547.0, 558.0),
+             ((0.0, 0.0, 0.0), (555.0, 548.0, 559.0))),
+    "soup": (_soup_scene, -3.0, 3.0, ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))),
+}
+
+
+def _sweep_case(scene, n, seed, fan=None):
+    """(tri, sph, sph_base, oc, dc) on the card: the scene's table and n
+    rays, or with `fan` n origins and fan·n directions, direction k·n + i
+    from origin i aimed into the scene."""
+    make, lo, hi, aim = SWEEP_SCENES[scene]
+    pack = make().compile()
+    oc, dc = _cuda_rays(n, lo, hi, aim, seed)
+    if fan:
+        o = torch.stack(oc, 1).cpu().numpy().astype(np.float64)
+        d = np.random.default_rng(seed).uniform(*aim, (fan * n, 3)) - np.tile(o, (fan, 1))
+        d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+        dc = tuple(torch.from_numpy(np.ascontiguousarray(d[:, k])).cuda() for k in range(3))
+    return (torch.from_numpy(pack.tri_sc).cuda(), torch.from_numpy(pack.sph_geom).cuda(),
+            pack.t_pad, oc, dc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["demo", "soup"])
+@pytest.mark.parametrize("mode", ["nearest", "occlusion", "tris"])
+def test_sweep_ray_counts_bitwise(cuda_card, scene, mode):
+    """The register-blocked sweep (several rays a thread, the rays past n
+    masked) in every mode and form at ray counts around its blocks: every
+    output bitwise equal (float32 as int32) to the plain version."""
+    form = " tiled" if scene == "soup" else ""
+    for n in (1, 3, 255, 257, 5001):
+        tri, sph, base, oc, dc = _sweep_case(scene, n, n)
+        if mode == "tris":
+            sph = sph[:0]
+        occ = mode == "occlusion"
+        got = IP.intersect_prims_c(tri, sph, base, oc, dc, occlusion=occ)
+        assert IP.intersect_prims_c.last_mode == mode + form
+        _bits_equal(got, intersect_prims_ref(tri, sph, base, oc, dc, occlusion=occ))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["demo", "soup"])
+@pytest.mark.parametrize("s", [1, 4, 33])
+def test_sweep_fan_bitwise(cuda_card, scene, s):
+    """The occlusion sweep's fan form (one origin a thread, its s directions
+    a few at a time): bitwise equal to the plain version and to the generic
+    occlusion mode on the origins expanded, at origin counts around its
+    blocks."""
+    form = " tiled" if scene == "soup" else ""
+    for b in (1, 255, 1000):
+        tri, sph, base, oc, dc = _sweep_case(scene, b, b, fan=s)
+        got = IP.intersect_prims_c(tri, sph, base, oc, dc, occlusion=True, fan=s)
+        assert IP.intersect_prims_c.last_mode == "occlusion fan" + form
+        ox = tuple(x.repeat(s) for x in oc)
+        generic = IP.intersect_prims_c(tri, sph, base, ox, dc, occlusion=True)
+        assert IP.intersect_prims_c.last_mode == "occlusion" + form
+        want = intersect_prims_ref(tri, sph, base, oc, dc, occlusion=True, fan=s)
+        assert b == 1 or (want[0] < 1e30).float().mean().item() > 0.3
+        _bits_equal(got, generic, want)
+
+
+@pytest.mark.gpu
+def test_sweep_ties_go_to_the_lower_row(cuda_card):
+    """Equal t from two rows go to the lower row in every sweep mode, bit
+    for bit as the plain version: rays from the vertex where two triangles
+    meet in different planes (t = +0 from one, -0 from the other), through
+    the sweep and the fan form (one origin, 64 directions), and rays aimed
+    at edges the DEMO's triangles share."""
+    from test_torch_bvh_walk import _edge_rays, fold_case
+
+    pack, _, oc, dc, tie = fold_case()
+    assert tie.sum().item() >= 10
+    tri, sph = pack.tri_sc.cuda(), pack.sph_geom.cuda()
+    oc, dc = tuple(x.cuda() for x in oc), tuple(x.cuda() for x in dc)
+    for occ in (False, True):
+        want = intersect_prims_ref(tri, sph, pack.n_tris, oc, dc, occlusion=occ)
+        _bits_equal(IP.intersect_prims_c(tri, sph, pack.n_tris, oc, dc, occlusion=occ), want)
+    fan = IP.intersect_prims_c(tri, sph, pack.n_tris, tuple(x[:1] for x in oc), dc,
+                               occlusion=True, fan=64)
+    assert IP.intersect_prims_c.last_mode == "occlusion fan"
+    _bits_equal(fan, want)
+
+    demo = demo_scene().compile()
+    o, d = _edge_rays(demo, np.random.default_rng(8), 4000)
+    cols = lambda x: tuple(torch.from_numpy(np.ascontiguousarray(x[:, k])).cuda()
+                           for k in range(3))
+    tri, sph = torch.from_numpy(demo.tri_sc).cuda(), torch.from_numpy(demo.sph_geom).cuda()
+    for occ in (False, True):
+        got = IP.intersect_prims_c(tri, sph, demo.t_pad, cols(o), cols(d), occlusion=occ)
+        _bits_equal(got, intersect_prims_ref(tri, sph, demo.t_pad, cols(o), cols(d),
+                                             occlusion=occ))
+
+
 def _soldier_scene(tmp_path, segs_steps=None):
     """chip_smoke.py's DEMO plus one stand-in soldier (2,560 triangles), or
     a smaller one of (segments, steps)."""
@@ -357,8 +455,8 @@ def test_wavefront_render_walks_a_tree(cuda_card, tmp_path, monkeypatch):
     modes = dict(IP.intersect_prims_c.by_mode)
     assert set(modes) == {"nearest walk", "occlusion walk"}, modes
     assert img.shape == (H, W, 3) and np.isfinite(img).all() and img.mean() > 0
-    monkeypatch.setattr(IP, "_launch", lambda tri, sph, base, oc, dc, occ, walk=None:
-                        intersect_prims_ref(tri, sph, base, oc, dc, occlusion=occ))
+    monkeypatch.setattr(IP, "_launch", lambda tri, sph, base, oc, dc, occ, walk=None, fan=0:
+                        intersect_prims_ref(tri, sph, base, oc, dc, occlusion=occ, fan=fan))
     img2, stats2 = render_radiance(host, cam, 4, 3, **kw)
     assert stats["rays"] == stats2["rays"]
     np.testing.assert_array_equal(img, img2)
@@ -366,9 +464,9 @@ def test_wavefront_render_walks_a_tree(cuda_card, tmp_path, monkeypatch):
 
 @pytest.mark.gpu
 def test_wavefront_render_goes_through_the_kernel(monkeypatch):
-    """render_radiance on the card launches the kernel in nearest and
-    occlusion modes, and its image equals, bitwise, the same render with
-    the plain version in the kernel's place."""
+    """render_radiance on the card launches the kernel in its nearest mode
+    and the occlusion fan form, and its image equals, bitwise, the same
+    render with the plain version in the kernel's place."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     sc = demo_scene()
@@ -377,10 +475,10 @@ def test_wavefront_render_goes_through_the_kernel(monkeypatch):
     IP.intersect_prims_c.by_mode.clear()
     img, stats = render_radiance(sc, cam, 4, 3, **kw)
     assert IP.intersect_prims_c.by_mode["nearest"] > 0
-    assert IP.intersect_prims_c.by_mode["occlusion"] > 0
+    assert IP.intersect_prims_c.by_mode["occlusion fan"] > 0
     assert img.shape == (H, W, 3) and np.isfinite(img).all() and img.mean() > 0
-    monkeypatch.setattr(IP, "_launch", lambda tri, sph, base, oc, dc, occ, walk=None:
-                        intersect_prims_ref(tri, sph, base, oc, dc, occlusion=occ))
+    monkeypatch.setattr(IP, "_launch", lambda tri, sph, base, oc, dc, occ, walk=None, fan=0:
+                        intersect_prims_ref(tri, sph, base, oc, dc, occlusion=occ, fan=fan))
     img2, stats2 = render_radiance(sc, cam, 4, 3, **kw)
     assert stats["rays"] == stats2["rays"]
     np.testing.assert_array_equal(img, img2)
