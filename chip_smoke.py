@@ -139,7 +139,24 @@ raises, so the script exits nonzero and prints no result line.
    mcpt_tpu_torch --conf conf.json --no-strict-parity` with
    directLightSample 40 on the stand-in meshes at 384x216, spp 1, which must
    launch `mega_regen<-32, true, true>`
-16. the registers, local bytes and resident blocks per SM of each megakernel
+16. (k) the training path (`diff.py`): `make_train_step` (method auto, so
+   K2's sweep and its occlusion fan form; Adam, whose every gradient is
+   checked for NaN) on the native 384x384 DEMO (442,368 lanes), spp 2, mb
+   4, three steps toward half the megakernel's image, which must launch K2
+   in the modes `nearest` and `occlusion fan` and move the parameters: fwd
+   ms/spp (`render_lanes` under torch.no_grad, and recording the graph),
+   fwd+bwd ms/spp, bwd/fwd, peak memory (`torch.cuda.max_memory_allocated`),
+   one step under torch.profiler (idle share, K2's device ms); (k2) the
+   step's loss and gradients at 64x48 on the card and on the CPU (the plain
+   versions), with tests/test_torch_diff.py's bounds against JAX; (k3) the
+   step over the first 349,526 pixels of the 1920x1080 DEMO (1,048,578
+   lanes): ms/spp and peak memory; (k4) `make_train_step_hybrid` at 384x384,
+   spp_res 64, spp_grad 2, mb 4, which must launch K1 and K2: its wall split
+   between K1's render and the pull-back; (k5) `entry.dryrun_multichip(4)`
+   (["cuda:0"] x 4 on a host with fewer cards); (k6) a 384x384
+   `render_radiance(trace_dir=...)` writes a torch.profiler Chrome trace
+   holding the intersector's kernels
+17. the registers, local bytes and resident blocks per SM of each megakernel
    instance in the kernel table, the card, the kernel table as JSON (each row's launches are those of
    its kernel in its own main-path run: the DEMO 384x384 render, the
    sky-lit DEMO render of (a), the --conf render, the wavefront renders of
@@ -161,13 +178,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mcpt_tpu_torch import prng
+from mcpt_tpu_torch import diff, prng
 from mcpt_tpu_torch.bench import BASELINE_RAYS_PER_S, card
 from mcpt_tpu_torch.builtin_scenes import CORNELL_FLOOR, CORNELL_LEFT, CORNELL_LIGHT
 from mcpt_tpu_torch.builtin_scenes import CORNELL_RIGHT, CORNELL_SHORTBOX, CORNELL_TALLBOX
 from mcpt_tpu_torch.builtin_scenes import _mesh, demo_scene
 from mcpt_tpu_torch.camera import Camera, generate_rays_c
 from mcpt_tpu_torch.config import build_scene, load_config
+from mcpt_tpu_torch.entry import dryrun_multichip
 from mcpt_tpu_torch.constants import EPSILON, REL_EPS, T_MAX
 from mcpt_tpu_torch.film import tonemap
 from mcpt_tpu_torch.intersect import intersect_dense, surface_at_c
@@ -188,8 +206,10 @@ from mcpt_tpu_torch.kernels.megakernel_ref import (
 from mcpt_tpu_torch.kernels.tables import SceneTables, bvh_depth
 from mcpt_tpu_torch.lights import sample_light_c
 from mcpt_tpu_torch.materials import make_light_material, standard_materials
+from mcpt_tpu_torch.parallel import replicate_pack
 from mcpt_tpu_torch.render import render_mega, render_mega_sharded, render_radiance
 from mcpt_tpu_torch.scene import Scene, Sphere, TriangleMesh, pack_to
+from mcpt_tpu_torch.utils.profiling import TRACE_FILE
 
 ROOT = Path(__file__).resolve().parent
 REFERENCE = ROOT / "tests" / "data" / "reference_fresh_demo_spp512.png"
@@ -220,6 +240,10 @@ WALK_SUBSET = 12
 # (d), (e): the shadow rays a vertex of the fan batch (the DEMO's
 # n_dir_sample)
 FAN = 4
+# (k): the train step's samples per pixel and bounces, and the pixels of
+# its >= 1M-lane cell (3 lanes each: 1,048,578 lanes)
+TRAIN_SPP, TRAIN_MB = 2, 4
+MILLION_PIXELS = 349_526
 
 # Stand-ins for the reference's chess meshes, which are not in the repo:
 # closed surfaces of revolution of 2*S*(R-1) triangles (S segments around,
@@ -1166,6 +1190,193 @@ def any_light_count():
                f"{time.monotonic() - t0:.1f} s")
 
 
+class CheckedAdam(torch.optim.Adam):
+    """Adam (lr 1e-2, the train step's default) that first checks every
+    gradient it is handed for NaN and infinities and keeps the last ones."""
+
+    def step(self, closure=None):
+        self.seen = [p.grad.detach().clone() for g in self.param_groups for p in g["params"]]
+        check(all(bool(torch.isfinite(g).all()) for g in self.seen),
+              f"a non-finite gradient: {self.seen}")
+        return super().step(closure)
+
+
+def synced_s(fn):
+    """Host seconds of fn() up to a device synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    return time.monotonic() - t0
+
+
+def train_cell(label, host, cam, ids, spp, mb, steps, profile=False):
+    """make_train_step of `host` at `cam` over the pixel ids `ids` (spp, mb,
+    method auto, Adam checking its gradients), toward half the megakernel's
+    image: `steps` steps, the last `steps - 1` timed, then one forward
+    render under torch.no_grad and one with autograd recording; with
+    `profile`, one more step under torch.profiler."""
+    n_pix = cam.width * cam.height
+    img, _ = render_mega(host, cam, 16, seed=9, max_bounces=mb, device=DEV)
+    target = 0.5 * img.reshape(n_pix, 3)
+    init_fn, step = diff.make_train_step(host, cam, target, CheckedAdam, spp=spp,
+                                         max_bounces=mb, method="auto", device=DEV)
+    params, opt = init_fn()
+    start = [p.detach().clone() for p in params]
+    ids = ids.to(DEV)
+    losses, walls = [], []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for k in range(steps):
+        walls.append(synced_s(lambda: losses.append(float(step(
+            params, opt, ids, prng.key(k, DEV))[2]))))
+    by_mode = dict(ip.intersect_prims_c.by_mode)
+    rays = dict(ip.intersect_prims_c.rays_by_mode)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(by_mode.get("nearest", 0) > 0 and by_mode.get("occlusion fan", 0) > 0,
+          f"{label}: the train step launched {by_mode}")
+    check(all(np.isfinite(losses)), f"{label}: losses {losses}")
+    check(any(bool((a.detach() != b).any()) for a, b in zip(params, start)),
+          f"{label}: no parameter moved")
+    gnorm = [float(g.abs().max()) for g in opt.seen]
+    (pack, meth), = replicate_pack(host, [DEV]).values()
+    p = diff.SceneParams(*(x.detach() for x in params))
+    with torch.no_grad():
+        fwd = synced_s(lambda: diff.render_lanes(diff.apply_params(pack, p), cam, ids,
+                                                 prng.key(7, DEV), spp=spp,
+                                                 max_bounces=mb, method=meth))
+    leaves = diff.SceneParams(*(x.detach().requires_grad_() for x in params))
+    graph = synced_s(lambda: diff.render_lanes(diff.apply_params(pack, leaves), cam, ids,
+                                               prng.key(7, DEV), spp=spp, max_bounces=mb,
+                                               method=meth))
+    fb_ms = statistics.median(walls[1:]) * 1e3 / spp
+    phase("k", f"{label}: {ids.numel()} pixels ({3 * ids.numel()} lanes), spp {spp} mb {mb}, "
+               f"{steps} Adam steps: walls {[round(w, 4) for w in walls]} s, losses "
+               f"{[round(x, 6) for x in losses]}; fwd {fwd * 1e3 / spp:.1f} ms/spp "
+               f"(torch.no_grad), {graph * 1e3 / spp:.1f} ms/spp recording the graph; fwd+bwd "
+               f"{fb_ms:.1f} ms/spp (median of the steps after the first), bwd/fwd "
+               f"{(fb_ms - fwd * 1e3 / spp) / (fwd * 1e3 / spp):.3f} against torch.no_grad, "
+               f"{(fb_ms - graph * 1e3 / spp) / (graph * 1e3 / spp):.3f} against the recording "
+               f"forward; peak memory {peak:.2f} GB (torch.cuda.max_memory_allocated); the last "
+               f"gradients' largest magnitudes {[round(g, 6) for g in gnorm]}, none NaN; K2 "
+               f"launches {by_mode}, rays {rays}")
+    if profile:
+        device_profile(f"{label} one train step", lambda: step(params, opt, ids,
+                                                               prng.key(11, DEV)),
+                       kernel="intersect_")
+    del step, opt, params
+    torch.cuda.empty_cache()
+
+
+def card_vs_cpu():
+    """(k2): the train step's loss and gradients at 64x48, spp 2, mb 4 on the
+    card (K2) and on the CPU (its plain version), as tests/test_torch_diff.py
+    holds the port to JAX: radiance entries beyond 1e-5 relative (flips)
+    weigh 0 in the loss on both sides, at most 2% of the paths; gradient
+    elements within 1e-3 relative or 1e-5 of their field's largest."""
+    sc = demo_scene()
+    host = sc.compile()
+    cam = dataclasses.replace(sc.camera, width=64, height=48)
+    n = cam.width * cam.height
+    target = np.random.default_rng(3).uniform(0.0, 0.5, (n, 3)).astype(np.float32)
+    runs = {}
+    for dev, meth in ((DEV, "auto"), ("cpu", "kernel")):
+        pack, meth = replicate_pack(host, [dev], meth)[torch.device(dev)]
+        runs[dev] = (pack, meth)
+
+    def grads(dev, weight):
+        pack, meth = runs[dev]
+        p = diff.SceneParams(*(x.requires_grad_() for x in diff.params_from_pack(host, dev)))
+        fb = diff.render_lanes(diff.apply_params(pack, p), cam, torch.arange(n, device=dev),
+                               prng.key(3, dev), spp=2, max_bounces=4, method=meth)
+        w = torch.from_numpy(weight).to(dev)
+        loss = torch.mean(w * (fb - torch.from_numpy(target).to(dev)) ** 2)
+        g = torch.autograd.grad(loss, list(p))
+        return float(loss), fb.detach().cpu().numpy(), [x.cpu().numpy() for x in g]
+
+    reset_counts()
+    ones = np.ones_like(target)
+    _, fb_gpu, _ = grads(DEV, ones)
+    check(ip.intersect_prims_c.by_mode.get("occlusion fan", 0) > 0, "(k2) no K2 launch")
+    _, fb_cpu, _ = grads("cpu", ones)
+    rel = np.abs(fb_gpu - fb_cpu) / np.maximum(np.abs(fb_cpu), 1e-30)
+    flipped = rel > 1e-5
+    share = float(flipped.sum()) / (flipped.size * 2)
+    check(share <= 0.02, f"(k2) {share:.4f} of the paths flipped between card and CPU")
+    weight = (~flipped).astype(np.float32)
+    (l_gpu, _, g_gpu), (l_cpu, _, g_cpu) = grads(DEV, weight), grads("cpu", weight)
+    worst_rel = worst_floor = 0.0
+    for f, a, b in zip(diff.SceneParams._fields, g_gpu, g_cpu):
+        check(np.isfinite(a).all(), f"(k2) non-finite gradient {f}")
+        top, err = np.abs(b).max(initial=0.0), np.abs(a - b)
+        check(np.all(err <= np.maximum(1e-3 * np.abs(b), 1e-5 * top)),
+              f"(k2) {f}: card {a} against CPU {b}")
+        big = np.abs(b) > 1e-6 * top
+        if big.any():
+            worst_rel = max(worst_rel, float((err[big] / np.abs(b)[big]).max()))
+            worst_floor = max(worst_floor, float(err.max() / top))
+    loss_err = abs(l_gpu - l_cpu) / l_cpu
+    check(loss_err <= 1e-5, f"(k2) loss {l_gpu} on the card against {l_cpu} on the CPU")
+    phase("k", f"(k2) card against CPU, 64x48 spp 2 mb 4: flipped entries {int(flipped.sum())} "
+               f"of {flipped.size} ({share:.4f} of the paths), radiance "
+               f"{float(rel[~flipped].max()):.3g} relative elsewhere; loss {loss_err:.3g} "
+               f"relative; gradients {worst_rel:.3g} relative, {worst_floor:.3g} of the field's "
+               f"largest (bounds 1e-3, 1e-5)")
+
+
+def training_path():
+    """(k): the training path on the card (see the module docstring)."""
+    t0 = time.monotonic()
+    sc = demo_scene()
+    host = sc.compile()
+    train_cell("(k1) DEMO 384x384", host, sc.camera,
+               torch.arange(sc.camera.width * sc.camera.height), TRAIN_SPP, TRAIN_MB, 3,
+               profile=True)
+    card_vs_cpu()
+    cam = dataclasses.replace(sc.camera, width=1920, height=1080)
+    train_cell("(k3) DEMO 1920x1080, first pixels", host, cam, torch.arange(MILLION_PIXELS),
+               TRAIN_SPP, TRAIN_MB, 2)
+
+    target, _ = render_mega(host, sc.camera, 64, seed=5, max_bounces=TRAIN_MB, device=DEV)
+    init_fn, step = diff.make_train_step_hybrid(host, sc.camera, 0.5 * target, spp_res=64,
+                                                spp_grad=TRAIN_SPP, max_bounces=TRAIN_MB,
+                                                device=DEV)
+    params, opt = init_fn()
+    step(params, opt, prng.key(0, DEV), 0)  # warm
+    step.timer.totals.clear()
+    reset_counts()
+    wall = synced_s(lambda: step(params, opt, prng.key(1, DEV), 1))
+    k1 = dict(mk.trace_block.by_instance)
+    k2 = dict(ip.intersect_prims_c.by_mode)
+    check(k1.get("mega_regen<4, false, false>", 0) > 0 and k2.get("occlusion fan", 0) > 0,
+          f"(k4) the hybrid step launched {k1} and {k2}")
+    split = {k: round(v, 4) for k, v in step.timer.totals.items()}
+    phase("k", f"(k4) hybrid step, DEMO 384x384, spp_res 64, spp_grad {TRAIN_SPP}, mb "
+               f"{TRAIN_MB}: wall {wall:.4f} s, split {split} s (render: K1 and the residual; "
+               f"vjp: the pull-back and Adam); K1 launches {k1}, K2 launches {k2}")
+    del step, opt, params
+    torch.cuda.empty_cache()
+
+    t1 = time.monotonic()
+    dryrun_multichip(4)  # on ["cuda:0"] * 4 where the host has fewer than 4 cards
+    phase("k", f"(k5) dryrun_multichip(4), {torch.cuda.device_count()} card(s): passed in "
+               f"{time.monotonic() - t1:.1f} s")
+    with tempfile.TemporaryDirectory() as d:
+        reset_counts()
+        img, st = render_radiance(sc, sc.camera, 1, 0, max_bounces=8, device=DEV, trace_dir=d)
+        trace = Path(d) / TRACE_FILE
+        check(trace.exists(), "(k6) no trace written")
+        events = json.loads(trace.read_text())["traceEvents"]
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        check(any("intersect_" in e.get("name", "") for e in kern),
+              "(k6) the trace holds no intersector kernel")
+        phase("k", f"(k6) render_radiance 384x384 spp 1 mb 8 with trace_dir: {trace.name} "
+                   f"{trace.stat().st_size / 1e6:.1f} MB, {len(events)} events, {len(kern)} "
+                   f"device kernels; render {st['elapsed_s']:.3f} s")
+    phase("k", f"{time.monotonic() - t0:.1f} s")
+
+
 def main():
     t0 = time.monotonic()
     environment()
@@ -1197,6 +1408,7 @@ def main():
     stride_equivalence(pack)
     many_samples()
     any_light_count()
+    training_path()
     phase("total", f"{time.monotonic() - t0:.1f} s")
     for name, per_launch in (("mega_regen<4, false, false>", main_per_launch),
                              ("mega_regen<4, true, false>", env_per_launch),

@@ -9,8 +9,9 @@ node stores a miss-successor, so a traversal is one index walk with no
 stack. The wavefront's `bvh` method walks it so; the megakernels walk the
 child-pair rows that `kernels/tables.py::bvh_tables` cuts from it.
 
-The JAX package also has a C++ copy of this builder; the port does without
-one, since the numpy SAH build of a 38,528-triangle scene takes seconds.
+`native/` holds the C++ copy of this builder that the JAX package has
+(`Scene.compile` takes it where g++ builds it); its SAH tree is this one,
+bit for bit.
 """
 
 from dataclasses import dataclass

@@ -5,7 +5,9 @@
 ints (`PACK_STATIC`) and returns the same `SceneTables` that the port's own
 `Scene.compile()` builds — the renderer's counterpart of loading weights;
 `pack_from_arrays` returns the port's `ScenePack` of those fields, which the
-wavefront path reads (the wavefront fields and `bvh_fat` ride along).
+wavefront path reads (the wavefront fields and `bvh_fat` ride along), and
+`params_from_arrays` the port's `diff.SceneParams` of a JAX `SceneParams`
+(the trained parameters of inverse rendering).
 The JAX pack's flat BVH (`bvh_*`, possibly from its native builder) is
 carried as it is, not rebuilt, when the JAX compile chose its clustered path
 (`n_cl_nodes > 0`); the env map is carried at full resolution. This module
@@ -17,7 +19,9 @@ does not import the JAX package; the caller converts:
 """
 
 import numpy as np
+import torch
 
+from mcpt_tpu_torch.diff import SceneParams
 from mcpt_tpu_torch.kernels.tables import SceneTables
 from mcpt_tpu_torch.scene import ScenePack
 
@@ -57,6 +61,16 @@ def pack_from_arrays(arrays: dict, static: dict) -> ScenePack:
         n_dir_sample=int(static["n_dir_sample"]),
         use_env=bool(static["use_env"]),
     )
+
+
+def params_from_arrays(arrays: dict, device=None):
+    """The port's `diff.SceneParams` of JAX's `SceneParams` fields as numpy
+    arrays (`{f: np.asarray(v) for f, v in jax_params._asdict().items()}`),
+    float32 tensors on `device`."""
+    return SceneParams(**{
+        f: torch.tensor(np.asarray(arrays[f], np.float32), device=device)
+        for f in SceneParams._fields
+    })
 
 
 def tables_from_pack(arrays: dict, static: dict, device=None) -> SceneTables:

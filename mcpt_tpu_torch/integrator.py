@@ -17,8 +17,12 @@ plane-major layout; its S·B shadow rays go to `occlude_t_c` as one batch,
 in its fan form: the B points once, ray k·B + i from point i.
 
 With `early_exit` the bounce loop is a Python loop that stops once no lane
-is alive (one host sync per bounce); records are preallocated (D, B). No
-autograd: the forward render.
+is alive (one host sync per bounce); records are preallocated (D, B).
+Autograd follows the whole pass (`diff.py`) as the detached-sampling
+estimator of the JAX package: every hit's t, u and v are detached
+(`_detach_hit`), so gradients flow through the shading terms (eval, pdf,
+Fresnel, emission, the reparameterized GGX draw), not through the
+intersector.
 """
 
 from typing import NamedTuple
@@ -36,10 +40,17 @@ from mcpt_tpu_torch.bsdf import (
 )
 from mcpt_tpu_torch.constants import CLAMP_DIRECT, CLAMP_INDIRECT, EPSILON, REL_EPS
 from mcpt_tpu_torch.envmap import sample_env_chan
-from mcpt_tpu_torch.intersect import intersect_c, occlude_t_c, surface_at_c
+from mcpt_tpu_torch.intersect import Hit, intersect_c, occlude_t_c, surface_at_c
 from mcpt_tpu_torch.kernels.megakernel_ref import _dot, _neg, _reflect, _where3
 from mcpt_tpu_torch.kernels.megakernel_ref import sqrt_f32 as _sqrt
 from mcpt_tpu_torch.lights import sample_light_c
+
+
+def _detach_hit(hit: Hit) -> Hit:
+    """Hit distances and barycentrics held fixed by the sampled path
+    (`mcpt_tpu/integrator.py:75-88`): the kernel's outputs carry no
+    gradient, and the CPU's routes would carry one through t."""
+    return Hit(t=hit.t.detach(), prim=hit.prim, u=hit.u.detach(), v=hit.v.detach())
 
 
 def _env(pack, d, chan):
@@ -131,7 +142,7 @@ def _bounce(pack, o, d, hit, alive, depth, key, lam, chan, method):
     sign = torch.where(branch_reflect, sign_reflect, -sign_reflect)
     p_new = tuple(p[k] + surf.n[k] * (off_scale * sign) for k in range(3))
     wi = _where3(branch_reflect, _reflect(wo, mfn), refract_c(m, d, mfn, lam))
-    nxt = intersect_c(pack, p_new, wi, method=method)
+    nxt = _detach_hit(intersect_c(pack, p_new, wi, method=method))
     nprim = nxt.prim.to(torch.int64)
     nxt_emissive = (nprim >= 0) & (pack.prim_emissive[nprim.clamp(min=0), 0] > 0.5)
 
@@ -177,7 +188,7 @@ def trace_paths_c(pack, o, d, lam, chan, key, max_bounces=8, method="auto", earl
     the bounce loop once every lane has terminated (the same result)."""
     b = o[0].shape[0]
     dev = o[0].device
-    hit = intersect_c(pack, o, d, method=method)
+    hit = _detach_hit(intersect_c(pack, o, d, method=method))
     carry = (o, d, hit, torch.ones(b, dtype=torch.bool, device=dev))
     l_dirs = torch.zeros((max_bounces, b), dtype=torch.float32, device=dev)
     ws = torch.zeros_like(l_dirs)

@@ -30,9 +30,10 @@ from typing import NamedTuple
 import torch
 
 from mcpt_tpu_torch.constants import EPSILON, T_MAX
-from mcpt_tpu_torch.kernels.intersect_prims import intersect_prims_c
+from mcpt_tpu_torch.kernels.intersect_prims import intersect_prims_c, load_library
 from mcpt_tpu_torch.kernels.intersect_prims_ref import fan_origins
 from mcpt_tpu_torch.kernels.megakernel_ref import sph_roots, sqrt_f32
+from mcpt_tpu_torch.scene import pack_to
 
 T_MAX_F = float(T_MAX)
 # Triangle-table size above which the all-pairs methods give way to the BVH.
@@ -300,6 +301,20 @@ def resolve_method(pack, method: str) -> str:
     if method not in ("kernel", "dense", "bvh"):
         raise ValueError(f"unknown intersect method {method!r}")
     return method
+
+
+def wavefront_pack(host, device, method: str = "auto"):
+    """(`host`, a compiled `ScenePack`, moved to `device` as the wavefront
+    reads it, the method it resolves to there): the card's kernel walks the
+    scene's BVH where it has one, the `bvh` method gets its node rows."""
+    pack = pack_to(host, device)
+    method = resolve_method(pack, method)
+    walk = method == "kernel" and pack.tri_sc.device.type == "cuda"
+    if method == "bvh" or (walk and host.use_bvh):
+        pack = pack_to(host, device, bvh=method == "bvh", walk=walk)
+    if walk:
+        load_library()  # build outside the timed region
+    return pack, method
 
 
 def _rows(c):

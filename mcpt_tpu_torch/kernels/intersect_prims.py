@@ -67,9 +67,11 @@ def _launch(tri, sph, sph_base, oc, dc, occlusion, walk=None, fan=0):
         bvh, tri, depth = walk.bvh.contiguous(), walk.leaf, int(walk.depth)
         if fan:
             oc, fan = fan_origins(oc, fan), 0
-    tri = tri.contiguous()
-    sph = sph.contiguous()
-    rays = [x.contiguous() for x in (*oc, *dc)]
+    # raw pointers of tensors autograd may be following: the kernel's
+    # outputs carry no gradient
+    tri = tri.detach().contiguous()
+    sph = sph.detach().contiguous()
+    rays = [x.detach().contiguous() for x in (*oc, *dc)]
     named = [("tri", tri), ("sph", sph)] + ([("bvh", bvh)] if walk is not None else [])
     for name, x in (*named, *zip(("o0", "o1", "o2", "d0", "d1", "d2"), rays)):
         if x.device != dev or x.dtype != torch.float32:

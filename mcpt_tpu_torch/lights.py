@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from mcpt_tpu_torch.kernels.megakernel_ref import sqrt_f32 as _sqrt
+from mcpt_tpu_torch.kernels.megakernel_ref import take_rows
 
 
 class LightSampleC(NamedTuple):
@@ -49,7 +50,7 @@ def _pick(pack, u):
     sel = torch.amin(torch.where(hit, idx[None, :], e), dim=1)
     last = torch.amax(torch.where(same_mesh, idx[None, :], -1), dim=1)
     sel = torch.where(sel >= e, last, sel).clamp(0, e - 1)
-    row = pack.emt_fat[sel]
+    row = take_rows(pack.emt_fat, sel)
     return row, mesh_area, _sqrt(u[:, 2]), u[:, 3]
 
 

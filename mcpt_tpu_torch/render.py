@@ -23,12 +23,12 @@ from mcpt_tpu_torch import prng
 from mcpt_tpu_torch.camera import generate_rays_c
 from mcpt_tpu_torch.constants import WAVELEN_UM
 from mcpt_tpu_torch.integrator import trace_paths_c
-from mcpt_tpu_torch.intersect import resolve_method
-from mcpt_tpu_torch.kernels import intersect_prims
 from mcpt_tpu_torch.kernels.megakernel import load_library, trace_block
 from mcpt_tpu_torch.kernels.megakernel_ref import cam_static
 from mcpt_tpu_torch.kernels.tables import SceneTables
-from mcpt_tpu_torch.scene import ScenePack, pack_to
+from mcpt_tpu_torch.parallel.mesh import replicate_pack
+from mcpt_tpu_torch.scene import ScenePack
+from mcpt_tpu_torch.utils.profiling import device_trace
 from mcpt_tpu_torch.utils.progress import ProgressBar
 
 # Lanes per kernel launch: bounds the plain version's (lanes, primitives)
@@ -48,6 +48,15 @@ def resolve_device(device) -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is False"
         )
     return dev
+
+
+def resolve_devices(device, devices) -> list:
+    """The torch devices of `devices` (a list; one may repeat), or of
+    `device` alone where `devices` is None; an empty list raises."""
+    devs = [resolve_device(dv) for dv in (devices if devices is not None else [device])]
+    if not devs:
+        raise ValueError("empty device list")
+    return devs
 
 
 def _tables_on(scene, dev):
@@ -170,7 +179,7 @@ def render_mega_sharded(scene, camera, spp, seed=0, *, devices=None, max_bounces
     return img, stats
 
 
-def _render_tile(pack, camera, pixel_ids, key, n_sub, max_bounces, method):
+def _render_tile(pack, camera, pixel_ids, key, n_sub, max_bounces, method, early_exit=True):
     """Mean radiance over n_sub camera samples for one pixel tile: ((P, 3)
     float32 radiance, total ray count as a 0-dim tensor)."""
     p = pixel_ids.shape[0]
@@ -185,7 +194,8 @@ def _render_tile(pack, camera, pixel_ids, key, n_sub, max_bounces, method):
         o3 = tuple(x.repeat_interleave(3) for x in o)
         d3 = tuple(x.repeat_interleave(3) for x in d)
         rad, stats = trace_paths_c(
-            pack, o3, d3, lam, chan, k2, max_bounces=max_bounces, method=method
+            pack, o3, d3, lam, chan, k2, max_bounces=max_bounces, method=method,
+            early_exit=early_exit,
         )
         fb = fb + rad.reshape(p, 3)
         rays = rays + stats.rays
@@ -206,6 +216,8 @@ def render_radiance(
     progress: bool = False,
     checkpoint_path=None,
     device="cuda",
+    devices=None,
+    trace_dir=None,
 ):
     """Full-image linear radiance through the wavefront engine: an (H, W, 3)
     float32 numpy array and the JAX function's stats dict. `scene_or_pack`
@@ -213,20 +225,22 @@ def render_radiance(
     (default `prng.key(0)`). `method` is the intersector (`intersect.
     resolve_method`): on a CUDA device `auto` launches the CUDA kernel for
     scenes of at most 4096 padded triangles, which walks the scene's BVH
-    where it has one."""
-    dev = resolve_device(device)
+    where it has one.
+
+    `devices`, a list of torch devices (one may be listed several times),
+    takes the place of `device`: tile i runs on devices[i % len(devices)],
+    each distinct device holding one copy of the pack. A tile keeps its own
+    key, so the image is bitwise the single-device image (the counterpart
+    of JAX's `sharding=`, whose lanes the counter-based draws would key
+    differently if a tile were split). With `trace_dir`, the tile loop runs
+    under `utils.profiling.device_trace`, which writes a torch.profiler
+    Chrome trace there."""
+    devs = resolve_devices(device, devices)
     host = scene_or_pack if isinstance(scene_or_pack, ScenePack) else scene_or_pack.compile()
-    pack = pack_to(host, dev)
-    method = resolve_method(pack, method)
-    # the card's kernel walks the scene's BVH where it has one
-    walk = method == "kernel" and dev.type == "cuda"
-    if method == "bvh" or (walk and host.use_bvh):
-        pack = pack_to(host, dev, bvh=method == "bvh", walk=walk)
-    if walk:
-        intersect_prims.load_library()  # build outside the timed region
     if key is None or isinstance(key, int):
-        key = prng.key(key or 0, dev)
-    key = key.to(dev)
+        key = prng.key(key or 0)
+    on = {dev: (pack, m, key.to(dev))  # device -> (pack, method, key)
+          for dev, (pack, m) in replicate_pack(host, devs, method).items()}
     w, h = camera.width, camera.height
     n_pix = w * h
     tile_pixels = min(tile_pixels, n_pix)
@@ -249,31 +263,34 @@ def render_radiance(
     t0 = time.monotonic()
     work = 0
     total_work = n_tiles * n_chunks
-    for tile in range(n_tiles):
-        lo = tile * tile_pixels
-        hi = min(lo + tile_pixels, n_pix)
-        ids = torch.arange(lo, lo + tile_pixels, device=dev).clamp(max=n_pix - 1)
-        for chunk in range(int(start_chunk[tile]), n_chunks):
-            sub = min(spp_chunk, spp - chunk * spp_chunk)
-            k = prng.fold_in(prng.fold_in(key, tile), chunk)
-            tile_fb, rays = _render_tile(pack, camera, ids, k, sub, max_bounces, method)
-            fb[lo:hi] += tile_fb.cpu().numpy()[: hi - lo] * sub
-            chunk_weights[tile] += sub
-            total_rays += int(rays)
-            work += 1
-            if bar:
-                bar.update(work / total_work)
-            if checkpoint_path and (chunk + 1) % 16 == 0:
-                start_chunk[tile] = chunk + 1
-                np.savez(
-                    checkpoint_path,
-                    fb=fb,
-                    chunk_weights=chunk_weights,
-                    start_chunk=start_chunk,
-                    total_rays=total_rays,
-                )
-        start_chunk[tile] = n_chunks
-        fb[lo:hi] /= max(chunk_weights[tile], 1.0)
+    with device_trace(trace_dir):
+        for tile in range(n_tiles):
+            dev = devs[tile % len(devs)]
+            pack, method_d, key_d = on[dev]
+            lo = tile * tile_pixels
+            hi = min(lo + tile_pixels, n_pix)
+            ids = torch.arange(lo, lo + tile_pixels, device=dev).clamp(max=n_pix - 1)
+            for chunk in range(int(start_chunk[tile]), n_chunks):
+                sub = min(spp_chunk, spp - chunk * spp_chunk)
+                k = prng.fold_in(prng.fold_in(key_d, tile), chunk)
+                tile_fb, rays = _render_tile(pack, camera, ids, k, sub, max_bounces, method_d)
+                fb[lo:hi] += tile_fb.cpu().numpy()[: hi - lo] * sub
+                chunk_weights[tile] += sub
+                total_rays += int(rays)
+                work += 1
+                if bar:
+                    bar.update(work / total_work)
+                if checkpoint_path and (chunk + 1) % 16 == 0:
+                    start_chunk[tile] = chunk + 1
+                    np.savez(
+                        checkpoint_path,
+                        fb=fb,
+                        chunk_weights=chunk_weights,
+                        start_chunk=start_chunk,
+                        total_rays=total_rays,
+                    )
+            start_chunk[tile] = n_chunks
+            fb[lo:hi] /= max(chunk_weights[tile], 1.0)
     if bar:
         bar.finish()
     elapsed = time.monotonic() - t0

@@ -8,8 +8,10 @@ are cut from (`kernels/tables.py::mega_tables`, `bvh_tables`), with the same
 arithmetic as `mcpt_tpu.scene.Scene.compile` so the tables are bitwise equal:
 the Woop transform `w` comes from a float64 `np.linalg.inv`, the occluder
 cull uses the same float64 plane test. Scenes above `cluster_threshold`
-triangles also get a BVH over all primitives (`bvh.build_bvh`), which the
-megakernel walks per thread; the JAX package's
+triangles also get a BVH over all primitives (the native builder of
+`native/`, or `bvh.build_bvh` without g++: the same SAH tree), which the
+megakernel walks per thread; OBJ meshes load through the native parser
+where it builds; the JAX package's
 cluster tables (`mcpt_tpu/kernels/cluster.py:65-211`) are a TPU memory
 layout and have no counterpart here. The env map is kept at full
 resolution.
@@ -28,6 +30,7 @@ from mcpt_tpu_torch.constants import EPSILON, REL_EPS
 from mcpt_tpu_torch.io.obj import load_obj
 from mcpt_tpu_torch.io.png import read_png
 from mcpt_tpu_torch.materials import Material
+from mcpt_tpu_torch.native import bvh_build_native, obj_load_native
 
 # Above this many triangles the megakernel walks a BVH from global memory;
 # at or below it, it brute-forces the tables from shared memory.
@@ -56,7 +59,9 @@ class TriangleMesh:
         """An OBJ mesh instance: world pos = zoom * v + translation
         (Triangle.hpp:106); texcoords kept only for a textured material
         (Triangle.hpp:115-122)."""
-        mesh = load_obj(path)
+        mesh = obj_load_native(path)
+        if mesh is None:
+            mesh = load_obj(path)
         material = material if material is not None else Material()
         pos = mesh["positions"] * np.float32(zoom) + np.asarray(
             translation, dtype=np.float32
@@ -526,7 +531,9 @@ class Scene:
                 np.maximum(np.maximum(v0, v0 + e1), v0 + e2)[:n_tris],
                 sph_c[:n_spheres] + sph_r[:n_spheres, None],
             ])
-            flat = build_bvh(prim_min, prim_max, leaf_size=4, method="sah")
+            flat = bvh_build_native(prim_min, prim_max, leaf_size=4, method="sah")
+            if flat is None:
+                flat = build_bvh(prim_min, prim_max, leaf_size=4, method="sah")
             prim_ids = flat.prim_ids.copy()
             prim_ids[prim_ids >= n_tris] += t_pad - n_tris
             a_prims = np.full(_round_up(prim_ids.shape[0], 8), -1, np.int32)

@@ -17,7 +17,9 @@ its blocks, the occlusion fan form at 1, 4 and 33 directions an origin, ties
 to the lower row), its walk modes also to the tiled sweep, and wavefront
 renders through it (with and without a BVH) bitwise to the same renders
 through the plain version. Renders strided
-over one card listed three times equal the single render bitwise.
+over one card listed three times equal the single render bitwise. The
+training path's gradients through the intersector equal those through its
+plain version bitwise, and the hybrid train step launches both kernels.
 """
 
 import dataclasses
@@ -731,3 +733,88 @@ def test_conf_cli_takes_more_than_32_light_samples(cuda_card, tmp_path):
           "--out", str(out)])
     assert K.trace_block.by_instance[name] > before
     assert out.exists()
+
+
+@pytest.mark.gpu
+def test_train_step_gradients_through_the_kernel_bitwise(cuda_card, monkeypatch):
+    """The training path's loss and gradients on the card through K2 equal,
+    bitwise, the same through the plain version in the kernel's place on the
+    same card (the kernel's hits carry no gradient either way)."""
+    from mcpt_tpu_torch import prng
+    from mcpt_tpu_torch.diff import SceneParams, apply_params, params_from_pack, render_lanes
+    from mcpt_tpu_torch.parallel import replicate_pack
+
+    sc = demo_scene()
+    host = sc.compile()
+    cam = dataclasses.replace(sc.camera, width=W, height=H)
+    (pack, method), = replicate_pack(host, ["cuda"]).values()
+    assert method == "kernel"
+    ids = torch.arange(W * H, device="cuda")
+
+    def grads():
+        p = [x.requires_grad_() for x in params_from_pack(host, "cuda")]
+        fb = render_lanes(apply_params(pack, SceneParams(*p)), cam, ids,
+                          prng.key(3, "cuda"), spp=2, max_bounces=4, method=method)
+        loss = (fb ** 2).mean()
+        return [loss.detach(), *torch.autograd.grad(loss, p)]
+
+    IP.intersect_prims_c.by_mode.clear()
+    got = grads()
+    assert IP.intersect_prims_c.by_mode["occlusion fan"] > 0
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    monkeypatch.setattr(IP, "_launch", lambda tri, sph, base, oc, dc, occ, walk=None, fan=0:
+                        intersect_prims_ref(tri, sph, base, oc, dc, occlusion=occ, fan=fan))
+    for a, b in zip(got, grads()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_hybrid_step_launches_both_kernels(cuda_card):
+    """make_train_step_hybrid on the card renders its residual through K1
+    and pulls it back through K2; its gradients are finite and move the
+    parameters."""
+    from mcpt_tpu_torch import prng
+    from mcpt_tpu_torch.diff import make_train_step_hybrid
+
+    sc = demo_scene()
+    host = sc.compile()
+    cam = dataclasses.replace(sc.camera, width=W, height=H)
+    target, _ = render_mega(host, cam, 8, seed=1, max_bounces=4, device="cuda")
+    init_fn, step = make_train_step_hybrid(host, cam, 0.5 * target, spp_res=8, spp_grad=1,
+                                           max_bounces=4, device="cuda")
+    params, opt = init_fn()
+    start = [p.detach().clone() for p in params]
+    k1 = K.trace_block.by_instance["mega_regen<4, false, false>"]
+    IP.intersect_prims_c.by_mode.clear()
+    params, opt, loss = step(params, opt, prng.key(0, "cuda"), 0)
+    assert K.trace_block.by_instance["mega_regen<4, false, false>"] > k1
+    assert IP.intersect_prims_c.by_mode["occlusion fan"] > 0
+    assert np.isfinite(loss)
+    assert any(bool((a.detach() != b).any()) for a, b in zip(params, start))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,rows,cols", [(2304, 9, 13), (442368, 9, 13), (1769472, 2, 17)])
+def test_take_rows_is_the_gather_with_a_deterministic_backward(cuda_card, n, rows, cols):
+    """megakernel_ref.take_rows at the train step's sizes (a material table
+    read by 442,368 lanes, the emitter rows by 1,769,472 shadow rays): the
+    forward is advanced indexing's gather bit for bit, and the backward
+    gives the same bits on every run, within float32 rounding of a float64
+    sum."""
+    from mcpt_tpu_torch.kernels.megakernel_ref import take_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    idx = torch.randint(0, rows, (n,), device="cuda", generator=gen)
+    g = torch.randn(n, cols, device="cuda", generator=gen)
+    t0 = torch.randn(rows, cols, device="cuda", generator=gen)
+    got = []
+    for _ in range(8):
+        t = t0.clone().requires_grad_()
+        out = take_rows(t, idx)
+        assert torch.equal(out, t0[idx])
+        got.append(torch.autograd.grad(out, t, grad_outputs=g)[0])
+    assert all(torch.equal(got[0].view(torch.int32), x.view(torch.int32)) for x in got)
+    want = torch.zeros(rows, cols, dtype=torch.float64, device="cuda")
+    want.index_add_(0, idx, g.double())
+    scale = torch.zeros_like(want).index_add_(0, idx, g.double().abs())
+    assert bool(((got[0].double() - want).abs() <= 1e-5 * scale + 1e-6).all())
