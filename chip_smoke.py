@@ -5,8 +5,8 @@ and checks them. Each phase prints its lines and its seconds; every failure
 raises, so the script exits nonzero and prints no result line.
 
 1. environment: card, torch, CUDA, nvcc, Triton; a CUDA device is required
-2. build: csrc/megakernel.cu, csrc/mega_lockstep.cu and
-   csrc/intersect_prims.cu with nvcc for sm_90a (one nvcc each, started
+2. build: csrc/megakernel.cu, csrc/mega_lockstep.cu, csrc/intersect_prims.cu
+   and csrc/wavefront.cu with nvcc for sm_90a (one nvcc each, started
    together), from this checkout; the registers and spills of every kernel
    instance
 3. the DEMO kernel (`mega_regen<4, false, false>`) against its plain PyTorch
@@ -92,16 +92,40 @@ raises, so the script exits nonzero and prints no result line.
    (its two transposing copies included) checked and timed beside it
 12. (g) the wavefront main path: `render_radiance` of the DEMO at 1920x1080,
    spp WF_SPP, mb 8, method auto, tiles of 65,536 pixels, spp chunks of 8,
-   which must launch the kernel in its nearest mode and the occlusion fan
-   form; one tile's render (256x256, spp 1) under torch.profiler for the
-   idle share, the device ms a launch of each kernel instance and the rays
-   a launch of each mode; the
-   384x384 DEMO through the wavefront at spp 64 (in one tile) against
-   phase 4's megakernel render (spp 256), two independent estimates of one
-   image: whole-image means within 3%, correlation of 12x12 block means >
-   0.95; and (e)'s scene through the wavefront at 384x384, spp 8, whose
-   triangles must go through the walk modes alone, then its spp 1 render
-   under torch.profiler for the idle share
+   which must launch the four kernels of csrc/wavefront.cu (`camera_rays`,
+   `shade_pre`, `shade_post`, `fold`; no plain route) and the intersector in
+   its nearest mode and the occlusion fan form; then the same render through
+   the plain route (`wavefront.plain_route()`, the kernels' plain versions
+   on the card): the image bitwise equal, the ray count equal, both walls. One tile's
+   render (256x256, spp 1) through each route: one run counted (bounces,
+   launches), one under torch.profiler (wall, device busy, idle share,
+   launches and device events a bounce). The 384x384 DEMO through the
+   wavefront at spp 64 (in one tile) against phase 4's megakernel render
+   (spp 256), two independent estimates of one image: whole-image means
+   within 3%, correlation of 12x12 block means > 0.95; (e)'s scene through
+   the wavefront at 384x384, spp 8, whose triangles must go through the walk
+   modes alone, then its spp 1 render under torch.profiler; the stand-in
+   `--conf` scene (38,528 triangles) through the CLI's `--engine wavefront`
+   at 384x216, spp 1, which must launch the walk modes alone, once for each
+   primary batch and bounce (no query takes the eager `bvh` method); then
+   the same scene and size (the thin lens, the sky map and the textured
+   floor) through `render_radiance` by both routes, the images bitwise equal
+   and the ray counts equal
+12b. (l) the wavefront kernels against their plain versions on the card, on
+   one 65,536-pixel tile (256x256, three channel lanes each), spp 1, mb 8,
+   of the DEMO, the sky-lit DEMO, the DEMO + soldier (the walk), the DEMO
+   at 40 light samples and the DEMO seen through a thin lens with an
+   emissive sphere: bounce by bounce on the same inputs, the camera
+   rays, every field of `shade_pre` (next rays, the shadow fan, the per-lane
+   terms), `shade_post`'s records row, next alive and ray count, and the
+   fold's radiance, bitwise (float32 as int32); then `trace_paths_c` through
+   both routes, radiance and rays equal. On the DEMO each kernel's device ms
+   at the depth-0 shapes (the fold's on the tile's records), each launch
+   timed alone after a read that evicts the L2, the median of 20 (and the
+   median of 5 means of 10 back to back, its inputs L2-resident, beside
+   it), its plain version's ms and its bound (bytes: every input read once,
+   every output written once; the fold's, the records up to each lane's
+   first terminal depth, counted on the tile's records)
 13. (h) the lockstep kernel K1b (`csrc/mega_lockstep.cu`, `render_mega(...,
    regen=False)`) and the lane-strided sharded render:
    (h1) `mega_lockstep<4, false>` against its plain version on the card on
@@ -157,15 +181,18 @@ raises, so the script exits nonzero and prints no result line.
    `render_radiance(trace_dir=...)` writes a torch.profiler Chrome trace
    holding the intersector's kernels
 17. the registers, local bytes and resident blocks per SM of each megakernel
-   instance in the kernel table, the card, the kernel table as JSON (each row's launches are those of
-   its kernel in its own main-path run: the DEMO 384x384 render, the
+   instance in the kernel table, the card, the kernel table as JSON (each
+   row's launches are those of its kernel in its own main-path run: the DEMO 384x384 render, the
    sky-lit DEMO render of (a), the --conf render, the wavefront renders of
-   (g), the lockstep renders of (h2); no render launches the triangles-only
-   entry or, since the walk, the tiled modes), and the result line
+   (g) (the 1080p render for K2 and the four wavefront kernels, the
+   DEMO + soldier render for the walk modes), the lockstep renders of (h2);
+   no render launches the triangles-only entry or, since the walk, the
+   tiled modes), and the result line
 """
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -183,16 +210,20 @@ from mcpt_tpu_torch.bench import BASELINE_RAYS_PER_S, card
 from mcpt_tpu_torch.builtin_scenes import CORNELL_FLOOR, CORNELL_LEFT, CORNELL_LIGHT
 from mcpt_tpu_torch.builtin_scenes import CORNELL_RIGHT, CORNELL_SHORTBOX, CORNELL_TALLBOX
 from mcpt_tpu_torch.builtin_scenes import _mesh, demo_scene
-from mcpt_tpu_torch.camera import Camera, generate_rays_c
+from mcpt_tpu_torch.camera import Camera
 from mcpt_tpu_torch.config import build_scene, load_config
 from mcpt_tpu_torch.entry import dryrun_multichip
-from mcpt_tpu_torch.constants import EPSILON, REL_EPS, T_MAX
+from mcpt_tpu_torch.constants import EPSILON, REL_EPS, T_MAX, WAVELEN_UM
 from mcpt_tpu_torch.film import tonemap
-from mcpt_tpu_torch.intersect import intersect_dense, surface_at_c
+from mcpt_tpu_torch.integrator import trace_paths_c
+from mcpt_tpu_torch.intersect import intersect_c, intersect_dense, occlude_t_c
+from mcpt_tpu_torch.intersect import surface_at_c
 from mcpt_tpu_torch.io.png import read_png
 from mcpt_tpu_torch.kernels import build as kbuild
 from mcpt_tpu_torch.kernels import intersect_prims as ip
 from mcpt_tpu_torch.kernels import megakernel as mk
+from mcpt_tpu_torch.kernels import wavefront as wf
+from mcpt_tpu_torch.kernels import wavefront_ref as wfr
 from mcpt_tpu_torch.kernels.intersect_prims_ref import (
     fan_origins,
     intersect_prims_ref,
@@ -207,7 +238,7 @@ from mcpt_tpu_torch.kernels.tables import SceneTables, bvh_depth
 from mcpt_tpu_torch.lights import sample_light_c
 from mcpt_tpu_torch.materials import make_light_material, standard_materials
 from mcpt_tpu_torch.parallel import replicate_pack
-from mcpt_tpu_torch.render import render_mega, render_mega_sharded, render_radiance
+from mcpt_tpu_torch.render import _render_tile, render_mega, render_mega_sharded, render_radiance
 from mcpt_tpu_torch.scene import Scene, Sphere, TriangleMesh, pack_to
 from mcpt_tpu_torch.utils.profiling import TRACE_FILE
 
@@ -224,12 +255,15 @@ EARLIER_DEMO_RATE = 1.7931e9
 CONF_SPP = 32
 # the 4th of the --conf render's six 2^20-lane blocks, its slowest
 CONF_BLOCK_OFFSET = 3 * 2**20
-# (g): the wavefront render's samples per pixel at 1920x1080, cut from 8 to
-# keep it under a minute: on an H100 it took 10.8 s at spp 1 and 17.9 s at
-# spp 2 (host-bound; PERF.md)
+# (g): the wavefront render's samples per pixel at 1920x1080: its plain
+# route, which (g) renders too, took 17.9-27.6 s at spp 2 on an H100 (PERF.md)
 WF_SPP = 2
-# pixels of one wavefront tile (render_radiance's default tile_pixels)
-TILE_PX = 65536
+# pixels of one wavefront tile (render_radiance's default tile_pixels), a
+# square of TILE_SIDE pixels a side in (g)'s and (l)'s tile renders
+TILE_SIDE = 256
+TILE_PX = TILE_SIDE * TILE_SIDE
+# (g): the wavefront main path's resolution
+WF_RES = (1920, 1080)
 # the device of phases (d)-(g)
 DEV = "cuda"
 # where (e) stands the stand-in soldier on the DEMO's floor (free of the boxes)
@@ -276,6 +310,8 @@ PEAK_F32 = 67e12  # float32 outside the tensor cores, H100 SXM
 # times the host's issue of one intersector launch)
 SPIN_CYCLES = 1_000_000
 PEAK_BYTES = 3.35e12
+# `cuda_ms_cold`: a read this large evicts the H100's 50 MB L2
+L2_FLUSH_BYTES = 256 << 20
 
 
 def phase(name, msg):
@@ -357,14 +393,14 @@ def environment():
 
 
 def build():
-    """The three CUDA sources, one nvcc each, started together."""
+    """The four CUDA sources, one nvcc each, started together."""
     t0 = time.monotonic()
     builds = (lambda: mk.build(True, regen=True), lambda: mk.build(True, regen=False),
-              lambda: ip.build(True))
+              lambda: ip.build(True), lambda: wf.build(True))
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         paths = list(pool.map(lambda b: b(), builds))
     for load in (lambda: mk.load_library(True), lambda: mk.load_library(False),
-                 ip.load_library):
+                 ip.load_library, wf.load_library):
         load()
     dt = time.monotonic() - t0
     phase("build", f"{dt:.1f} s -> {[str(p.relative_to(ROOT)) for p in paths]}")
@@ -469,14 +505,17 @@ def launch_count():
     return mk.trace_block.launches + ip.intersect_prims_c.launches
 
 
-def device_profile(label, fn, kernel="mega_regen", attempts=3):
+def device_profile(label, fn, kernel="mega_regen", attempts=3, count=launch_count):
     """Run fn() twice under torch.profiler, recording the second run (the
     first lets the tracer start), and print its wall time, the device time
     of each kernel and copy, and the device's idle share. The tracer can
     still miss the launches of a recorded run's first few hundred
-    milliseconds: when it shows fewer `kernel` launches than the run made,
-    the profile is taken again, up to `attempts` times, and an incomplete
-    one prints no idle share."""
+    milliseconds: when it shows fewer `kernel` launches (names holding
+    `kernel`, or any of a tuple of names) than the run made (`count()`
+    before and after), the profile is taken again, up to `attempts` times,
+    and an incomplete one prints no idle share. Returns the wall and busy
+    ms, the idle share (None when incomplete) and the device events."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -487,21 +526,22 @@ def device_profile(label, fn, kernel="mega_regen", attempts=3):
                      on_trace_ready=lambda p: events.extend(p.events())) as prof:
             for _ in range(2):
                 torch.cuda.synchronize()
-                made = launch_count()
+                made = count()
                 t0 = time.monotonic()
                 fn()
                 torch.cuda.synchronize()
                 wall_ms = (time.monotonic() - t0) * 1e3
-                made = launch_count() - made
+                made = count() - made
                 prof.step()
         busy = collections.Counter()  # device events run one at a time on one stream
-        launches, by_instance = [], collections.defaultdict(list)
+        launches, by_instance, n_events = [], collections.defaultdict(list), 0
         for e in events:  # the step's own device-side range is no device work
             if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
                 ms = (e.time_range.end - e.time_range.start) / 1e3
                 name = e.name.replace("(anonymous namespace)::", "")
                 busy[name] += ms
-                if kernel in e.name:
+                n_events += 1
+                if any(k in e.name for k in names):
                     launches.append(round(ms, 3))
                     by_instance[name.split("(")[0].removeprefix("void ")].append(ms)
         if len(launches) >= made:
@@ -509,14 +549,18 @@ def device_profile(label, fn, kernel="mega_regen", attempts=3):
     total = sum(busy.values())
     shown = launches if len(launches) <= 8 else (
         f"{len(launches)} launches, {sum(launches):.2f} ms in all, longest {max(launches)}")
-    idle = (f"idle share {1 - total / wall_ms:.4f}" if len(launches) >= made else
+    complete = len(launches) >= made
+    idle = (f"idle share {1 - total / wall_ms:.4f}" if complete else
             f"idle share not measured (the profiler saw {len(launches)} of {made} launches)")
     phase("profile", f"{label} (attempt {attempt}): wall {wall_ms:.1f} ms, device busy "
-                     f"{total:.1f} ms, {idle}; {kernel} launches {shown} ms; "
+                     f"{total:.1f} ms, {idle}; {'/'.join(names)} launches {shown} ms; "
+                     f"{n_events} device events; "
                      + "; ".join(f"{k[:45]} {v:.2f} ms" for k, v in busy.most_common(4)))
     phase("profile", f"{label}: device ms a launch by instance: " + "; ".join(
         f"{k} {len(v)} launches, mean {statistics.mean(v):.4f}"
         for k, v in sorted(by_instance.items())))
+    return {"wall_ms": wall_ms, "busy_ms": total, "events": n_events,
+            "idle": 1 - total / wall_ms if complete else None}
 
 
 def ms_per_launch(fn):
@@ -547,6 +591,7 @@ def reset_counts():
     ip.intersect_prims_c.launches = 0
     ip.intersect_prims_c.by_mode = collections.Counter()
     ip.intersect_prims_c.rays_by_mode = collections.Counter()
+    wf.reset_counts()
 
 
 def main_path(pack):
@@ -738,7 +783,7 @@ def nee_batch(pack, camera, seed=0, shadow=3):
     (1 + shadow)·B rays as component tuples (o, d)."""
     ids = torch.arange(TILE_PX, device=DEV)
     k1, k2 = prng.split(prng.key(seed, DEV))
-    o, d = generate_rays_c(camera, ids, k1)
+    o, d = wf.camera_rays(camera, ids, k1)
     o3 = tuple(x.repeat_interleave(3) for x in o)
     d3 = tuple(x.repeat_interleave(3) for x in d)
     b = 3 * TILE_PX
@@ -976,31 +1021,126 @@ def intersect_kernels(soldier):
     return out
 
 
-def wavefront_path(mega_img, soldier):
-    """(g): the wavefront engine end to end on the card."""
-    t0 = time.monotonic()
+WF_KERNELS = ("intersect_", "shade_pre", "shade_post", "camera_rays", "fold_kernel")
+
+
+def wf_route(plain):
+    """The block's wavefront route: the plain versions on the card
+    (`wavefront.plain_route()`) or the kernels."""
+    return wf.plain_route() if plain else contextlib.nullcontext()
+
+
+def wf_launches():
+    """Launches of the wavefront's kernels: its own four and the
+    intersector."""
+    return sum(wf.launches.values()) + ip.intersect_prims_c.launches
+
+
+def wavefront_tile_profile(label, sc, plain):
+    """One 65,536-pixel tile of `sc` (256x256, spp 1, mb 8) through one
+    route: one run counted (bounces, launches), one under torch.profiler
+    (wall, device busy, idle share, device events). Returns the profile
+    with the launches and device events a bounce."""
+    cam = dataclasses.replace(sc.camera, width=TILE_SIDE, height=TILE_SIDE)
+    route = "plain" if plain else "cuda"
+
+    def run():
+        with wf_route(plain):
+            return render_radiance(sc, cam, 1, 5, max_bounces=8, device=DEV)
+
+    reset_counts()
+    run()
+    bounces = wf.calls[("shade_pre", route)]
+    launches = wf_launches()
+    prof = device_profile(f"{label}, {route} route", run,
+                          kernel="intersect_" if plain else WF_KERNELS,
+                          count=(lambda: ip.intersect_prims_c.launches) if plain else wf_launches)
+    prof["launches_a_bounce"] = launches / bounces
+    prof["events_a_bounce"] = prof["events"] / bounces
+    # the tile's bounce loop alone (`_render_tile` on a moved pack): no scene
+    # compile, no upload, no framebuffer copy
+    (pack, method), = replicate_pack(sc.compile(), [DEV]).values()
+    ids = torch.arange(TILE_PX, device=DEV)
+    key = torch.tensor(prng.host_fold_in(prng.host_fold_in(prng.key(5).tolist(), 0), 0))
+
+    def loop():
+        with wf_route(plain):
+            return _render_tile(pack, cam, ids, key, 1, 8, method)
+
+    loop()
+    prof["loop_ms"] = statistics.median(synced_s(loop) for _ in range(5)) * 1e3
+    loop_prof = device_profile(f"{label}, {route} route, the bounce loop alone", loop,
+                               kernel="intersect_" if plain else WF_KERNELS,
+                               count=(lambda: ip.intersect_prims_c.launches) if plain
+                               else wf_launches)
+    prof["loop_busy_ms"], prof["loop_idle"] = loop_prof["busy_ms"], loop_prof["idle"]
+    prof["loop_events_a_bounce"] = loop_prof["events"] / bounces
+    phase("g", f"{label}, {route} route: render_radiance wall {prof['wall_ms']:.1f} ms (the "
+               f"scene's compile and upload included), device busy {prof['busy_ms']:.1f} ms, "
+               f"idle share {prof['idle']}; {bounces} bounces; "
+               f"{prof['launches_a_bounce']:.2f} launches of the wavefront's and the "
+               f"intersector's kernels a bounce, {prof['events_a_bounce']:.1f} device events a "
+               f"bounce (everything the render ran over its bounces); the bounce loop alone "
+               f"(`_render_tile`, median of 5): wall {prof['loop_ms']:.2f} ms, device busy "
+               f"{prof['loop_busy_ms']:.2f} ms, idle share {prof['loop_idle']}, "
+               f"{prof['loop_events_a_bounce']:.1f} device events a bounce")
+    return prof
+
+
+def wavefront_main():
+    """(g)'s main path: the DEMO at WF_RES through the kernels and through
+    the plain route, images and ray counts equal. Returns the four kernels'
+    and the intersector's launches in the kernel route's render."""
     sc = demo_scene()
-    cam = dataclasses.replace(sc.camera, width=1920, height=1080)
+    cam = dataclasses.replace(sc.camera, width=WF_RES[0], height=WF_RES[1])
     reset_counts()
     t1 = time.monotonic()
     img, stats = render_radiance(sc, cam, WF_SPP, 0, max_bounces=8, device=DEV)
     wall = time.monotonic() - t1
     by_mode = dict(ip.intersect_prims_c.by_mode)
+    launched = dict(wf.launches)
     check(by_mode.get("nearest", 0) > 0 and by_mode.get("occlusion fan", 0) > 0,
           f"the wavefront render launched {by_mode}")
-    check(img.shape == (1080, 1920, 3) and bool(np.isfinite(img).all()), "wavefront image")
+    check(all(launched.get(k, 0) > 0 for k in wf.KERNELS), f"the wavefront kernels: {launched}")
+    check(not any(r != "cuda" for _, r in wf.calls), f"a plain route ran: {dict(wf.calls)}")
+    check(img.shape == (WF_RES[1], WF_RES[0], 3) and bool(np.isfinite(img).all()),
+          "wavefront image")
     check(0.0 < float(img.mean()) < 10.0, f"wavefront image mean {img.mean()}")
-    phase("g", f"wavefront 1920x1080 spp {WF_SPP} mb 8: wall {wall:.3f} s, render "
+    phase("g", f"wavefront {WF_RES[0]}x{WF_RES[1]} spp {WF_SPP} mb 8, kernel route: wall "
+               f"{wall:.3f} s, render "
                f"{stats['elapsed_s']:.3f} s, {stats['rays']} rays, {stats['rays_per_s']:.4e} "
                f"rays/s, {stats['wavelength_paths_per_s']:.4e} wavelength-paths/s, "
-               f"launches {by_mode}, megakernel launches {mk.trace_block.launches}")
-    # one tile's work (65,536 pixels, spp 1) under the profiler: a whole
-    # 1080p render is 32 such tiles, about 1.5M launches to trace
-    tile_cam = dataclasses.replace(sc.camera, width=256, height=256)
+               f"routes {sorted({r for _, r in wf.calls})}, launches {launched}, intersector "
+               f"{by_mode}, megakernel launches {mk.trace_block.launches}")
     reset_counts()
-    device_profile("wavefront one 65,536-pixel tile, spp 1 mb 8", lambda: render_radiance(
-        sc, tile_cam, 1, 5, max_bounces=8, device=DEV), kernel="intersect_")
-    phase("g", "that render's rays a launch, by mode: " + ", ".join(
+    t1 = time.monotonic()
+    with wf_route(True):
+        img_p, stats_p = render_radiance(sc, cam, WF_SPP, 0, max_bounces=8, device=DEV)
+    wall_p = time.monotonic() - t1
+    check(not wf.launches, f"the plain route launched {dict(wf.launches)}")
+    same = bool(np.array_equal(img.view(np.int32), img_p.view(np.int32)))
+    phase("g", f"the same render, plain route: wall {wall_p:.3f} s, render "
+               f"{stats_p['elapsed_s']:.3f} s, {stats_p['rays']} rays; image bitwise equal "
+               f"{same} ({int((img != img_p).sum())} values differ, max abs err "
+               f"{float(np.abs(img - img_p).max()):.3g}), rays equal "
+               f"{stats['rays'] == stats_p['rays']}; {wall_p / wall:.1f}x the kernel route's wall")
+    check(same and stats["rays"] == stats_p["rays"],
+          "the 1080p wavefront image differs from the plain route's")
+    return {"kernels": launched, "modes": by_mode}
+
+
+def wavefront_path(mega_img, soldier):
+    """(g): the wavefront engine end to end on the card, through its
+    kernels, and against its plain route. Returns `wavefront_main`'s
+    launches, the walk-only render's intersector launches and the tile's
+    profiles by route."""
+    t0 = time.monotonic()
+    sc = demo_scene()
+    main_launches = wavefront_main()
+    # one tile's work (65,536 pixels, spp 1) under the profiler, both routes
+    tile = {plain: wavefront_tile_profile("(g) one 65,536-pixel DEMO tile, spp 1 mb 8", sc,
+                                          plain) for plain in (False, True)}
+    phase("g", "that tile's intersector rays a launch, by mode (plain route): " + ", ".join(
         f"{m} {n / ip.intersect_prims_c.by_mode[m]:.0f}"
         for m, n in sorted(ip.intersect_prims_c.rays_by_mode.items())))
 
@@ -1027,15 +1167,274 @@ def wavefront_path(mega_img, soldier):
     walked = dict(ip.intersect_prims_c.by_mode)
     check(set(walked) == {"nearest walk", "occlusion walk"},
           f"the DEMO + soldier render launched {walked}")
+    check(all(wf.launches[k] > 0 for k in wf.KERNELS), f"DEMO + soldier: {dict(wf.launches)}")
     check(bool(np.isfinite(img_s).all()) and float(img_s.mean()) > 0.0, "DEMO + soldier image")
     phase("g", f"DEMO + soldier 384x384 spp 8 mb 8: wall {wall:.3f} s, render "
                f"{st_s['elapsed_s']:.3f} s, {st_s['rays']} rays, {st_s['rays_per_s']:.4e} "
-               f"rays/s, launches {walked}")
+               f"rays/s, launches {dict(wf.launches)}, intersector {walked}")
     device_profile("DEMO + soldier 384x384 spp 1 mb 8", lambda: render_radiance(
         soldier, soldier.camera, 1, 5, max_bounces=8, tile_pixels=one_tile, device=DEV),
-        kernel="intersect_walk")
+        kernel=WF_KERNELS, count=wf_launches)
+
+    conf_wavefront()
     phase("g", f"{time.monotonic() - t0:.1f} s")
-    return by_mode, walked
+    return main_launches, walked, tile
+
+
+def conf_wavefront(width=384, height=216):
+    """The stand-in --conf scene (38,528 triangles, over DENSE_MAX_TRIS)
+    through the CLI's wavefront engine: K3's walk alone, once for each
+    primary batch and bounce, so no query took the eager bvh method. Then
+    the same scene (the thin lens, the sky map, the textured floor) through
+    render_radiance by both routes, bitwise."""
+    from mcpt_tpu_torch.__main__ import main as cli
+
+    t1 = time.monotonic()
+    with tempfile.TemporaryDirectory() as models:
+        write_stand_in_models(models)
+        out = Path(models, "wf.png")
+        reset_counts()
+        cli(["--conf", str(ROOT / "conf.json"), "--models-dir", models, "--engine", "wavefront",
+             "--width", str(width), "--height", str(height), "--spp", "1", "--out", str(out),
+             "--device", DEV])
+        conf_img = read_png(out)
+        conf_modes, launched = dict(ip.intersect_prims_c.by_mode), dict(wf.launches)
+        routes = {r for _, r in wf.calls}
+        scene, _ = build_scene(load_config(ROOT / "conf.json"), models_dir=models)
+    walks = {"nearest walk": launched.get("camera_rays", 0) + launched.get("shade_pre", 0),
+             "occlusion walk": launched.get("shade_pre", 0)}
+    check(conf_modes == walks and routes == {"cuda"},
+          f"the --conf wavefront launched {conf_modes} (each primary batch and bounce's walks "
+          f"{walks}) by the routes {routes}")
+    check(all(launched.get(k, 0) > 0 for k in wf.KERNELS), f"--conf wavefront: {launched}")
+    check(conf_img.shape[:2] == (height, width), f"--conf wavefront image {conf_img.shape}")
+    phase("g", f"CLI --conf --engine wavefront {width}x{height} spp 1 mb 8: "
+               f"{time.monotonic() - t1:.1f} s, routes {sorted(routes)}, intersector "
+               f"{conf_modes} (every query the walk), launches {launched}, image mean "
+               f"{float(conf_img[:, :, :3].mean()):.2f}/255")
+    cam = dataclasses.replace(scene.camera, width=width, height=height)
+    check(cam.use_dof and scene.env_pixels is not None, "conf.json: thin lens, sky map")
+    t1 = time.monotonic()
+    img, st = render_radiance(scene, cam, 1, 0, max_bounces=8, device=DEV)
+    with wf_route(True):
+        img_p, st_p = render_radiance(scene, cam, 1, 0, max_bounces=8, device=DEV)
+    same = bool(np.array_equal(img.view(np.int32), img_p.view(np.int32)))
+    phase("g", f"the --conf scene {width}x{height} spp 1 mb 8 ({scene.n_dir_sample} light "
+               f"samples a vertex) through render_radiance, kernel route vs plain route: image bitwise equal {same} ({int((img != img_p).sum())} "
+               f"values differ), rays {st['rays']} vs {st_p['rays']}; "
+               f"{time.monotonic() - t1:.1f} s")
+    check(same and st["rays"] == st_p["rays"],
+          "the --conf wavefront image differs from the plain route's")
+
+
+def same_bits(label, name, got, want):
+    """`got` and `want` (tensors, or 3-tuples of them) bitwise equal
+    (float32 compared as int32: +0 and -0 differ, NaN patterns must
+    match)."""
+    if isinstance(got, tuple):
+        for k, (g, w) in enumerate(zip(got, want)):
+            same_bits(label, f"{name}[{k}]", g, w)
+        return
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{label}: {name} dtype/shape {got.dtype} {tuple(got.shape)} vs {want.dtype} "
+          f"{tuple(want.shape)}")
+    view = (lambda x: x.view(torch.int32)) if got.dtype == torch.float32 else (lambda x: x)
+    differ = view(got) != view(want)
+    check(not bool(differ.any()),
+          f"{label}: {name} differs from the plain version on {int(differ.sum())} of "
+          f"{got.numel()} lanes")
+
+
+def kernels_vs_plain_trace(label, sc, seed, mb=8, timed=False):
+    """(l): the four wavefront kernels against their plain versions on one
+    65,536-pixel tile of `sc` (256x256, spp 1), bounce by bounce on the same
+    inputs: the camera rays, every field of shade_pre (next rays, the fan,
+    the per-lane terms), the intersector on the kernel's fan and next rays,
+    shade_post's records row, next alive and ray count, the fold's
+    radiance; then `trace_paths_c` through both routes end to end. With
+    `timed`, each kernel's ms at depth 0 (the median of 5 means of 10),
+    its plain version's ms (one run) and its bound."""
+    t0 = time.monotonic()
+    cam = dataclasses.replace(sc.camera, width=TILE_SIDE, height=TILE_SIDE)
+    (pack, method), = replicate_pack(sc.compile(), [DEV]).values()
+    ids = torch.arange(TILE_PX, device=DEV)
+    (sample,) = prng.host_split(prng.key(seed).tolist(), 1)
+    k_cam, key = torch.tensor(prng.host_split(sample), dtype=torch.int64, device=DEV)
+    b, s = 3 * TILE_PX, wfr.n_samples(pack)
+    chan = torch.arange(3, device=DEV).repeat(TILE_PX)
+    lam = torch.tensor(WAVELEN_UM, device=DEV)[chan]
+    o, d = wf.camera_rays(cam, ids, k_cam, 3)
+    same_bits(label, "camera rays", (*o, *d), sum(wfr.camera_rays(cam, ids, k_cam, 3), ()))
+    o0, d0 = o, d
+    hit = intersect_c(pack, o, d, method=method)
+    alive = torch.ones(b, dtype=torch.bool, device=DEV)
+    rec, rec_p = wfr.new_records(mb, b, DEV), wfr.new_records(mb, b, DEV)
+    rays, rays_p = (torch.zeros((), dtype=torch.int64, device=DEV) for _ in range(2))
+    timing, bounces = {}, 0
+    for depth in range(mb):
+        if not bool(alive.any()):
+            break
+        bounces += 1
+        args = (pack, o, d, hit, alive, depth, key, lam, chan)
+        pre = wf.shade_pre(*args)
+        for f, got, want in zip(wfr.PreOut._fields, pre, wfr.shade_pre(*args)):
+            same_bits(label, f"depth {depth} shade_pre {f}", got, want)
+        sh_t = (occlude_t_c(pack, pre.p_dl, pre.ws, method=method, fan=s)
+                if s and pack.enable_shadow else None)
+        nxt = intersect_c(pack, pre.p_new, pre.wi, method=method)
+        post_args = (pack, pre, sh_t, nxt.prim)
+        if timed and depth == 0:
+            timing = time_halves(label, args, post_args, rec, rays, cam, ids, k_cam, b, s)
+        nxt_alive = wf.shade_post(*post_args, rec, depth, rays)
+        same_bits(label, f"depth {depth} shade_post alive", nxt_alive,
+                  wfr.shade_post(*post_args, rec_p, depth, rays_p))
+        for f in wfr.Records._fields:
+            same_bits(label, f"depth {depth} record {f}", getattr(rec, f)[depth],
+                      getattr(rec_p, f)[depth])
+        check(int(rays) == int(rays_p), f"{label}: depth {depth} rays {int(rays)} vs "
+                                        f"{int(rays_p)}")
+        o, d, hit, alive = pre.p_new, pre.wi, nxt, nxt_alive
+    rad = wf.fold(rec)
+    same_bits(label, "fold radiance", rad, wfr.fold(rec))
+    if timed:
+        timing["fold"] = time_fold(label, rec, b)
+    r_k, st_k = trace_paths_c(pack, o0, d0, lam, chan, key, max_bounces=mb, method=method)
+    with wf_route(True):
+        r_p, st_p = trace_paths_c(pack, o0, d0, lam, chan, key, max_bounces=mb, method=method)
+    same_bits(label, "trace_paths_c radiance, kernel route vs plain route", r_k, r_p)
+    same_bits(label, "trace_paths_c radiance vs the stepped fold", r_k, rad)
+    check(int(st_k.rays) == int(st_p.rays) == int(rays) + b,
+          f"{label}: rays {int(st_k.rays)} vs {int(st_p.rays)}")
+    phase("l", f"{label}: {b} lanes, {s} light samples a vertex, intersector "
+               f"{pack.walk is not None and 'walk' or method}, "
+               f"{'thin lens' if cam.use_dof else 'pinhole'}, {pack.n_sph_emitters} emissive "
+               f"spheres, {bounces} bounces: camera_rays, "
+               f"shade_pre, shade_post and fold bitwise equal to their plain versions on every "
+               f"lane at every bounce (records, next rays, fan, alive), radiance and "
+               f"{int(st_k.rays)} rays equal through both routes; mean radiance "
+               f"{float(r_k.mean()):.5f}; {time.monotonic() - t0:.1f} s")
+    return timing
+
+
+def table_bytes(*xs):
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def cuda_ms_cold(fn, reps=20):
+    """Device milliseconds of one fn() whose inputs come from DRAM: each run
+    timed alone between two CUDA events after a read of L2_FLUSH_BYTES
+    that evicts the L2 (a read, so no dirty line is left for fn to write
+    back), the median of `reps`; the runs queue behind a spin, as in
+    `cuda_ms`."""
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=DEV)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(4 * SPIN_CYCLES * reps)
+    for start, end in events:
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(end) for start, end in events)
+
+
+def kernel_row(label, name, kernel, plain, flops, nbytes, extra=""):
+    """A wavefront kernel's row of the kernels line: its ms from DRAM
+    (`cuda_ms_cold`), its plain version's ms (one run) and its bound; the
+    back-to-back time with its inputs L2-resident is printed beside them."""
+    kernel()  # warm
+    plain()
+    plain_ms = synced_s(plain) * 1e3
+    ms = cuda_ms_cold(kernel)
+    warm_ms = cuda_ms(kernel, 10, windows=5)
+    bound_ms, bound_by = roofline(flops, nbytes)
+    phase("kernel", f"{label} [{name}]: kernel {ms:.4f} ms with the L2 flushed before each "
+                    f"launch ({warm_ms:.4f} ms back to back, L2-resident), plain "
+                    f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
+                    f"{nbytes / 1e6:.2f} MB, {flops:.4g} operations), share "
+                    f"{bound_ms / ms:.4f}{extra}")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": 0.0, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def time_halves(label, args, post_args, rec, rays, cam, ids, k_cam, b, s):
+    """The camera, shade_pre and shade_post at the tile's depth-0 shapes:
+    kernel ms, plain ms and the bound (each input read once, each output
+    written once: the lane planes, the tables the lanes read, the fan).
+    The shading's float operations are `OPS_PER['vertex']` a lane at four
+    light samples, scaled by S / 4, and two env lookups where the scene has
+    a map; bytes bound all three."""
+    pack = args[0]
+    p_px = ids.numel()
+    cam_row = kernel_row(label, "camera_rays", lambda: wf.camera_rays(cam, ids, k_cam, 3),
+                         lambda: wfr.camera_rays(cam, ids, k_cam, 3),
+                         b * OPS_PER["camera"], 8 * p_px + 16 + 24 * b)
+    env = pack.env_pixels if pack.use_env else pack.env_pixels[:0]
+    tabs = table_bytes(pack.tri_shade, pack.sph_shade, pack.mat_fat, pack.emt_fat, pack.emt_mesh,
+                       pack.emt_intra_cum, pack.emt_mesh_area, pack.lmesh_cum)
+    env_bytes = min(table_bytes(env), 2 * 4 * 4 * b)  # the texels 2 lookups a lane touch
+    pre_bytes = b * (53 + 13 * 4 + 2 + 5 * 4 * s) + 16 + tabs + env_bytes
+    pre_ops = b * (OPS_PER["vertex"] * max(s, 4) / 4 + (2 * OPS_PER["env"] if pack.use_env else 0))
+    pre_row = kernel_row(label, "shade_pre", lambda: wf.shade_pre(*args),
+                         lambda: wfr.shade_pre(*args), pre_ops, pre_bytes)
+    scratch, rays_s = wfr.Records(*(x.clone() for x in rec)), rays.clone()
+    post_bytes = b * (12 * s + 16 + 2 + 4 + 12 + 2) + 8 + table_bytes(pack.prim_emissive)
+    post_row = kernel_row(label, "shade_post",
+                          lambda: wf.shade_post(*post_args, scratch, 0, rays_s),
+                          lambda: wfr.shade_post(*post_args, scratch, 0, rays_s),
+                          b * (3 * s + 12), post_bytes)
+    return {"camera_rays": cam_row, "shade_pre": pre_row, "shade_post": post_row}
+
+
+def time_fold(label, rec, b):
+    """The fold on the tile's records. Its bytes are what the lanes' values
+    need: the terminal flags up to each lane's first terminal depth f, the
+    leaf there, the l_dir and w of the f depths before it (the kernel reads
+    just these), and the output; its operations, six a folded depth."""
+    depth = rec.leaf.shape[0]
+    term = rec.terminal
+    first = torch.where(term.any(0), term.to(torch.int32).argmax(0), depth).to(torch.int64)
+    folded = int(first.sum())
+    nbytes = (int(torch.clamp(first + 1, max=depth).sum()) + 4 * int((first < depth).sum())
+              + 8 * folded + 4 * b)
+    return kernel_row(label, "fold", lambda: wf.fold(rec), lambda: wfr.fold(rec),
+                      6 * folded, nbytes, f" ({depth} records a lane, {folded / b:.3f} "
+                                          f"folded a lane)")
+
+
+def lens_lamp_demo():
+    """The DEMO seen through a thin lens (focused at 800, aperture radius 8)
+    with an emissive sphere beside its area light: the camera's lens draws
+    and the light pick's sphere branch."""
+    sc = demo_scene()
+    sc.add(Sphere((200.0, 120.0, 300.0), 40.0, make_light_material(1.0), "lamp"))
+    sc.camera = dataclasses.replace(sc.camera, use_dof=True, focal_distance=800.0,
+                                    aperture_radius=8.0)
+    return sc
+
+
+def wavefront_kernels(soldier):
+    """(l): the four wavefront kernels bitwise against their plain versions
+    on the DEMO (timed), the sky-lit DEMO, DEMO + soldier (the walk), the
+    DEMO at 40 light samples and the DEMO through a thin lens with an
+    emissive sphere."""
+    t0 = time.monotonic()
+    timing = kernels_vs_plain_trace("(l) DEMO", demo_scene(), 1, timed=True)
+    sky = demo_scene()
+    sky.load_env_map(SKY)
+    kernels_vs_plain_trace("(l) sky-lit DEMO", sky, 2)
+    kernels_vs_plain_trace("(l) DEMO + soldier", soldier, 3)
+    forty = demo_scene()
+    forty.n_dir_sample = 40
+    kernels_vs_plain_trace("(l) DEMO, 40 light samples", forty, 4)
+    lens = lens_lamp_demo()
+    check(lens.camera.use_dof and lens.compile().n_sph_emitters == 1,
+          "the thin-lens DEMO: one emissive sphere")
+    kernels_vs_plain_trace("(l) DEMO, thin lens and an emissive sphere", lens, 5)
+    phase("l", f"{time.monotonic() - t0:.1f} s")
+    return timing
 
 
 def lockstep_path(pack, regen_img):
@@ -1236,6 +1635,9 @@ def train_cell(label, host, cam, ids, spp, mb, steps, profile=False):
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(by_mode.get("nearest", 0) > 0 and by_mode.get("occlusion fan", 0) > 0,
           f"{label}: the train step launched {by_mode}")
+    halves = {k: v for k, v in wf.calls.items() if k[0] != "camera_rays"}
+    check(set(r for _, r in halves) == {"plain (autograd)"} and "shade_pre" not in wf.launches,
+          f"{label}: the train step's halves ran {halves}")
     check(all(np.isfinite(losses)), f"{label}: losses {losses}")
     check(any(bool((a.detach() != b).any()) for a, b in zip(params, start)),
           f"{label}: no parameter moved")
@@ -1400,7 +1802,8 @@ def main():
     with tempfile.TemporaryDirectory() as models:
         soldier = soldier_demo(models)
     at_prims = intersect_kernels(soldier)
-    wf_launches, soldier_launches = wavefront_path(mega_img, soldier)
+    wf_main, soldier_launches, _ = wavefront_path(mega_img, soldier)
+    at_wf = wavefront_kernels(soldier)
     ls_demo, ls_bvh = lockstep_path(pack, mega_img)
     t1 = time.monotonic()
     throughput(tables, regen=False, earlier=("the regen kernel, phase 5", regen_rate))
@@ -1441,8 +1844,9 @@ def main():
     src = "mcpt_tpu_torch/csrc/intersect_prims.cu"
     k2 = "mcpt_tpu/kernels/intersect_pallas.py:326"
     k3 = "mcpt_tpu/kernels/intersect_pallas.py:135"
-    for mode, replaces, counts in (("nearest", k2, wf_launches), ("occlusion", k2, wf_launches),
-                                   ("occlusion fan", k2, wf_launches),
+    for mode, replaces, counts in (("nearest", k2, wf_main["modes"]),
+                                   ("occlusion", k2, wf_main["modes"]),
+                                   ("occlusion fan", k2, wf_main["modes"]),
                                    ("nearest tiled", k3, soldier_launches),
                                    ("occlusion tiled", k3, soldier_launches),
                                    ("occlusion fan tiled", k3, soldier_launches),
@@ -1453,6 +1857,13 @@ def main():
     # no render launches the triangles-only entry (K4 has no render path)
     rows.append(("intersect_prims<tris>", src, "mcpt_tpu/kernels/intersect_pallas.py:53", 0,
                  at_prims["tris"]))
+    # no Pallas kernel: the JAX code XLA compiles under jit that each replaces
+    src = "mcpt_tpu_torch/csrc/wavefront.cu"
+    for name, replaces in (("camera_rays", "mcpt_tpu/camera.py:55"),
+                           ("shade_pre", "mcpt_tpu/integrator.py:200"),
+                           ("shade_post", "mcpt_tpu/integrator.py:266"),
+                           ("fold", "mcpt_tpu/integrator.py:347")):
+        rows.append((name, src, replaces, wf_main["kernels"][name], at_wf[name]))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": n, "max_abs_err": m["max_abs_err"], "ms": m["ms"],

@@ -9,10 +9,11 @@ lockstep megakernel `csrc/mega_lockstep.cu`) for tensors on a CUDA device
 and runs its plain PyTorch version (`kernels/megakernel_ref.py`) for tensors
 on the CPU. `render_mega_sharded` interleaves the lanes over several
 devices. The wavefront engine is `render_radiance` →
-`integrator.trace_paths_c` → `intersect.intersect_c` / `occlude_t_c`, whose
-intersector is the CUDA kernel `csrc/intersect_prims.cu`
-(`kernels/intersect_prims.py`), with the random numbers of `jax.random`
-(`prng`). Every function takes its device explicitly.
+`integrator.trace_paths_c`, whose camera rays, bounce halves and fold are
+the CUDA kernels of `csrc/wavefront.cu` (`kernels/wavefront.py`) around the
+intersector `csrc/intersect_prims.cu` (`intersect.intersect_c` /
+`occlude_t_c`, `kernels/intersect_prims.py`), with the random numbers of
+`jax.random` (`prng`). Every function takes its device explicitly.
 
 Imports torch and numpy only (never jax, never mcpt_tpu).
 """

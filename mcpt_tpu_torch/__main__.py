@@ -19,7 +19,7 @@ import sys
 from mcpt_tpu_torch.builtin_scenes import demo_scene
 from mcpt_tpu_torch.config import DEFAULT_MODELS_DIR, build_scene, load_config
 from mcpt_tpu_torch.film import save_png
-from mcpt_tpu_torch.render import render, render_mega
+from mcpt_tpu_torch.render import ran_since, render, render_mega, wavefront_counts
 from mcpt_tpu_torch.utils.progress import format_duration
 
 
@@ -88,11 +88,13 @@ def main(argv=None):
         if out:
             save_png(out, fb)
     else:
+        before = wavefront_counts()
         fb, stats = render(
             scene, cam, spp, key=args.seed, out_path=out, max_bounces=args.max_bounces,
             method=args.method, progress=True, checkpoint_path=args.checkpoint,
             device=args.device,
         )
+        print(f"Wavefront: {ran_since(before)}")
     print(f"Writing image to {out}")
     print(
         f"Rendering finished in {format_duration(stats['elapsed_s'])} "

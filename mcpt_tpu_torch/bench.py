@@ -18,9 +18,10 @@ BENCH_REPEATS (timed renders, default 3), BENCH_NDIR (light samples per
 path vertex, default the DEMO's 4; other counts take the kernel's generic
 instances). MCPT_BENCH_WAVEFRONT=1 times the tile-based wavefront engine
 instead, as bench.py does: one render (`render_radiance`, key 0, its
-intersect kernel built outside the timed region), its rays counted as the
-wavefront counts them; it is host-bound (about 9 s per spp at 1080p on an
-H100), so set BENCH_SPP low.
+kernels built outside the timed region), its rays counted as the
+wavefront counts them, and the route and intersector launches it ran
+(`render.ran_since`) on stderr; the host starts a few launches a bounce
+(PERF.md has its time at 1080p), so set BENCH_SPP low.
 """
 
 import dataclasses
@@ -33,7 +34,8 @@ import torch
 
 from mcpt_tpu_torch.builtin_scenes import demo_scene
 from mcpt_tpu_torch.kernels.tables import SceneTables
-from mcpt_tpu_torch.render import render_mega, render_radiance, resolve_device
+from mcpt_tpu_torch.render import (ran_since, render_mega, render_radiance, resolve_device,
+                                   wavefront_counts)
 
 BASELINE_RAYS_PER_S = 1.48e7
 
@@ -63,9 +65,10 @@ def measure(dev, spp, max_bounces, n_rep=3, n_dir=None, wavefront=False, width=1
     log(f"bench: {dev} spp={spp} mb={max_bounces} n_dir_sample={sc.n_dir_sample} "
         f"engine={'wavefront' if wavefront else 'mega'}")
     if wavefront:
+        before = wavefront_counts()
         _, stats = render_radiance(sc, cam, spp, 0, max_bounces=max_bounces, device=dev)
         log(f"wavefront render: {stats['elapsed_s']:.3f}s rays={stats['rays']} -> "
-            f"{stats['rays_per_s']:.4e} rays/s")
+            f"{stats['rays_per_s']:.4e} rays/s, {ran_since(before)}")
         return stats["rays_per_s"]
     tables = SceneTables.from_pack(sc.compile(), device=dev)
     _, stats = render_mega(tables, cam, spp, seed=7, max_bounces=max_bounces, device=dev)

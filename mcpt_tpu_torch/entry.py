@@ -30,10 +30,10 @@ def _check(ok, what):
 
 
 def entry(device="cuda"):
-    from mcpt_tpu_torch.camera import generate_rays_c
     from mcpt_tpu_torch.constants import WAVELEN_UM
     from mcpt_tpu_torch.integrator import trace_paths
     from mcpt_tpu_torch.intersect import wavefront_pack
+    from mcpt_tpu_torch.kernels.wavefront import camera_rays
     from mcpt_tpu_torch.render import resolve_device
 
     dev = resolve_device(device)
@@ -41,7 +41,7 @@ def entry(device="cuda"):
     pack, method = wavefront_pack(host, dev)
     ids = torch.arange(cam.width * cam.height, device=dev)
     key = prng.key(0, dev)
-    o, d = generate_rays_c(cam, ids, key)
+    o, d = camera_rays(cam, ids, key)
     o3 = torch.stack(o, dim=1).repeat_interleave(3, dim=0)
     d3 = torch.stack(d, dim=1).repeat_interleave(3, dim=0)
     chan = torch.arange(3, device=dev).repeat(ids.shape[0])

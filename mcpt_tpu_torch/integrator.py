@@ -9,41 +9,39 @@ fold that reproduces the nested per-level firefly clamps exactly:
 
     L_d = terminal_d ? leaf_d : clamp15(l_dir_d) + clamp5(w_d · L_{d+1})
 
-The random numbers are `jax.random`'s, reproduced by `prng`: per bounce
-`kd = fold_in(key, depth)`, the vertex draws `uniform(fold_in(kd, 0), (B,
-4))` and the light draws `uniform(fold_in(kd, 1), (S·B, 4))`, so a lane
-draws what it draws in the JAX function. The NEE problem keeps the (S, B)
-plane-major layout; its S·B shadow rays go to `occlude_t_c` as one batch,
-in its fan form: the B points once, ray k·B + i from point i.
+A bounce is `kernels/wavefront.py`'s `shade_pre`, the intersector (the
+S·B shadow rays through `occlude_t_c` in its fan form, the B origins once
+and ray k·B + i from origin i; the next rays through `intersect_c`), then
+`shade_post`; the radiance is `fold` of the records. On a CUDA pack each of
+the three is a CUDA kernel (`csrc/wavefront.cu`), so a bounce is four
+launches; on the CPU they are their plain versions
+(`kernels/wavefront_ref.py`). The random numbers are `jax.random`'s,
+reproduced by `prng`: per bounce `kd = fold_in(key, depth)`, the vertex
+draws of `uniform(fold_in(kd, 0), (B, 4))` and the light draws of
+`uniform(fold_in(kd, 1), (S·B, 4))`, so a lane draws what it draws in the
+JAX function.
 
 With `early_exit` the bounce loop is a Python loop that stops once no lane
 is alive (one host sync per bounce); records are preallocated (D, B).
-Autograd follows the whole pass (`diff.py`) as the detached-sampling
-estimator of the JAX package: every hit's t, u and v are detached
-(`_detach_hit`), so gradients flow through the shading terms (eval, pdf,
-Fresnel, emission, the reparameterized GGX draw), not through the
-intersector.
+
+The training route: when grad mode is on and a pack tensor requires grad
+(`diff.render_lanes` under `make_train_step` and the hybrid step's
+pull-back), the bounce runs the plain halves on every device, so that
+autograd follows them (the kernels have no backward yet); the wrapper
+counts those calls under the route `plain (autograd)`. Autograd follows the
+whole pass as the detached-sampling estimator of the JAX package: every
+hit's t, u and v are detached (`_detach_hit`), so gradients flow through
+the shading terms (eval, pdf, Fresnel, emission, the reparameterized GGX
+draw), not through the intersector.
 """
 
 from typing import NamedTuple
 
 import torch
 
-from mcpt_tpu_torch import prng
-from mcpt_tpu_torch.bsdf import (
-    eval_bsdf_c,
-    fresnel_c,
-    gather_material,
-    pdf_c,
-    refract_c,
-    sample_mfn_c,
-)
-from mcpt_tpu_torch.constants import CLAMP_DIRECT, CLAMP_INDIRECT, EPSILON, REL_EPS
-from mcpt_tpu_torch.envmap import sample_env_chan
-from mcpt_tpu_torch.intersect import Hit, intersect_c, occlude_t_c, surface_at_c
-from mcpt_tpu_torch.kernels.megakernel_ref import _dot, _neg, _reflect, _where3
-from mcpt_tpu_torch.kernels.megakernel_ref import sqrt_f32 as _sqrt
-from mcpt_tpu_torch.lights import sample_light_c
+from mcpt_tpu_torch.intersect import Hit, intersect_c, occlude_t_c
+from mcpt_tpu_torch.kernels import wavefront
+from mcpt_tpu_torch.kernels.wavefront_ref import n_samples, new_records
 
 
 def _detach_hit(hit: Hit) -> Hit:
@@ -53,132 +51,24 @@ def _detach_hit(hit: Hit) -> Hit:
     return Hit(t=hit.t.detach(), prim=hit.prim, u=hit.u.detach(), v=hit.v.detach())
 
 
-def _env(pack, d, chan):
-    bg = tuple(float(b) for b in pack.background)
-    return sample_env_chan(pack.env_pixels, bg, pack.use_env, d, chan)
-
-
-def direct_lighting_c(pack, key, wo, p, n, uv, m, lam, chan, is_reflect, method):
-    """NEE estimator (Scene.cpp:56-82): the un-weighted sum over the lane's
-    `n_dir_sample` light samples (the caller applies the kr / (1 - kr)
-    Fresnel weight)."""
-    b = p[0].shape[0]
-    if pack.n_emitters == 0:
-        return torch.zeros(b, dtype=torch.float32, device=p[0].device)
-    s = pack.n_dir_sample
-    u = prng.uniform(key, (s * b, 4))
-    ls = sample_light_c(pack, u, chan.expand(s, b).reshape(-1))
-    lp = tuple(x.reshape(s, b) for x in ls.p)
-    ln = tuple(x.reshape(s, b) for x in ls.n)
-    emit = ls.emit.reshape(s, b)
-    lpdf = ls.pdf.reshape(s, b)
-
-    delta = tuple(lp[k] - p[k] for k in range(3))  # (S, B) by broadcast
-    dist = _sqrt(torch.clamp_min(_dot(delta, delta), 1e-20))
-    inv_dist = 1.0 / dist
-    ws = tuple(x * inv_dist for x in delta)
-    if pack.enable_shadow:
-        # a fan of s shadow rays from each of the b points, ray k·b + i from p[i]
-        sh_t = occlude_t_c(pack, p, tuple(x.reshape(s * b) for x in ws), method=method,
-                           fan=s).reshape(s, b)
-        # no hit strictly closer than the light sample, by a relative margin
-        visible = sh_t >= dist - torch.clamp_min(REL_EPS * dist, EPSILON)
-    else:
-        visible = torch.ones((s, b), dtype=torch.bool, device=dist.device)
-    ev = eval_bsdf_c(m, ws, wo, n, lam, uv, is_reflect)
-    # Scene.cpp:76-78: emit · eval · (ws·n) · (−ws·n_light) / dist² / pdf / S
-    contrib = (
-        emit * ev * _dot(ws, n) * -_dot(ws, ln) * (inv_dist * inv_dist)
-        / lpdf / torch.full_like(lpdf, s)
-    )
-    contrib = torch.where(visible, contrib, 0.0)
-    total = contrib[0]
-    for k in range(1, s):
-        total = total + contrib[k]
-    return total
-
-
 class PathStats(NamedTuple):
     rays: torch.Tensor  # () total rays traced (primary + shadow + bounce)
 
 
-def _bounce(pack, o, d, hit, alive, depth, key, lam, chan, method):
-    """One bounce of the pool: the records of `depth` and the next carry."""
-    b = o[0].shape[0]
-    kd = prng.fold_in(key, depth)
-    surf = surface_at_c(pack, o, d, hit)
-    happened = surf.happened
-    wo = _neg(d)
+def needs_autograd(pack) -> bool:
+    """Grad mode is on and a tensor of `pack` requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(v, torch.Tensor) and v.requires_grad for v in vars(pack).values())
 
-    env_leaf = _env(pack, d, chan)  # miss: env/background (Scene.cpp:88-95)
-    m = gather_material(pack, surf.mat, chan)
-    # depth-0 emitter hit (Scene.cpp:102-107)
-    b_leaf = torch.clamp(m["emit"] * torch.abs(_dot(wo, surf.n)), 0.0, 1.0)
-    is_b = happened & surf.emissive if depth == 0 else torch.zeros_like(happened)
-    at_vertex = alive & happened & ~is_b
 
-    # microfacet normal + Fresnel split (Scene.cpp:109-110)
-    xi = prng.uniform(prng.fold_in(kd, 0), (b, 4))
-    mfn = sample_mfn_c(m, surf.n, xi[:, 0], xi[:, 1])
-    kr = fresnel_c(m, d, mfn, lam)
-
-    # NEE from the scale-relative ε-offset point (Scene.cpp:113-119)
-    p = surf.p
-    off_scale = torch.clamp_min(
-        REL_EPS * torch.maximum(torch.abs(p[0]), torch.maximum(torch.abs(p[1]), torch.abs(p[2]))),
-        EPSILON,
-    )
-    p_dl = tuple(p[k] + surf.n[k] * off_scale for k in range(3))
-    inner = _dot(wo, surf.n) < 0.0
-    l_dir_raw = direct_lighting_c(
-        pack, prng.fold_in(kd, 1), wo, p_dl, surf.n, surf.uv, m, lam, chan, ~inner, method
-    )
-    l_dir = torch.where(inner, 1.0 - kr, kr) * l_dir_raw
-
-    # Russian roulette + stochastic reflect/refract (Scene.cpp:121-159)
-    rr_kill = xi[:, 2] >= float(pack.rr_rate)
-    branch_reflect = xi[:, 3] < kr
-    sign_reflect = torch.where(_dot(wo, mfn) < 0.0, -1.0, 1.0)
-    sign = torch.where(branch_reflect, sign_reflect, -sign_reflect)
-    p_new = tuple(p[k] + surf.n[k] * (off_scale * sign) for k in range(3))
-    wi = _where3(branch_reflect, _reflect(wo, mfn), refract_c(m, d, mfn, lam))
-    nxt = _detach_hit(intersect_c(pack, p_new, wi, method=method))
-    nprim = nxt.prim.to(torch.int64)
-    nxt_emissive = (nprim >= 0) & (pack.prim_emissive[nprim.clamp(min=0), 0] > 0.5)
-
-    inv_rr = float(pack.inv_rr)
-    ev = eval_bsdf_c(m, wi, wo, surf.n, lam, surf.uv, branch_reflect)
-    pv = pdf_c(m, wi, wo, surf.n, lam, branch_reflect)
-    # indirect weight (Scene.cpp:135-144,162-171), the reference's |wo·n|
-    pv_ok = torch.abs(pv) > 1e-10
-    w_rough = torch.where(
-        pv_ok, ev * torch.abs(_dot(wo, surf.n)) / torch.where(pv_ok, pv, 1.0) * inv_rr, 0.0
-    )
-    w = torch.where(m["dirac"] > 0.5, ev * inv_rr, w_rough)
-
-    cont = at_vertex & ~rr_kill & (nprim >= 0) & ~nxt_emissive
-    env_ind = _env(pack, wi, chan) * ev * inv_rr
-    leaf = torch.where(
-        ~alive,
-        0.0,
-        torch.where(
-            ~happened,
-            env_leaf,
-            torch.where(
-                is_b,
-                b_leaf,
-                torch.where(
-                    rr_kill,
-                    l_dir,  # raw early return (Scene.cpp:129,156)
-                    torch.clamp(l_dir, 0.0, CLAMP_DIRECT)
-                    + torch.clamp(env_ind, 0.0, CLAMP_INDIRECT),
-                ),
-            ),
-        ),
-    )
-    shadow_rays = pack.n_dir_sample if pack.n_emitters else 0
-    n_rays = at_vertex.sum() * (1 + shadow_rays)
-    return (p_new, wi, nxt, cont), (l_dir, w, leaf, ~cont, n_rays)
+def trace_route(pack, device) -> str:
+    """The route of the bounce's halves and the fold: `plain (autograd)` by
+    the training rule, else the device's (`wavefront.device_route`: the
+    kernels on a CUDA device, the plain versions on the CPU or inside
+    `wavefront.plain_route()`)."""
+    if needs_autograd(pack):
+        return "plain (autograd)"
+    return wavefront.device_route(device)
 
 
 def trace_paths_c(pack, o, d, lam, chan, key, max_bounces=8, method="auto", early_exit=True):
@@ -188,30 +78,24 @@ def trace_paths_c(pack, o, d, lam, chan, key, max_bounces=8, method="auto", earl
     the bounce loop once every lane has terminated (the same result)."""
     b = o[0].shape[0]
     dev = o[0].device
+    route = trace_route(pack, dev)
+    s = n_samples(pack)
     hit = _detach_hit(intersect_c(pack, o, d, method=method))
-    carry = (o, d, hit, torch.ones(b, dtype=torch.bool, device=dev))
-    l_dirs = torch.zeros((max_bounces, b), dtype=torch.float32, device=dev)
-    ws = torch.zeros_like(l_dirs)
-    leaves = torch.zeros_like(l_dirs)
-    terminals = torch.ones((max_bounces, b), dtype=torch.bool, device=dev)
+    alive = torch.ones(b, dtype=torch.bool, device=dev)
+    rec = new_records(max_bounces, b, dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     for depth in range(max_bounces):
-        if early_exit and not bool(carry[3].any()):
+        if early_exit and not bool(alive.any()):
             break
-        carry, rec = _bounce(pack, *carry, depth, key, lam, chan, method)
-        l_dirs[depth], ws[depth], leaves[depth], terminals[depth] = rec[:4]
-        rays = rays + rec[4]
-
-    # reverse fold reproducing the nested per-level clamps (Scene.cpp:180-183)
-    radiance = torch.zeros(b, dtype=torch.float32, device=dev)
-    for depth in range(max_bounces - 1, -1, -1):
-        radiance = torch.where(
-            terminals[depth],
-            leaves[depth],
-            torch.clamp(l_dirs[depth], 0.0, CLAMP_DIRECT)
-            + torch.clamp(ws[depth] * radiance, 0.0, CLAMP_INDIRECT),
-        )
-    return radiance, PathStats(rays=rays + b)
+        pre = wavefront.shade_pre(pack, o, d, hit, alive, depth, key, lam, chan, route=route)
+        sh_t = None
+        if s and pack.enable_shadow:
+            # a fan of s shadow rays from each of the b points, ray k·b + i from p[i]
+            sh_t = occlude_t_c(pack, pre.p_dl, pre.ws, method=method, fan=s)
+        nxt = _detach_hit(intersect_c(pack, pre.p_new, pre.wi, method=method))
+        alive = wavefront.shade_post(pack, pre, sh_t, nxt.prim, rec, depth, rays, route=route)
+        o, d, hit = pre.p_new, pre.wi, nxt
+    return wavefront.fold(rec, route=route), PathStats(rays=rays + b)
 
 
 def trace_paths(pack, o, d, lam, chan, key, max_bounces=8, method="auto", early_exit=True):

@@ -8,20 +8,20 @@ quadratic's stable q-form, AABB slabs with ±EPSILON slack, nearest hit wins
 
 - **kernel**: the hand-written CUDA kernel `csrc/intersect_prims.cu`
   (`kernels/intersect_prims.py`), K2/K3 of the JAX package, for a CUDA pack
-  of at most `DENSE_MAX_TRIS` triangles: it walks the pack's BVH where the
-  pack has one (`pack.walk`, above `cluster_threshold` triangles) and sweeps
-  the table where it has none; on a CPU pack its plain version (the sweep).
+  of any size: it walks the pack's BVH where the pack has one
+  (`pack.walk`, above `cluster_threshold` triangles) and sweeps the table
+  where it has none; on a CPU pack its plain version (the sweep).
 - **dense**: two (B, 3) @ (3, 3T) products (`torch.matmul` in full float32)
   into every triangle's unit frame, then elementwise accept tests and an
   argmin — what JAX computes outside any Pallas kernel.
 - **bvh**: every ray walks the threaded BVH (`pack.bvh_fat`) in lockstep,
   one `.any()` per step; leaves test their primitives with gathered rows.
 
-`auto` picks `kernel` on a CUDA device for a padded table of at most 4096
-triangles, `dense` on the CPU, and `bvh` above 4096 (JAX's rule, with its
-TPU backend check read as "CUDA"). Every function takes the device pack
-(`scene.pack_to`); vectors are 3-tuples of (B,) tensors in the `_c`
-functions and (B, 3) rows elsewhere.
+`auto` picks `kernel` on a CUDA device at any table size (the walk takes
+any tree of at most `constants.BVH_STACK` levels), and on the CPU `dense`
+up to 4096 padded triangles and `bvh` above (JAX's rule). Every function
+takes the device pack (`scene.pack_to`); vectors are 3-tuples of (B,)
+tensors in the `_c` functions and (B, 3) rows elsewhere.
 """
 
 from contextlib import contextmanager
@@ -294,10 +294,13 @@ def intersect_kernel_c(pack, oc, dc) -> Hit:
 
 
 def resolve_method(pack, method: str) -> str:
+    """`auto`: the kernel on a CUDA pack at any table size (it walks the
+    pack's BVH where it has one), `dense` on the CPU up to DENSE_MAX_TRIS
+    padded triangles and `bvh` above."""
     if method == "auto":
-        if pack.n_tris > DENSE_MAX_TRIS:
-            return "bvh"
-        return "kernel" if pack.tri_sc.device.type == "cuda" else "dense"
+        if pack.tri_sc.device.type == "cuda":
+            return "kernel"
+        return "bvh" if pack.n_tris > DENSE_MAX_TRIS else "dense"
     if method not in ("kernel", "dense", "bvh"):
         raise ValueError(f"unknown intersect method {method!r}")
     return method
@@ -306,7 +309,8 @@ def resolve_method(pack, method: str) -> str:
 def wavefront_pack(host, device, method: str = "auto"):
     """(`host`, a compiled `ScenePack`, moved to `device` as the wavefront
     reads it, the method it resolves to there): the card's kernel walks the
-    scene's BVH where it has one, the `bvh` method gets its node rows."""
+    scene's BVH where it has one (a tree deeper than the walk's stack
+    raises, naming method="bvh"), the `bvh` method gets its node rows."""
     pack = pack_to(host, device)
     method = resolve_method(pack, method)
     walk = method == "kernel" and pack.tri_sc.device.type == "cuda"

@@ -143,7 +143,8 @@ def bvh_tables(pack, tri) -> tuple:
     leaf = start >= 0
     depth = bvh_depth(miss, leaf)
     if depth > BVH_STACK:
-        raise ValueError(f"BVH of {depth} levels > {BVH_STACK}, the walks' stack")
+        raise ValueError(f"BVH of {depth} levels > {BVH_STACK}, the walks' stack: render "
+                         f'such a tree through the wavefront with method="bvh"')
     finite = np.isfinite(lo) & np.isfinite(hi)
     scale = float(np.abs(np.where(finite, lo, 0.0)).max(initial=0.0))
     scale = max(scale, float(np.abs(np.where(finite, hi, 0.0)).max(initial=0.0)))

@@ -12,7 +12,11 @@ the JAX package draws at every use site.
 A key is an int64 tensor of shape (2,) holding the two uint32 words of
 `jax.random.key_data(key)`; `split` returns (n, 2). Keys live on the
 caller's device; no global generator is involved. uint32 arithmetic is done
-in int64 tensors masked to 32 bits.
+in int64 tensors masked to 32 bits, or in Python ints (`host_fold_in`,
+`host_split`: the wavefront render derives its per-chunk and per-sample
+keys on the host, a few hundred integer ops that would each be a device
+launch). `bits_at` and `uniform_at` draw single elements by their flat
+index, as the wavefront kernels do.
 """
 
 import torch
@@ -30,7 +34,7 @@ def threefry2x32(k0, k1, x0, x1):
     """The threefry2x32 hash of counter words (x0, x1) under key words
     (k0, k1): 20 rounds with a key injection after every four. Every
     argument is an int64 tensor of uint32 values (the keys may be
-    0-dimensional); returns the two output words."""
+    0-dimensional) or a Python int; returns the two output words."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & _M32
     x1 = (x1 + ks[1]) & _M32
@@ -75,11 +79,37 @@ def fold_in(k, data: int):
     return torch.cat([b0, b1])
 
 
+def host_fold_in(words, data: int):
+    """`fold_in` of a key given as its two words (Python ints), computed on
+    the host: `threefry2x32` takes ints as it takes tensors."""
+    return threefry2x32(int(words[0]), int(words[1]), 0, int(data) & _M32)
+
+
+def host_split(words, n: int = 2):
+    """`split(k, n)` of a key given as its two words, on the host: n pairs."""
+    return [threefry2x32(int(words[0]), int(words[1]), 0, i) for i in range(n)]
+
+
 def random_bits(k, shape):
     """32 random bits per element, as int64 in [0, 2^32)."""
     lo = _iota(shape, k.device)
     b0, b1 = threefry2x32(k[0], k[1], torch.zeros_like(lo), lo)
     return b0 ^ b1
+
+
+def bits_at(k, idx):
+    """The bits of the elements at flat indices `idx` (int64, any shape,
+    each below 2^32) of any `random_bits(k, shape)`: the hash of the
+    counter (0, idx), so a draw needs only its own index."""
+    b0, b1 = threefry2x32(k[0], k[1], torch.zeros_like(idx), idx)
+    return b0 ^ b1
+
+
+def uniform_at(k, idx):
+    """The elements at flat indices `idx` of `uniform(k, shape)` (float32,
+    [0, 1)), bit for bit: what the wavefront kernels draw per lane."""
+    bits = (bits_at(k, idx) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
 def uniform(k, shape, minval: float = 0.0, maxval: float = 1.0):

@@ -8,11 +8,14 @@ The wavefront render walks tiles of `tile_pixels` pixels × chunks of
 `spp_chunk` camera samples; each (tile, chunk) runs `_render_tile` with the
 key `fold_in(fold_in(key, tile), chunk)`, split into one key per sample and
 each of those into a camera key and a path key, as the JAX function does, so
-the draws are `jax.random`'s (`prng`). The framebuffer accumulates in
-float64 on the host and a checkpoint `.npz` (fb, chunk_weights, start_chunk,
-total_rays) is written every 16 chunks and removed on completion.
+the draws are `jax.random`'s (`prng`); these keys are hashed on the host
+(`prng.host_fold_in`, `host_split`), the bounce's own on the device. The
+framebuffer accumulates in float64 on the host and a checkpoint `.npz` (fb,
+chunk_weights, start_chunk, total_rays) is written every 16 chunks and
+removed on completion.
 """
 
+import collections
 import os
 import time
 
@@ -20,9 +23,10 @@ import numpy as np
 import torch
 
 from mcpt_tpu_torch import prng
-from mcpt_tpu_torch.camera import generate_rays_c
 from mcpt_tpu_torch.constants import WAVELEN_UM
 from mcpt_tpu_torch.integrator import trace_paths_c
+from mcpt_tpu_torch.kernels import wavefront
+from mcpt_tpu_torch.kernels.intersect_prims import intersect_prims_c
 from mcpt_tpu_torch.kernels.megakernel import load_library, trace_block
 from mcpt_tpu_torch.kernels.megakernel_ref import cam_static
 from mcpt_tpu_torch.kernels.tables import SceneTables
@@ -188,13 +192,14 @@ def _render_tile(pack, camera, pixel_ids, key, n_sub, max_bounces, method, early
     lam = torch.tensor(WAVELEN_UM, device=dev)[chan]
     fb = torch.zeros((p, 3), dtype=torch.float32, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
-    for k in prng.split(key, n_sub):
-        k1, k2 = prng.split(k)
-        o, d = generate_rays_c(camera, pixel_ids, k1)
-        o3 = tuple(x.repeat_interleave(3) for x in o)
-        d3 = tuple(x.repeat_interleave(3) for x in d)
+    # per sample split(key, n_sub)[s], split once more into a camera key and
+    # a path key, hashed on the host and moved once: (n_sub, 2, 2)
+    keys = torch.tensor([prng.host_split(k) for k in prng.host_split(key.tolist(), n_sub)],
+                        dtype=torch.int64, device=dev)
+    for s in range(n_sub):
+        o3, d3 = wavefront.camera_rays(camera, pixel_ids, keys[s, 0], 3)
         rad, stats = trace_paths_c(
-            pack, o3, d3, lam, chan, k2, max_bounces=max_bounces, method=method,
+            pack, o3, d3, lam, chan, keys[s, 1], max_bounces=max_bounces, method=method,
             early_exit=early_exit,
         )
         fb = fb + rad.reshape(p, 3)
@@ -223,9 +228,8 @@ def render_radiance(
     float32 numpy array and the JAX function's stats dict. `scene_or_pack`
     is a `Scene` or a `ScenePack`; `key` a `prng` key or an int seed
     (default `prng.key(0)`). `method` is the intersector (`intersect.
-    resolve_method`): on a CUDA device `auto` launches the CUDA kernel for
-    scenes of at most 4096 padded triangles, which walks the scene's BVH
-    where it has one.
+    resolve_method`): on a CUDA device `auto` launches the CUDA kernel at
+    any scene size, which walks the scene's BVH where it has one.
 
     `devices`, a list of torch devices (one may be listed several times),
     takes the place of `device`: tile i runs on devices[i % len(devices)],
@@ -234,13 +238,22 @@ def render_radiance(
     of JAX's `sharding=`, whose lanes the counter-based draws would key
     differently if a tile were split). With `trace_dir`, the tile loop runs
     under `utils.profiling.device_trace`, which writes a torch.profiler
-    Chrome trace there."""
+    Chrome trace there.
+
+    On a CUDA device the camera, each bounce's two shading halves and the
+    fold are CUDA kernels (`csrc/wavefront.cu`, built here, outside the
+    timed region); this function runs under `torch.inference_mode`, so the
+    training rule never applies. The stats keep the JAX function's keys;
+    the wrappers' counts (`kernels/wavefront.py`'s `calls` by route,
+    `intersect_prims_c.by_mode`) say what ran."""
     devs = resolve_devices(device, devices)
     host = scene_or_pack if isinstance(scene_or_pack, ScenePack) else scene_or_pack.compile()
     if key is None or isinstance(key, int):
         key = prng.key(key or 0)
-    on = {dev: (pack, m, key.to(dev))  # device -> (pack, method, key)
-          for dev, (pack, m) in replicate_pack(host, devs, method).items()}
+    words = key.tolist()  # the chunks' keys are hashed on the host
+    on = replicate_pack(host, devs, method)  # device -> (pack, method)
+    if any(dev.type == "cuda" for dev in on):
+        wavefront.load_library()
     w, h = camera.width, camera.height
     n_pix = w * h
     tile_pixels = min(tile_pixels, n_pix)
@@ -266,13 +279,13 @@ def render_radiance(
     with device_trace(trace_dir):
         for tile in range(n_tiles):
             dev = devs[tile % len(devs)]
-            pack, method_d, key_d = on[dev]
+            pack, method_d = on[dev]
             lo = tile * tile_pixels
             hi = min(lo + tile_pixels, n_pix)
             ids = torch.arange(lo, lo + tile_pixels, device=dev).clamp(max=n_pix - 1)
             for chunk in range(int(start_chunk[tile]), n_chunks):
                 sub = min(spp_chunk, spp - chunk * spp_chunk)
-                k = prng.fold_in(prng.fold_in(key_d, tile), chunk)
+                k = torch.tensor(prng.host_fold_in(prng.host_fold_in(words, tile), chunk))
                 tile_fb, rays = _render_tile(pack, camera, ids, k, sub, max_bounces, method_d)
                 fb[lo:hi] += tile_fb.cpu().numpy()[: hi - lo] * sub
                 chunk_weights[tile] += sub
@@ -305,6 +318,23 @@ def render_radiance(
     if checkpoint_path and os.path.exists(checkpoint_path):
         os.remove(checkpoint_path)
     return fb.reshape(h, w, 3).astype(np.float32), stats
+
+
+def wavefront_counts():
+    """A snapshot of the wavefront's counts, for `ran_since`: the calls by
+    route (`kernels/wavefront.py`) and the intersector kernel's launches by
+    mode."""
+    return collections.Counter(wavefront.calls), collections.Counter(intersect_prims_c.by_mode)
+
+
+def ran_since(snapshot) -> str:
+    """What the wavefront ran since `snapshot` (`wavefront_counts()`): the
+    routes of its camera, bounce halves and fold, and the intersector
+    kernel's launches by mode (none for the `dense` and `bvh` methods)."""
+    calls, modes = wavefront_counts()
+    routes = sorted({route for _, route in calls - snapshot[0]})
+    return (f"route {', '.join(routes) or 'none'}, intersector kernel launches "
+            f"{dict(modes - snapshot[1]) or 'none'}")
 
 
 def render(scene, camera=None, spp=None, key=None, out_path=None, **kw):

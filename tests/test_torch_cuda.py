@@ -41,7 +41,7 @@ from mcpt_tpu_torch.kernels.megakernel_ref import (
     trace_block_ref,
 )
 from mcpt_tpu_torch.kernels.tables import SceneTables, walk_tables
-from mcpt_tpu_torch.materials import Material
+from mcpt_tpu_torch.materials import Material, make_light_material
 from mcpt_tpu_torch.render import render_mega, render_mega_sharded, render_radiance
 from mcpt_tpu_torch.scene import Scene, Sphere, TriangleMesh, pack_to
 
@@ -818,3 +818,140 @@ def test_take_rows_is_the_gather_with_a_deterministic_backward(cuda_card, n, row
     want.index_add_(0, idx, g.double())
     scale = torch.zeros_like(want).index_add_(0, idx, g.double().abs())
     assert bool(((got[0].double() - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+def _wavefront_scene(name, tmp_path):
+    sc = demo_scene()
+    if name == "sky":
+        sc.load_env_map(SKY)
+    elif name == "forty":
+        sc.n_dir_sample = 40
+    elif name == "walk":
+        sc = _soldier_scene(tmp_path, (12, 10))
+    elif name == "lens lamp":
+        sc.add(Sphere((200.0, 120.0, 300.0), 40.0, make_light_material(1.0), "lamp"))
+        sc.camera = dataclasses.replace(sc.camera, use_dof=True, focal_distance=800.0,
+                                        aperture_radius=8.0)
+    return sc
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["demo", "sky", "forty", "walk", "lens lamp"])
+def test_wavefront_kernels_bitwise(cuda_card, tmp_path, name):
+    """csrc/wavefront.cu on the card against its plain versions on the same
+    CUDA inputs, bounce by bounce: the camera rays (a thin lens in `lens
+    lamp`), every field of shade_pre (an emissive sphere's light samples in
+    `lens lamp`), shade_post's records row, next alive and ray count, the
+    fold; then trace_paths_c through both routes."""
+    from mcpt_tpu_torch import prng
+    from mcpt_tpu_torch.constants import WAVELEN_UM
+    from mcpt_tpu_torch.integrator import trace_paths_c
+    from mcpt_tpu_torch.intersect import intersect_c, occlude_t_c
+    from mcpt_tpu_torch.kernels import wavefront as WF
+    from mcpt_tpu_torch.kernels import wavefront_ref as ref
+    from mcpt_tpu_torch.parallel import replicate_pack
+
+    sc = _wavefront_scene(name, tmp_path)
+    host = sc.compile(cluster_threshold=64) if name == "walk" else sc.compile()
+    (pack, method), = replicate_pack(host, ["cuda"]).values()
+    assert (pack.walk is not None) == (name == "walk")
+    assert (pack.n_sph_emitters == 1) == (name == "lens lamp") == sc.camera.use_dof
+    cam = dataclasses.replace(sc.camera, width=W, height=H)
+    ids = torch.arange(W * H, device="cuda")
+    key = prng.key(6, "cuda")
+    b, s = 3 * W * H, ref.n_samples(pack)
+    chan = torch.arange(3, device="cuda").repeat(W * H)
+    lam = torch.tensor(WAVELEN_UM, device="cuda")[chan]
+    before = dict(WF.launches)
+    o, d = WF.camera_rays(cam, ids, key, 3)
+    for g, w in zip((*o, *d), sum(ref.camera_rays(cam, ids, key, 3), ())):
+        assert torch.equal(_bits(g), _bits(w))
+    o0, d0 = o, d
+    hit = intersect_c(pack, o, d, method=method)
+    alive = torch.ones(b, dtype=torch.bool, device="cuda")
+    rec, rec_p = ref.new_records(6, b, "cuda"), ref.new_records(6, b, "cuda")
+    rays, rays_p = (torch.zeros((), dtype=torch.int64, device="cuda") for _ in range(2))
+    for depth in range(6):
+        args = (pack, o, d, hit, alive, depth, key, lam, chan)
+        pre = WF.shade_pre(*args)
+        for f, g, w in zip(ref.PreOut._fields, pre, ref.shade_pre(*args)):
+            pairs = zip(g, w) if isinstance(g, tuple) else ((g, w),)
+            for gg, ww in pairs:
+                assert torch.equal(_bits(gg), _bits(ww)), f"depth {depth} {f}"
+        sh_t = occlude_t_c(pack, pre.p_dl, pre.ws, method=method, fan=s)
+        nxt = intersect_c(pack, pre.p_new, pre.wi, method=method)
+        nxt_alive = WF.shade_post(pack, pre, sh_t, nxt.prim, rec, depth, rays)
+        assert torch.equal(nxt_alive, ref.shade_post(pack, pre, sh_t, nxt.prim, rec_p, depth,
+                                                     rays_p))
+        for f in ref.Records._fields:
+            assert torch.equal(_bits(getattr(rec, f)[depth]), _bits(getattr(rec_p, f)[depth]))
+        assert int(rays) == int(rays_p)
+        o, d, hit, alive = pre.p_new, pre.wi, nxt, nxt_alive
+    rad = WF.fold(rec)
+    assert torch.equal(_bits(rad), _bits(ref.fold(rec)))
+    assert all(WF.launches[k] > before.get(k, 0) for k in WF.KERNELS)
+    r_k, st_k = trace_paths_c(pack, o0, d0, lam, chan, key, max_bounces=6, method=method,
+                              early_exit=False)
+    with WF.plain_route():
+        r_p, st_p = trace_paths_c(pack, o0, d0, lam, chan, key, max_bounces=6, method=method,
+                                  early_exit=False)
+    assert torch.equal(_bits(r_k), _bits(rad)) and torch.equal(_bits(r_k), _bits(r_p))
+    assert int(st_k.rays) == int(st_p.rays) == int(rays) + b
+
+
+@pytest.mark.gpu
+def test_render_radiance_launches_the_wavefront_kernels(cuda_card):
+    """render_radiance on the card launches camera_rays, shade_pre,
+    shade_post and fold and runs no plain route; its image and rays equal
+    the plain route's bitwise."""
+    from mcpt_tpu_torch.kernels import wavefront as WF
+    from mcpt_tpu_torch.render import ran_since, wavefront_counts
+
+    sc = demo_scene()
+    cam = dataclasses.replace(sc.camera, width=W, height=H)
+    kw = dict(max_bounces=4, tile_pixels=256, spp_chunk=2, device="cuda")
+    WF.reset_counts()
+    before = wavefront_counts()
+    img, stats = render_radiance(sc, cam, 4, 3, **kw)
+    assert all(WF.launches[k] > 0 for k in WF.KERNELS)
+    assert {r for _, r in WF.calls} == {"cuda"}
+    assert WF.launches["shade_pre"] == WF.launches["shade_post"]
+    assert ran_since(before).startswith("route cuda, intersector kernel launches {'nearest': ")
+    WF.reset_counts()
+    with WF.plain_route():
+        img2, stats2 = render_radiance(sc, cam, 4, 3, **kw)
+    assert not WF.launches and {r for _, r in WF.calls} == {"plain"}
+    assert stats["rays"] == stats2["rays"]
+    np.testing.assert_array_equal(img.view(np.int32), img2.view(np.int32))
+
+
+@pytest.mark.gpu
+def test_train_route_keeps_the_plain_halves(cuda_card):
+    """Under autograd with grad-requiring parameters the bounce's halves run
+    as their plain versions (route `plain (autograd)`); under torch.no_grad
+    the same render launches the kernels, with the same radiance."""
+    from mcpt_tpu_torch import prng
+    from mcpt_tpu_torch.diff import SceneParams, apply_params, params_from_pack, render_lanes
+    from mcpt_tpu_torch.kernels import wavefront as WF
+    from mcpt_tpu_torch.parallel import replicate_pack
+
+    host = demo_scene().compile()
+    cam = dataclasses.replace(demo_scene().camera, width=W, height=H)
+    (pack, method), = replicate_pack(host, ["cuda"]).values()
+    ids = torch.arange(W * H, device="cuda")
+    p = SceneParams(*(x.requires_grad_() for x in params_from_pack(host, "cuda")))
+    WF.reset_counts()
+    fb = render_lanes(apply_params(pack, p), cam, ids, prng.key(3, "cuda"), spp=1,
+                      max_bounces=3, method=method)
+    assert WF.calls[("shade_pre", "plain (autograd)")] > 0 and "shade_pre" not in WF.launches
+    g = torch.autograd.grad(fb.sum(), [p.light_scale])[0]
+    assert bool(torch.isfinite(g)) and float(g) != 0.0
+    with torch.no_grad():
+        fb2 = render_lanes(apply_params(pack, p), cam, ids, prng.key(3, "cuda"), spp=1,
+                           max_bounces=3, method=method)
+    assert WF.launches["shade_pre"] > 0
+    assert torch.equal(_bits(fb.detach()), _bits(fb2))

@@ -24,9 +24,9 @@ from mcpt_tpu.kernels.intersect_pallas import intersect_prims_pallas_c
 import mcpt_tpu_torch.integrator as integrator
 import mcpt_tpu_torch.builtin_scenes as TB
 from mcpt_tpu_torch import prng
-from mcpt_tpu_torch.camera import generate_rays_c
 from mcpt_tpu_torch.intersect import occlude_t_c
 from mcpt_tpu_torch.kernels.intersect_prims import intersect_prims_c
+from mcpt_tpu_torch.kernels.wavefront import camera_rays
 from mcpt_tpu_torch.materials import Material
 from mcpt_tpu_torch.scene import Scene, Sphere, TriangleMesh, pack_to
 
@@ -133,7 +133,7 @@ def test_direct_lighting_fan_bitwise_to_the_expanded_call(monkeypatch, method):
     sc = TB.demo_scene()
     cam = dataclasses.replace(sc.camera, width=8, height=6)
     pack = pack_to(sc.compile(), "cpu")
-    o, d = generate_rays_c(cam, torch.arange(48), prng.key(3))
+    o, d = camera_rays(cam, torch.arange(48), prng.key(3))
     o, d = tuple(x.repeat_interleave(3) for x in o), tuple(x.repeat_interleave(3) for x in d)
     chan = torch.arange(3).repeat(48)
     lam = torch.tensor([0.65, 0.55, 0.45])[chan]

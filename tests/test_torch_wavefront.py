@@ -35,10 +35,10 @@ import mcpt_tpu_torch.builtin_scenes as TB
 import mcpt_tpu_torch.materials as TM
 import mcpt_tpu_torch.scene as TS
 from mcpt_tpu_torch import prng
-from mcpt_tpu_torch.camera import generate_rays_c
 from mcpt_tpu_torch.convert import PACK_FIELDS, PACK_STATIC, pack_from_arrays
 from mcpt_tpu_torch.intersect import intersect_brute, intersect_c, occlude_t_c
 from mcpt_tpu_torch.kernels.intersect_prims import intersect_prims_c, intersect_tris
+from mcpt_tpu_torch.kernels.wavefront import camera_rays
 
 AGREE = 0.999
 WAVEFRONT_FIELDS = (
@@ -134,7 +134,7 @@ def test_generate_rays_match_jax(dof, w, h):
                                 focal_distance=800.0, aperture_radius=8.0)
     ids = np.arange(w * h, dtype=np.int32)
     oj, dj = jax_generate_rays_c(cam_j, jnp.asarray(ids), jax.random.key(9))
-    ot, dt = generate_rays_c(cam_t, torch.from_numpy(ids), prng.key(9))
+    ot, dt = camera_rays(cam_t, torch.from_numpy(ids), prng.key(9))
     for k in range(3):
         # sin/cos and XLA's FMAs move the thin-lens rays by a few ULPs
         np.testing.assert_allclose(ot[k].numpy(), np.asarray(oj[k]), rtol=0, atol=1e-4)
