@@ -5,10 +5,10 @@ and checks them. Each phase prints its lines and its seconds; every failure
 raises, so the script exits nonzero and prints no result line.
 
 1. environment: card, torch, CUDA, nvcc, Triton; a CUDA device is required
-2. build: csrc/megakernel.cu, csrc/mega_lockstep.cu, csrc/intersect_prims.cu
-   and csrc/wavefront.cu with nvcc for sm_90a (one nvcc each, started
-   together), from this checkout; the registers and spills of every kernel
-   instance
+2. build: csrc/megakernel.cu, csrc/mega_lockstep.cu, csrc/intersect_prims.cu,
+   csrc/wavefront.cu and csrc/wavefront_bwd.cu with nvcc for sm_90a (one
+   nvcc each, started together), from this checkout; the registers and
+   spills of every kernel instance, the deep instances' among them
 3. the DEMO kernel (`mega_regen<4, false, false>`) against its plain PyTorch
    version, both on the card: at 64x48, spp 8, mb 6, seed 11, and at the main
    path's lane count (384x384x3 lanes, mb 8) with spp 2. Every megakernel
@@ -90,6 +90,19 @@ raises, so the script exits nonzero and prints no result line.
    786,432 rays, bitwise against its plain version; timed as the launch
    alone on the component planes, and `intersect_tris` on (B, 3) rows
    (its two transposing copies included) checked and timed beside it
+11b. (d-deep) trees deeper than the walks' local stack: the x4 box with its
+   tree replaced by chains of BVH_STACK + 1 and 64 levels (`chain_pack`),
+   through the deep instances `mega_regen_deep<4, false>`,
+   `mega_lockstep_deep<4>` and the generic ones at 7 light samples, and
+   the 64-level chain under the sky through `mega_regen_deep<4, true>` and
+   `mega_regen_deep<-16, true>` (64x48, spp 2, mb 6), each bitwise against
+   its plain version and against the box on its own shallow tree (ray
+   counts and radiance equal on every lane); K3's deep walk, nearest and
+   occlusion, on 196,608 rays bitwise against its plain version;
+   `render_mega` of the 64-level chain (both kernels, at 4 and 7 light
+   samples, and the regenerating kernel under the sky: each deep instance
+   must launch) and `render_radiance` with method auto, which must take the
+   deep walk
 12. (g) the wavefront main path: `render_radiance` of the DEMO at 1920x1080,
    spp WF_SPP, mb 8, method auto, tiles of 65,536 pixels, spp chunks of 8,
    which must launch the four kernels of csrc/wavefront.cu (`camera_rays`,
@@ -153,9 +166,10 @@ raises, so the script exits nonzero and prints no result line.
 14. (i) many samples a lane: both megakernels' per-lane loop over path
    vertices against the plain versions, bitwise on every lane, where each
    lane ends and restarts many paths: `mega_regen<4, false, false>` and
-   `mega_lockstep<4, false>` on the DEMO at 96x96x3 lanes, spp 32, mb 8;
+   `mega_lockstep<4, false>` on the DEMO at 96x96x3 lanes, spp 16, mb 8;
    `mega_regen<4, true, true>` (sky) and `mega_lockstep<4, true>` (no sky) on
-   the x4 Cornell box at its 48x48x3 lanes, spp 16, mb 8
+   the x4 Cornell box at its 48x48x3 lanes, spp 8, mb 8 (half PR 10's spp,
+   which paid for (d-deep) and (k5) in the script's time)
 15. (j) any light-sample count: both megakernels at 40 light samples a
    vertex (the generic instance of 32, two groups a vertex) against their
    plain versions, bitwise on every lane, on the DEMO (brute force) at
@@ -167,17 +181,28 @@ raises, so the script exits nonzero and prints no result line.
    K2's sweep and its occlusion fan form; Adam, whose every gradient is
    checked for NaN) on the native 384x384 DEMO (442,368 lanes), spp 2, mb
    4, three steps toward half the megakernel's image, which must launch K2
-   in the modes `nearest` and `occlusion fan` and move the parameters: fwd
-   ms/spp (`render_lanes` under torch.no_grad, and recording the graph),
-   fwd+bwd ms/spp, bwd/fwd, peak memory (`torch.cuda.max_memory_allocated`),
-   one step under torch.profiler (idle share, K2's device ms); (k2) the
+   in the modes `nearest` and `occlusion fan`, the wavefront's kernels and
+   its three backward kernels (no `plain (autograd)` call), and move the
+   parameters: fwd ms/spp (`render_lanes` under torch.no_grad, and
+   recording the graph), fwd+bwd ms/spp, bwd/fwd, peak memory
+   (`torch.cuda.max_memory_allocated`), the wavefront's calls by route, one
+   step under torch.profiler (idle share, the backward kernels' device
+   ms); (k2) the
    step's loss and gradients at 64x48 on the card and on the CPU (the plain
    versions), with tests/test_torch_diff.py's bounds against JAX; (k3) the
    step over the first 349,526 pixels of the 1920x1080 DEMO (1,048,578
-   lanes): ms/spp and peak memory; (k4) `make_train_step_hybrid` at 384x384,
-   spp_res 64, spp_grad 2, mb 4, which must launch K1 and K2: its wall split
-   between K1's render and the pull-back; (k5) `entry.dryrun_multichip(4)`
-   (["cuda:0"] x 4 on a host with fewer cards); (k6) a 384x384
+   lanes): ms/spp, peak memory and one profiled step; (k4)
+   `make_train_step_hybrid` at 384x384, spp_res 64, spp_grad 2, mb 4, which
+   must launch K1 and K2: its wall split between K1's render and the
+   pull-back, its pull-back through the backward kernels, its peak memory
+   and one profiled step; (k5) the backward kernels
+   (`csrc/wavefront_bwd.cu`) bitwise against their plain versions at a
+   tile's depth-0 shapes (196,608 lanes)
+   on (l)'s DEMO, sky-lit DEMO, DEMO at 40 light samples and thin-lens DEMO
+   with an emissive sphere, timed with a cold L2 on the DEMO beside their
+   bounds, and two train steps' gradients bitwise equal; (k7)
+   `entry.dryrun_multichip(4)` (["cuda:0"] x 4 on a host with fewer cards),
+   through the backward kernels; (k6) a 384x384
    `render_radiance(trace_dir=...)` writes a torch.profiler Chrome trace
    holding the intersector's kernels
 17. the registers, local bytes and resident blocks per SM of each megakernel
@@ -213,7 +238,7 @@ from mcpt_tpu_torch.builtin_scenes import _mesh, demo_scene
 from mcpt_tpu_torch.camera import Camera
 from mcpt_tpu_torch.config import build_scene, load_config
 from mcpt_tpu_torch.entry import dryrun_multichip
-from mcpt_tpu_torch.constants import EPSILON, REL_EPS, T_MAX, WAVELEN_UM
+from mcpt_tpu_torch.constants import BVH_STACK, EPSILON, REL_EPS, T_MAX, WAVELEN_UM
 from mcpt_tpu_torch.film import tonemap
 from mcpt_tpu_torch.integrator import trace_paths_c
 from mcpt_tpu_torch.intersect import intersect_c, intersect_dense, occlude_t_c
@@ -221,6 +246,7 @@ from mcpt_tpu_torch.intersect import surface_at_c
 from mcpt_tpu_torch.io.png import read_png
 from mcpt_tpu_torch.kernels import build as kbuild
 from mcpt_tpu_torch.kernels import intersect_prims as ip
+from mcpt_tpu_torch.kernels import lane_ad
 from mcpt_tpu_torch.kernels import megakernel as mk
 from mcpt_tpu_torch.kernels import wavefront as wf
 from mcpt_tpu_torch.kernels import wavefront_ref as wfr
@@ -393,14 +419,15 @@ def environment():
 
 
 def build():
-    """The four CUDA sources, one nvcc each, started together."""
+    """The five CUDA sources, one nvcc each, started together."""
     t0 = time.monotonic()
     builds = (lambda: mk.build(True, regen=True), lambda: mk.build(True, regen=False),
-              lambda: ip.build(True), lambda: wf.build(True))
+              lambda: ip.build(True), lambda: kbuild.build(wf.SOURCE, True),
+              lambda: kbuild.build(wf.BWD_SOURCE, True))
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         paths = list(pool.map(lambda b: b(), builds))
     for load in (lambda: mk.load_library(True), lambda: mk.load_library(False),
-                 ip.load_library, wf.load_library):
+                 ip.load_library, wf.load_library, lambda: wf.load_library(wf.BWD_SOURCE)):
         load()
     dt = time.monotonic() - t0
     phase("build", f"{dt:.1f} s -> {[str(p.relative_to(ROOT)) for p in paths]}")
@@ -672,6 +699,155 @@ def cornell_x4(sky=True):
     if sky:
         sc.load_env_map(SKY)
     return sc
+
+
+def chain_pack(levels, sphere_leaves=False, sky=False):
+    """The x4 box's pack (under the sky if `sky`) with its flat BVH replaced
+    by a chain of `levels` levels: interior node j has a leaf and interior
+    node j + 1 as children (DFS preorder: interior nodes at even, leaves at
+    odd indices, the last leaf last). The triangles are spread over the
+    leaves, or with `sphere_leaves` over every other leaf; leaves left over
+    hold a sphere only. Every box is the scene's, so every walk is exact."""
+    pack = cornell_x4(sky=sky).compile(cluster_threshold=8)
+    prims = np.asarray(pack.bvh_prims)
+    tris = np.sort(prims[(prims >= 0) & (prims < pack.t_pad)])
+    k = levels - 1  # interior nodes; k + 1 leaves
+    slots = range(0, k + 1, 2 if sphere_leaves else 1)
+    groups = [np.array([pack.t_pad])] * (k + 1)
+    for j, g in zip(slots, np.array_split(tris, len(slots))):
+        groups[j] = g if g.size else groups[j]
+    n = 2 * k + 1
+    leaf_ix = [2 * j + 1 for j in range(k)] + [2 * k]
+    start = np.full(n, -1, np.int32)
+    count = np.zeros(n, np.int32)
+    start[leaf_ix] = np.cumsum([0] + [g.size for g in groups[:-1]])
+    count[leaf_ix] = [g.size for g in groups]
+    miss = np.where(np.arange(n) % 2 == 1, np.arange(n) + 1, -1).astype(np.int32)
+    lo = np.minimum(np.asarray(pack.bvh_min).min(0), np.asarray(pack.bvh_max).min(0))
+    hi = np.maximum(np.asarray(pack.bvh_min).max(0), np.asarray(pack.bvh_max).max(0))
+    return dataclasses.replace(
+        pack, bvh_min=np.tile(lo, (n, 1)).astype(np.float32),
+        bvh_max=np.tile(hi, (n, 1)).astype(np.float32), bvh_miss=miss,
+        bvh_leaf_start=start, bvh_leaf_count=count,
+        bvh_prims=np.concatenate(groups).astype(np.int32),
+    )
+
+
+def deep_trees():
+    """(d-deep): trees of BVH_STACK + 1 and 64 levels (`chain_pack`, the x4
+    box's triangles on a chain), whose walks keep their stack in device
+    memory: the deep megakernel instances (regen and lockstep, S = 4 and
+    the generic light-count instance at 7 samples; the regen kernel's env
+    instances on the 64-level chain under the sky) against their plain
+    versions bitwise, and against the same box on its own shallow tree
+    (ray counts and radiance equal on every lane: both walks are exact);
+    K3's deep walk, nearest and occlusion, bitwise against its plain
+    version; then each deep instance's main path (`render_mega` of the
+    64-level chain, and the wavefront's `render_radiance` with method auto,
+    which must take the deep walk). Returns {row name: (launches,
+    measurements)} for the kernels line."""
+    t0 = time.monotonic()
+    sc = cornell_x4(sky=False)
+    cam = dataclasses.replace(sc.camera, width=64, height=48)
+    cs = cam_static(cam)
+    n = cam.width * cam.height * 3
+    shallow = {sky: SceneTables.from_pack(cornell_x4(sky=sky).compile(cluster_threshold=8),
+                                          device=DEV) for sky in (False, True)}
+    at = {}
+    # the env instances under the sky: the regenerating kernel only (the
+    # lockstep kernel takes no env map)
+    for sky, levels in ((False, BVH_STACK + 1), (False, 64), (True, 64)):
+        deep = SceneTables.from_pack(chain_pack(levels, sky=sky), device=DEV)
+        own = shallow[sky]
+        check(deep.bvh_depth == levels and deep.use_env == sky and mk.deep(deep)
+              and not mk.deep(own), f"(d-deep) chain of {levels} levels: depth {deep.bvh_depth}")
+        for regen in (True, False) if not sky else (True,):
+            for n_dir in (FAN, 7):
+                deep.n_dir_sample = own.n_dir_sample = n_dir
+                m = kernel_vs_plain(deep, cam, 2, 6, 11,
+                                    f"(d-deep) chain {levels}{' sky' if sky else ''}",
+                                    every_lane=True, regen=regen)
+                inst = mk.trace_block.last_instance
+                check("_deep<" in inst, f"(d-deep) launched {inst}")
+                r, ry = mk.trace_block(deep, cs, 11, 0, 2, n, 6, regen=regen)
+                r2, ry2 = mk.trace_block(own, cs, 11, 0, 2, n, 6, regen=regen)
+                check(torch.equal(ry, ry2) and torch.equal(r, r2),
+                      f"(d-deep) {inst} on {levels} levels differs from "
+                      f"{mk.trace_block.last_instance} on the box's own tree")
+                phase("d-deep", f"{inst}, {levels} levels: ray counts and radiance equal on "
+                                f"every lane to {mk.trace_block.last_instance} on the box's own "
+                                f"{own.bvh_depth}-level tree")
+                at[inst] = m
+        deep.n_dir_sample = own.n_dir_sample = FAN
+    # K3's deep walk on 196,608 rays through the box
+    pack = pack_to(chain_pack(64), DEV, walk=True)
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    lo = torch.tensor([0.0, 0.0, -800.0], device=DEV)
+    hi = torch.tensor([2224.0, 2195.2, 2236.8], device=DEV)
+    o = lo + (hi - lo) * torch.rand((3 * TILE_PX, 3), generator=gen, device=DEV)
+    d = torch.nn.functional.normalize(torch.randn((3 * TILE_PX, 3), generator=gen, device=DEV),
+                                      dim=1)
+    oc, dc = tuple(o[:, k].contiguous() for k in range(3)), tuple(d[:, k].contiguous()
+                                                                  for k in range(3))
+    for occ in (False, True):
+        mode = ("occlusion" if occ else "nearest") + " deep walk"
+
+        def kernel():
+            return ip.intersect_prims_c(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc,
+                                        occlusion=occ, walk=pack.walk)
+
+        kernel()
+        check(ip.intersect_prims_c.last_mode == mode,
+              f"(d-deep) the intersector reported {ip.intersect_prims_c.last_mode!r}")
+        ms = cuda_ms(kernel, 10, windows=5)
+        got = kernel()
+        ops = collections.Counter()
+        t1 = time.monotonic()
+        want = intersect_walk_ref(pack.walk.bvh, pack.walk.leaf, pack.sph_geom, pack.n_tris, oc,
+                                  dc, occlusion=occ, ops=ops, depth=pack.walk.depth)
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t1) * 1e3
+        err = bitwise(f"(d-deep) K3 {mode}", got, want, "the plain deep walk")
+        tables = table_bytes(pack.walk.bvh, pack.walk.leaf, pack.sph_geom)
+        bound_ms, bound_by = roofline(sum(OPS_PER[k] * v for k, v in ops.items()),
+                                      oc[0].numel() * (24 + (4 if occ else 16)) + tables)
+        phase("kernel", f"(d-deep) K3 [{mode}], {pack.walk.depth} levels, {oc[0].numel()} rays: "
+                        f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms "
+                        f"({bound_by}; {dict(ops)}), share {bound_ms / ms:.4f}; bitwise equal "
+                        f"on every ray to the plain version")
+        at[f"intersect_prims<{mode}>"] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                                          "bound_ms": bound_ms, "bound_by": bound_by}
+    # the main paths
+    host = {sky: chain_pack(64, sky=sky) for sky in (False, True)}
+    launches = collections.Counter()
+    for regen, n_dir, sky in ((True, FAN, False), (True, 7, False), (False, FAN, False),
+                              (False, 7, False), (True, FAN, True), (True, 7, True)):
+        reset_counts()
+        tables = SceneTables.from_pack(host[sky], device=DEV)
+        tables.n_dir_sample = n_dir
+        img, st = render_mega(tables, sc.camera, 4, seed=2, max_bounces=8, device=DEV,
+                              regen=regen)
+        launches.update(mk.trace_block.by_instance)
+        check(np.isfinite(img).all() and img.mean() > 0, "(d-deep) render_mega image")
+        phase("d-deep", f"render_mega of the 64-level chain, 48x48 spp 4 mb 8, n_dir {n_dir}, "
+                        f"regen {regen}, sky {sky}: launches {dict(mk.trace_block.by_instance)}, "
+                        f"{st['rays']} rays, image mean {img.mean():.4f}")
+    reset_counts()
+    img, _ = render_radiance(host[False], dataclasses.replace(sc.camera, width=128, height=128),
+                             1, 2,
+                             max_bounces=8, method="auto", device=DEV)
+    by_mode = dict(ip.intersect_prims_c.by_mode)
+    check(set(by_mode) == {"nearest deep walk", "occlusion deep walk"},
+          f"(d-deep) the wavefront's auto took {by_mode}")
+    launches.update(by_mode)
+    phase("d-deep", f"render_radiance (method auto) of the 64-level chain, 128x128 spp 1 mb 8: "
+                    f"intersector launches {by_mode}, image mean {img.mean():.4f}; "
+                    f"{time.monotonic() - t0:.1f} s")
+    rows = {k: (launches.get(k.removeprefix("intersect_prims<").removesuffix(">"),
+                             launches.get(k, 0)), m) for k, m in at.items()}
+    check(all(n > 0 for n, _ in rows.values()),
+          f"(d-deep) a deep instance took no launch in its main path: {rows}")
+    return rows
 
 
 def env_and_bvh_vs_plain():
@@ -1544,12 +1720,12 @@ def many_samples():
     tables = SceneTables.from_pack(demo.compile(), device="cuda")
     cam96 = dataclasses.replace(demo.camera, width=96, height=96)
     for regen in (True, False):
-        kernel_vs_plain(tables, cam96, 32, 8, 21, "(i) DEMO many samples", every_lane=True,
+        kernel_vs_plain(tables, cam96, 16, 8, 21, "(i) DEMO many samples", every_lane=True,
                         regen=regen)
     for regen in (True, False):
         x4 = cornell_x4(sky=regen)  # the lockstep kernel takes no env map
         x4_tables = SceneTables.from_pack(x4.compile(cluster_threshold=8), device="cuda")
-        kernel_vs_plain(x4_tables, x4.camera, 16, 8, 21, "(i) x4 Cornell many samples",
+        kernel_vs_plain(x4_tables, x4.camera, 8, 8, 21, "(i) x4 Cornell many samples",
                         every_lane=True, regen=regen)
     phase("i", f"{time.monotonic() - t0:.1f} s")
 
@@ -1636,8 +1812,10 @@ def train_cell(label, host, cam, ids, spp, mb, steps, profile=False):
     check(by_mode.get("nearest", 0) > 0 and by_mode.get("occlusion fan", 0) > 0,
           f"{label}: the train step launched {by_mode}")
     halves = {k: v for k, v in wf.calls.items() if k[0] != "camera_rays"}
-    check(set(r for _, r in halves) == {"plain (autograd)"} and "shade_pre" not in wf.launches,
-          f"{label}: the train step's halves ran {halves}")
+    bwd = {k: wf.launches[k] for k in wf.BWD_KERNELS}
+    check(set(r for _, r in halves) == {"cuda"} and all(wf.launches[k] > 0 for k in wf.KERNELS[1:])
+          and all(bwd.values()), f"{label}: the train step's halves ran {halves}, "
+                                 f"launching {dict(wf.launches)}")
     check(all(np.isfinite(losses)), f"{label}: losses {losses}")
     check(any(bool((a.detach() != b).any()) for a, b in zip(params, start)),
           f"{label}: no parameter moved")
@@ -1652,6 +1830,7 @@ def train_cell(label, host, cam, ids, spp, mb, steps, profile=False):
     graph = synced_s(lambda: diff.render_lanes(diff.apply_params(pack, leaves), cam, ids,
                                                prng.key(7, DEV), spp=spp, max_bounces=mb,
                                                method=meth))
+    calls = {f"{n} {r}": v for (n, r), v in sorted(wf.calls.items())}
     fb_ms = statistics.median(walls[1:]) * 1e3 / spp
     phase("k", f"{label}: {ids.numel()} pixels ({3 * ids.numel()} lanes), spp {spp} mb {mb}, "
                f"{steps} Adam steps: walls {[round(w, 4) for w in walls]} s, losses "
@@ -1662,13 +1841,16 @@ def train_cell(label, host, cam, ids, spp, mb, steps, profile=False):
                f"{(fb_ms - graph * 1e3 / spp) / (graph * 1e3 / spp):.3f} against the recording "
                f"forward; peak memory {peak:.2f} GB (torch.cuda.max_memory_allocated); the last "
                f"gradients' largest magnitudes {[round(g, 6) for g in gnorm]}, none NaN; K2 "
-               f"launches {by_mode}, rays {rays}")
+               f"launches {by_mode}, rays {rays}; wavefront calls by route {calls} over "
+               f"{steps} steps; backward kernel launches {bwd}")
     if profile:
         device_profile(f"{label} one train step", lambda: step(params, opt, ids,
                                                                prng.key(11, DEV)),
-                       kernel="intersect_")
+                       kernel=tuple(k + "_kernel" for k in wf.BWD_KERNELS),
+                       count=lambda: sum(wf.launches[k] for k in wf.BWD_KERNELS))
     del step, opt, params
     torch.cuda.empty_cache()
+    return {k: v // steps for k, v in bwd.items()}
 
 
 def card_vs_cpu():
@@ -1727,18 +1909,131 @@ def card_vs_cpu():
                f"largest (bounds 1e-3, 1e-5)")
 
 
+def program_ops(pack):
+    """Float32 operations a lane of `shade_pre_bwd` runs: its vertex's
+    reverse (with the next ray's seeds) and one light sample's, from the
+    programs the kernel is generated from (each op one operation)."""
+    vp = wfr.vertex_program(bool(pack.use_env), True)
+    sp = wfr.sample_program(bool(pack.n_sph_emitters))
+    out = []
+    for prog, names in ((vp, [vp.adj[n] for n in ("o0", "o1", "o2", "d0", "d1", "d2",
+                                                  *(f"m{k}" for k in range(13))) if n in vp.adj]
+                         + [vp.outs["sh_" + n] for n in wfr.SHARED_FLOATS]),
+                        (sp, [sp.adj[n] for n in sp.adj])):
+        out.append(sum(op.kind == "f" for op in lane_ad.live_ops(prog.tape, names)))
+    return out
+
+
+def backward_kernels(train_launches):
+    """(k5): the three backward kernels bitwise against their plain versions
+    at a tile's depth-0 shapes (196,608 lanes, the next ray's seeds given),
+    on the DEMO (timed with a cold L2: `kernel_row`), the sky-lit DEMO, the
+    DEMO at 40 light samples and the DEMO through a thin lens with an
+    emissive sphere; then two train steps' gradients, bitwise equal.
+    Returns {kernel: (launches in a (k1) step, measurements)}."""
+    t0 = time.monotonic()
+    sky = demo_scene()
+    sky.load_env_map(SKY)
+    forty = demo_scene()
+    forty.n_dir_sample = 40
+    rows = {}
+    for label, sc in (("(k5) DEMO", demo_scene()), ("(k5) sky-lit DEMO", sky),
+                      ("(k5) DEMO, 40 light samples", forty),
+                      ("(k5) DEMO, thin lens and an emissive sphere", lens_lamp_demo())):
+        pack = pack_to(sc.compile(), DEV)
+        cam = dataclasses.replace(sc.camera, width=TILE_SIDE, height=TILE_SIDE)
+        key = prng.key(21, DEV)
+        o, d = wf.camera_rays(cam, torch.arange(TILE_PX, device=DEV), key, 3)
+        b = o[0].numel()
+        chan = torch.arange(b, device=DEV) % 3
+        lam = torch.tensor(WAVELEN_UM, dtype=torch.float32, device=DEV)[chan]
+        alive = torch.ones(b, dtype=torch.bool, device=DEV)
+        hit = intersect_c(pack, o, d)
+        pre = wf.shade_pre(pack, o, d, hit, alive, 0, key, lam, chan)
+        s = wfr.n_samples(pack)
+        gen = torch.Generator(device=DEV).manual_seed(5)
+        grads = {k: torch.randn(b, generator=gen, device=DEV)
+                 for k in (*wfr.RAY_OUT, *wfr.LEAF_OUT)}
+        grads["contrib"] = torch.randn(s * b, generator=gen, device=DEV)
+        args = (pack, o, d, hit, alive, 0, key, lam, chan, grads)
+        got = wf.shade_pre_bwd(*args, route="cuda")
+        want = wf.shade_pre_bwd(*args, route="plain")
+        for name, g, w in zip(("g_o", "g_d"), got[:2], want[:2]):
+            for k in range(3):
+                same_bits(label, f"shade_pre_bwd {name}{k}", g[k], w[k])
+        same_bits(label, "shade_pre_bwd g_mat", got[2], want[2])
+        same_bits(label, "shade_pre_bwd g_emt", got[3], want[3])
+        sh_t = occlude_t_c(pack, pre.p_dl, pre.ws, fan=s) if s and pack.enable_shadow else None
+        g3 = [torch.randn(b, generator=gen, device=DEV) for _ in range(3)]
+        post = (pre, sh_t, s, *g3)
+        for name, g, w in zip(("g_contrib", "g_fac", "g_leaf_pre", "g_env_c", "g_w"),
+                              wf.shade_post_bwd(*post, route="cuda"),
+                              wf.shade_post_bwd(*post, route="plain")):
+            same_bits(label, f"shade_post_bwd {name}", g, w)
+        depth = TRAIN_MB
+        rec = wfr.Records(torch.randn((depth, b), generator=gen, device=DEV) * 4,
+                          torch.rand((depth, b), generator=gen, device=DEV) * 3,
+                          torch.rand((depth, b), generator=gen, device=DEV) * 6,
+                          torch.rand((depth, b), generator=gen, device=DEV) < 0.3)
+        g_rad = torch.randn(b, generator=gen, device=DEV)
+        for name, g, w in zip(("g_l_dir", "g_w", "g_leaf"), wf.fold_bwd(rec, g_rad, route="cuda"),
+                              wf.fold_bwd(rec, g_rad, route="plain")):
+            same_bits(label, f"fold_bwd {name}", g, w)
+        phase("k", f"{label}: shade_pre_bwd, shade_post_bwd and fold_bwd bitwise equal to their "
+                   f"plain versions at {b} lanes, {s} light samples")
+        if rows:
+            continue
+        n_vtx, n_smp = program_ops(pack)
+        tabs = table_bytes(pack.tri_shade, pack.sph_shade, pack.mat_fat, pack.emt_fat,
+                           pack.emt_mesh, pack.emt_intra_cum, pack.emt_mesh_area,
+                           pack.lmesh_cum)
+        # in: the ray, hit, flags, channel, key, 10 seeds and the samples'; out: o and d
+        # adjoints, the material row's and each sample's emitter row's, with their ids
+        pre_bytes = b * (53 + 40 + 4 * s + 24 + 13 * 4 + 8 + s * (17 * 4 + 8)) + 16 + tabs
+        rows["shade_pre_bwd"] = kernel_row(
+            label, "shade_pre_bwd", lambda: wf.shade_pre_bwd_rows(*args),
+            lambda: wfr.shade_pre_bwd(*args), b * (n_vtx + s * n_smp), pre_bytes,
+            f" ({n_vtx} operations a vertex, {n_smp} a light sample)")
+        post_bytes = b * (12 * s + 4 + 2 + 12 + 4 * s + 16)
+        rows["shade_post_bwd"] = kernel_row(
+            label, "shade_post_bwd", lambda: wf.shade_post_bwd(*post, route="cuda"),
+            lambda: wfr.shade_post_bwd(*post), b * (5 * s + 12), post_bytes)
+        rows["fold_bwd"] = kernel_row(
+            label, "fold_bwd", lambda: wf.fold_bwd(rec, g_rad, route="cuda"),
+            lambda: wfr.fold_bwd(rec, g_rad), b * depth * 14, b * (depth * 25 + 4))
+    # two steps' gradients, bitwise
+    sc = demo_scene()
+    host = sc.compile()
+    cam = dataclasses.replace(sc.camera, width=128, height=128)
+    (pack, meth), = replicate_pack(host, [DEV]).values()
+    runs = []
+    for _ in range(2):
+        p = diff.SceneParams(*(x.requires_grad_() for x in diff.params_from_pack(host, DEV)))
+        fb = diff.render_lanes(diff.apply_params(pack, p), cam,
+                               torch.arange(128 * 128, device=DEV), prng.key(4, DEV), spp=2,
+                               max_bounces=TRAIN_MB, method=meth)
+        runs.append(torch.autograd.grad(((fb - 0.3) ** 2).mean(), list(p)))
+    for f, a, b2 in zip(diff.SceneParams._fields, *runs):
+        same_bits("(k5) two train steps", f"gradient {f}", a, b2)
+    phase("k", f"(k5) two train steps' gradients (DEMO 128x128, spp 2, mb {TRAIN_MB}) bitwise "
+               f"equal; {time.monotonic() - t0:.1f} s")
+    check(all(train_launches.get(k, 0) > 0 for k in rows),
+          f"(k5) a backward kernel took no launch in the (k1) step: {train_launches}")
+    return {k: (train_launches.get(k, 0), m) for k, m in rows.items()}
+
+
 def training_path():
     """(k): the training path on the card (see the module docstring)."""
     t0 = time.monotonic()
     sc = demo_scene()
     host = sc.compile()
-    train_cell("(k1) DEMO 384x384", host, sc.camera,
-               torch.arange(sc.camera.width * sc.camera.height), TRAIN_SPP, TRAIN_MB, 3,
-               profile=True)
+    k1 = train_cell("(k1) DEMO 384x384", host, sc.camera,
+                    torch.arange(sc.camera.width * sc.camera.height), TRAIN_SPP, TRAIN_MB, 3,
+                    profile=True)
     card_vs_cpu()
     cam = dataclasses.replace(sc.camera, width=1920, height=1080)
     train_cell("(k3) DEMO 1920x1080, first pixels", host, cam, torch.arange(MILLION_PIXELS),
-               TRAIN_SPP, TRAIN_MB, 2)
+               TRAIN_SPP, TRAIN_MB, 2, profile=True)
 
     target, _ = render_mega(host, sc.camera, 64, seed=5, max_bounces=TRAIN_MB, device=DEV)
     init_fn, step = diff.make_train_step_hybrid(host, sc.camera, 0.5 * target, spp_res=64,
@@ -1748,22 +2043,36 @@ def training_path():
     step(params, opt, prng.key(0, DEV), 0)  # warm
     step.timer.totals.clear()
     reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     wall = synced_s(lambda: step(params, opt, prng.key(1, DEV), 1))
-    k1 = dict(mk.trace_block.by_instance)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    mega = dict(mk.trace_block.by_instance)
     k2 = dict(ip.intersect_prims_c.by_mode)
-    check(k1.get("mega_regen<4, false, false>", 0) > 0 and k2.get("occlusion fan", 0) > 0,
-          f"(k4) the hybrid step launched {k1} and {k2}")
+    check(mega.get("mega_regen<4, false, false>", 0) > 0 and k2.get("occlusion fan", 0) > 0,
+          f"(k4) the hybrid step launched {mega} and {k2}")
+    routes = {r for (_, r) in wf.calls}
+    check(routes == {"cuda"} and all(wf.launches[k] for k in wf.BWD_KERNELS),
+          f"(k4) the hybrid step's wavefront calls {dict(wf.calls)}")
     split = {k: round(v, 4) for k, v in step.timer.totals.items()}
     phase("k", f"(k4) hybrid step, DEMO 384x384, spp_res 64, spp_grad {TRAIN_SPP}, mb "
                f"{TRAIN_MB}: wall {wall:.4f} s, split {split} s (render: K1 and the residual; "
-               f"vjp: the pull-back and Adam); K1 launches {k1}, K2 launches {k2}")
+               f"vjp: the pull-back and Adam); peak memory {peak:.2f} GB; K1 launches {mega}, "
+               f"K2 launches {k2}, wavefront launches {dict(wf.launches)}")
+    device_profile("(k4) one hybrid step", lambda: step(params, opt, prng.key(2, DEV), 2),
+                   kernel=tuple(k + "_kernel" for k in wf.BWD_KERNELS),
+                   count=lambda: sum(wf.launches[k] for k in wf.BWD_KERNELS))
     del step, opt, params
     torch.cuda.empty_cache()
 
+    bwd = backward_kernels(k1)
     t1 = time.monotonic()
+    reset_counts()
     dryrun_multichip(4)  # on ["cuda:0"] * 4 where the host has fewer than 4 cards
-    phase("k", f"(k5) dryrun_multichip(4), {torch.cuda.device_count()} card(s): passed in "
-               f"{time.monotonic() - t1:.1f} s")
+    routes = {r for (_, r) in wf.calls}
+    check("plain (autograd)" not in routes and all(wf.launches[k] for k in wf.BWD_KERNELS),
+          f"(k7) dryrun_multichip's wavefront calls {dict(wf.calls)}")
+    phase("k", f"(k7) dryrun_multichip(4), {torch.cuda.device_count()} card(s): passed in "
+               f"{time.monotonic() - t1:.1f} s, wavefront launches {dict(wf.launches)}")
     with tempfile.TemporaryDirectory() as d:
         reset_counts()
         img, st = render_radiance(sc, sc.camera, 1, 0, max_bounces=8, device=DEV, trace_dir=d)
@@ -1777,6 +2086,7 @@ def training_path():
                    f"{trace.stat().st_size / 1e6:.1f} MB, {len(events)} events, {len(kern)} "
                    f"device kernels; render {st['elapsed_s']:.3f} s")
     phase("k", f"{time.monotonic() - t0:.1f} s")
+    return bwd
 
 
 def main():
@@ -1802,6 +2112,7 @@ def main():
     with tempfile.TemporaryDirectory() as models:
         soldier = soldier_demo(models)
     at_prims = intersect_kernels(soldier)
+    at_deep = deep_trees()
     wf_main, soldier_launches, _ = wavefront_path(mega_img, soldier)
     at_wf = wavefront_kernels(soldier)
     ls_demo, ls_bvh = lockstep_path(pack, mega_img)
@@ -1811,7 +2122,7 @@ def main():
     stride_equivalence(pack)
     many_samples()
     any_light_count()
-    training_path()
+    at_bwd = training_path()
     phase("total", f"{time.monotonic() - t0:.1f} s")
     for name, per_launch in (("mega_regen<4, false, false>", main_per_launch),
                              ("mega_regen<4, true, false>", env_per_launch),
@@ -1864,6 +2175,16 @@ def main():
                            ("shade_post", "mcpt_tpu/integrator.py:266"),
                            ("fold", "mcpt_tpu/integrator.py:347")):
         rows.append((name, src, replaces, wf_main["kernels"][name], at_wf[name]))
+    # the deep trees' instances: the walks of the same clustered kernels
+    for name, (n, m) in at_deep.items():
+        stem = ("intersect_prims" if name.startswith("intersect")
+                else "megakernel" if "regen" in name else "mega_lockstep")
+        src = f"mcpt_tpu_torch/csrc/{stem}.cu"
+        replaces = k3 if name.startswith("intersect") else "mcpt_tpu/kernels/cluster.py:835"
+        rows.append((name, src, replaces, n, m))
+    # no Pallas kernel: the backward XLA compiles under jax.value_and_grad
+    for name, (n, m) in at_bwd.items():
+        rows.append((name, "mcpt_tpu_torch/csrc/wavefront_bwd.cu", "mcpt_tpu/diff.py:136", n, m))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": n, "max_abs_err": m["max_abs_err"], "ms": m["ms"],

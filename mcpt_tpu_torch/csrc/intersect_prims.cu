@@ -68,7 +68,8 @@
 // range on Hopper): all pairs is a TPU form (the MXU and the SMEM budget),
 // and past a thousand rows the sweep is bound by its own instruction stream.
 // The walk changes the work instead: each thread walks the pack's child-pair
-// rows near-first with a stack of kStack entries (local memory), descends
+// rows near-first with a stack of kStack entries (local memory; a deeper
+// tree's walk, intersect_walk_deep, keeps it in device memory), descends
 // rows until it holds a leaf (while-while: the warp then tests leaves
 // together), and tests the leaf's tri_sc rows, read in leaf order through the
 // read-only path, as the sweep tests them. An entry is taken while its entry
@@ -102,12 +103,13 @@ constexpr int kThreads = 256;
 // and 8 in every mode on the H100 (PERF.md)
 constexpr int kRays = 4;
 // entries of a walk's per-thread stack (constants.py BVH_STACK): a walk
-// pushes at most one entry per tree level; deeper trees are refused
+// pushes at most one entry per tree level; deeper trees take
+// intersect_walk_deep, whose stack lives in device memory
 constexpr int kStack = 32;
 constexpr int kWalkId = 15;  // a walk leaf row's index in tri_sc (int bits)
 
 enum Mode { kNearest = 0, kOcclusion = 1, kTris = 2 };
-enum Form { kSweep = 0, kTiled = 1, kWalk = 2, kFan = 3, kFanTiled = 4 };
+enum Form { kSweep = 0, kTiled = 1, kWalk = 2, kFan = 3, kFanTiled = 4, kDeepWalk = 5 };
 
 struct Rays {
   const float *o0, *o1, *o2, *d0, *d1, *d2;
@@ -439,31 +441,60 @@ __device__ __forceinline__ bool passes(float tmin, float tmax) {
   return tmin - kEps <= tmax && tmax >= -kEps;
 }
 
-template <bool OCC>
-__global__ void __launch_bounds__(kThreads)
-    intersect_walk(Rays r, const float* __restrict__ bvh, const float* __restrict__ leaf,
-                   const float* __restrict__ sph, int n_sph, int sph_base, int n, Out out) {
+// The walk's stack: an entry is a link, a count and its entry t, pushed at
+// most once a tree level. LocalStack views kStack entries in three
+// per-thread arrays (local memory) that intersect_walk declares (held in one
+// struct, they cost its nearest mode 3 registers); DeepStack keeps one entry
+// a level in device memory (intersect_walk_deep, for a tree of more than
+// kStack levels: `stack` holds three int arrays of depth x n entries, entry e
+// of ray i at e * n + i, so that a warp's pushes and pops at one level touch
+// neighbouring words).
+struct LocalStack {
+  int *link_, *cnt_;
+  float* t_;
+  __device__ __forceinline__ void push(int sp, int link, int cnt, float t) {
+    link_[sp] = link;
+    cnt_[sp] = cnt;
+    t_[sp] = t;
+  }
+  __device__ __forceinline__ float t(int sp) const { return t_[sp]; }
+  __device__ __forceinline__ int link(int sp) const { return link_[sp]; }
+  __device__ __forceinline__ int cnt(int sp) const { return cnt_[sp]; }
+};
+
+struct DeepStack {
+  int *link_, *cnt_, *t_;
+  size_t level;  // the stride between a ray's entries: the launch's rays
+  __device__ __forceinline__ void push(int sp, int link, int cnt, float t) {
+    link_[sp * level] = link;
+    cnt_[sp * level] = cnt;
+    t_[sp * level] = __float_as_int(t);
+  }
+  __device__ __forceinline__ float t(int sp) const { return __int_as_float(t_[sp * level]); }
+  __device__ __forceinline__ int link(int sp) const { return link_[sp * level]; }
+  __device__ __forceinline__ int cnt(int sp) const { return cnt_[sp * level]; }
+};
+
+// Ray i's walk, with the spheres in shared memory.
+template <bool OCC, class Stack>
+__device__ __forceinline__ void walk_ray(Rays r, const float* __restrict__ bvh,
+                                         const float* __restrict__ leaf, int n_sph, int sph_base,
+                                         int i, Out out, Stack& st) {
   extern __shared__ float smem[];
-  for (int k = threadIdx.x; k < n_sph * 4; k += blockDim.x) smem[k] = sph[k];
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
   const float o0 = r.o0[i], o1 = r.o1[i], o2 = r.o2[i];
   const float d0 = r.d0[i], d1 = r.d1[i], d2 = r.d2[i];
   const float i0 = 1.f / d0, i1 = 1.f / d1, i2 = 1.f / d2;
   float t_best = kTMax, u_best = 0.f, v_best = 0.f;
   int prim = -1;
-  int stack_link[kStack], stack_cnt[kStack];
-  float stack_t[kStack];
   int sp = 0;
   int link = 0, cnt = 0;  // the item to visit: a row (cnt 0) or a leaf; link -1: none
   auto pop = [&] {  // the next entry still in reach
     link = -1;
     while (sp > 0) {
       --sp;
-      if (stack_t[sp] - kEps <= t_best) {
-        link = stack_link[sp];
-        cnt = stack_cnt[sp];
+      if (st.t(sp) - kEps <= t_best) {
+        link = st.link(sp);
+        cnt = st.cnt(sp);
         return;
       }
     }
@@ -482,9 +513,7 @@ __global__ void __launch_bounds__(kThreads)
       const bool eb = (cb > 0 || lb > 0) && passes(tb, swap ? x0 : x1) && tb - kEps <= t_best;
       if (ea) {
         if (eb) {
-          stack_link[sp] = lb;
-          stack_cnt[sp] = cb;
-          stack_t[sp] = tb;
+          st.push(sp, lb, cb, tb);
           ++sp;
         }
         link = la;
@@ -527,6 +556,37 @@ __global__ void __launch_bounds__(kThreads)
   store<OCC>(out, i, t_best, prim, u_best, v_best);
 }
 
+template <bool OCC>
+__global__ void __launch_bounds__(kThreads)
+    intersect_walk(Rays r, const float* __restrict__ bvh, const float* __restrict__ leaf,
+                   const float* __restrict__ sph, int n_sph, int sph_base, int n, Out out) {
+  extern __shared__ float smem[];
+  for (int k = threadIdx.x; k < n_sph * 4; k += blockDim.x) smem[k] = sph[k];
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int stack_link[kStack], stack_cnt[kStack];
+  float stack_t[kStack];
+  LocalStack st{stack_link, stack_cnt, stack_t};
+  walk_ray<OCC>(r, bvh, leaf, n_sph, sph_base, i, out, st);
+}
+
+template <bool OCC>
+__global__ void __launch_bounds__(kThreads)
+    intersect_walk_deep(Rays r, const float* __restrict__ bvh, const float* __restrict__ leaf,
+                        const float* __restrict__ sph, int n_sph, int sph_base, int n, Out out,
+                        int* __restrict__ stack, int depth) {
+  extern __shared__ float smem[];
+  for (int k = threadIdx.x; k < n_sph * 4; k += blockDim.x) smem[k] = sph[k];
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t level = static_cast<size_t>(n);
+  int* link = stack + i;
+  DeepStack st{link, link + level * depth, link + 2 * level * depth, level};
+  walk_ray<OCC>(r, bvh, leaf, n_sph, sph_base, i, out, st);
+}
+
 // Allow `smem` bytes of dynamic shared memory for `kernel` where that is
 // above the 48 KB default; the refusal, if any.
 template <typename K>
@@ -564,6 +624,19 @@ cudaError_t launch_walk(const Rays& r, const float* bvh, const float* leaf, cons
   return cudaGetLastError();
 }
 
+template <bool OCC>
+cudaError_t launch_walk_deep(const Rays& r, const float* bvh, const float* leaf, const float* sph,
+                             int n_sph, int sph_base, int n, const Out& out, int* stack,
+                             int depth, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(n_sph) * 4 * sizeof(float);
+  cudaError_t e = allow_smem(intersect_walk_deep<OCC>, smem);
+  if (e != cudaSuccess) return e;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  intersect_walk_deep<OCC><<<blocks, kThreads, smem, stream>>>(r, bvh, leaf, sph, n_sph, sph_base,
+                                                               n, out, stack, depth);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface (loaded with ctypes by kernels/intersect_prims.py).
@@ -574,7 +647,9 @@ cudaError_t launch_walk(const Rays& r, const float* bvh, const float* leaf, cons
 //           leaf rows (tables.py `walk_tables`: tri_sc rows in leaf order,
 //           float kWalkId the row's index in tri_sc as int bits)
 //   bvh:    null for the sweep, or float32 (n_rows >= 1, 16) child-pair rows
-//           of a tree of `depth` levels (<= kStack, else refused)
+//           of a tree of `depth` levels
+//   stack:  with a tree of more than kStack levels, int32 scratch of
+//           3 x depth x n entries for the walk's stack (else unused)
 //   sph:    float32 (n_sph, 4) rows: center, radius (n_sph = 0: triangles only)
 //   fan:    0, or S >= 1 for the fan form of the occlusion sweep (n a
 //           multiple of S; refused with a walk or in the other modes)
@@ -583,10 +658,11 @@ cudaError_t launch_walk(const Rays& r, const float* bvh, const float* leaf, cons
 //   launched: 2 ints written back: the mode run (0 nearest, 1 occlusion,
 //           2 triangles only; -1 if nothing was launched) and the form (0
 //           the sweep in one shared-memory tile, 1 tiled, 2 the walk, 3 the
-//           fan in one tile, 4 the fan tiled)
+//           fan in one tile, 4 the fan tiled, 5 the walk of a deep tree)
 // Returns 0 or the cudaError_t of a refused launch.
 extern "C" int mcpt_intersect_prims(const void* const* rays, const void* tri, int n_tri,
-                                    const void* bvh, int n_rows, int depth, const void* sph,
+                                    const void* bvh, int n_rows, int depth, void* stack,
+                                    const void* sph,
                                     int n_sph, int sph_base, int n, int occlusion, int fan,
                                     void* const* out, void* stream, int* launched) {
   launched[0] = -1;
@@ -595,7 +671,8 @@ extern "C" int mcpt_intersect_prims(const void* const* rays, const void* tri, in
   if (n_tri < 0 || n_sph < 0 || n_sph > kMaxSph || n_tri + n_sph <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (bvh != nullptr && (n_rows < 1 || n_tri < 1 || depth < 1 || depth > kStack)) {
+  if (bvh != nullptr &&
+      (n_rows < 1 || n_tri < 1 || depth < 1 || (depth > kStack && stack == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (fan < 0 || (fan > 0 && (!occlusion || bvh != nullptr || n % fan != 0))) {
@@ -611,7 +688,13 @@ extern "C" int mcpt_intersect_prims(const void* const* rays, const void* tri, in
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   launched[0] = occlusion ? kOcclusion : (n_sph == 0 ? kTris : kNearest);
   cudaError_t e;
-  if (bvh != nullptr) {
+  if (bvh != nullptr && depth > kStack) {
+    launched[1] = kDeepWalk;
+    const float* b = static_cast<const float*>(bvh);
+    int* k = static_cast<int*>(stack);
+    e = occlusion ? launch_walk_deep<true>(r, b, t, s, n_sph, sph_base, n, o, k, depth, st)
+                  : launch_walk_deep<false>(r, b, t, s, n_sph, sph_base, n, o, k, depth, st);
+  } else if (bvh != nullptr) {
     launched[1] = kWalk;
     const float* b = static_cast<const float*>(bvh);
     e = occlusion ? launch_walk<true>(r, b, t, s, n_sph, sph_base, n, o, st)

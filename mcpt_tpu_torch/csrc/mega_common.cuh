@@ -34,8 +34,8 @@ constexpr float kPi = 3.1415927f;
 constexpr int kMaxDir = 1 << 28;
 constexpr int kMaxDepth = 32;  // max_bounces limit (megakernel_ref.MAX_BOUNCES_LIMIT)
 // entries of a BVH walk's per-thread stack (constants.py BVH_STACK): a walk
-// pushes at most one entry per tree level, and kernels/tables.py refuses
-// trees of more levels
+// pushes at most one entry per tree level; a tree of more levels takes the
+// deep instances, whose walks keep their stack in device memory (DeepStack)
 constexpr int kStack = 32;
 
 constexpr int kThreads = 128;
@@ -69,6 +69,10 @@ struct Params {
   int env_h, env_w, use_env, use_bvh;
   int lane_stride;  // thread idx runs lane lane_offset + idx * lane_stride
   float xscale, yscale, om[9], pos[3], focal, aperture, inv_n_dir;
+  // a tree of more than kStack levels: the deep instances' walk stacks,
+  // 3 x bvh_depth x n_lanes ints (DeepStack)
+  int* deep_stack;
+  int bvh_depth;
 };
 
 struct Tables {
@@ -294,9 +298,10 @@ __device__ Hit nearest(const Tables& T, V3 o, V3 d, bool textured) {
 // tests two boxes from four float4 loads and the next address depends on one
 // result only every other level. Leaf children are tested in place from the
 // leaf-ordered triangle rows (float4 loads, no index table); of interior
-// children one is descended into and the other pushed on a per-thread stack
-// of kStack entries (local memory). megakernel_ref.py's `bvh_nearest` and
-// `bvh_fan` walk the same rows in the same order.
+// children one is descended into and the other pushed on the walk's stack
+// (LocalStack, or DeepStack for a tree of more than kStack levels).
+// megakernel_ref.py's `bvh_nearest` and `bvh_fan` walk the same rows in the
+// same order.
 
 // The leading 16 floats of a row in global memory, as four read-only float4
 // loads (the row starts 16 bytes aligned).
@@ -379,6 +384,72 @@ __device__ __forceinline__ void leaf_nearest(const Tables& T, int first, int cnt
   }
 }
 
+// A walk's stack: an entry is a link, a count and a key (the entry t of a
+// nearest walk, the ray mask of a fan walk), pushed at most once a tree
+// level. LocalStack views kStack entries in three per-thread arrays (local
+// memory) that the shallow walk declares, for trees of up to kStack levels;
+// DeepStack (below) keeps one entry a level in device memory, for deeper
+// trees. The walks are templates over the two, so that a deep tree walks the
+// same items in the same order. The arrays stay three locals of the walk's
+// function: held in one struct, they moved the shallow BVH instances' stack
+// frames and spills (mega_ab.py).
+template <class K>
+struct LocalStack {
+  int *link_, *cnt_;
+  K* key_;
+  __device__ __forceinline__ void push(int sp, int link, int cnt, K key) {
+    link_[sp] = link;
+    cnt_[sp] = cnt;
+    key_[sp] = key;
+  }
+  __device__ __forceinline__ K key(int sp) const { return key_[sp]; }
+  __device__ __forceinline__ int link(int sp) const { return link_[sp]; }
+  __device__ __forceinline__ int cnt(int sp) const { return cnt_[sp]; }
+};
+
+// A key as the int that DeepStack stores, and back.
+__device__ __forceinline__ int key_bits(float t) { return __float_as_int(t); }
+__device__ __forceinline__ int key_bits(uint32_t mask) { return static_cast<int>(mask); }
+template <class K>
+__device__ __forceinline__ K key_of(int bits) {
+  if constexpr (std::is_same_v<K, float>) {
+    return __int_as_float(bits);
+  } else {
+    return static_cast<K>(bits);
+  }
+}
+
+// The stack of a walk through a tree of more than kStack levels, so that a
+// tree of any depth renders, as the JAX package's stackless walks render it.
+// Each thread's entries are three int arrays of bvh_depth x n_lanes (link,
+// count, key), entry e at e * n_lanes + idx, so that a warp's pushes and pops
+// at one level touch neighbouring words. One nearest or fan walk runs at a
+// time on a thread, so they share its entries. Memory: 12 bytes a level a
+// lane, 805 MB for a 64-level tree over a 1080p block of 1,048,576 lanes,
+// where a per-thread local array sized for the deepest tree would reserve as
+// much for every resident thread of every launch.
+template <class K>
+struct DeepStack {
+  int *link_, *cnt_, *key_;
+  size_t level;  // the stride between a thread's entries: the launch's lanes
+  __device__ __forceinline__ void push(int sp, int link, int cnt, K key) {
+    link_[sp * level] = link;
+    cnt_[sp * level] = cnt;
+    key_[sp * level] = key_bits(key);
+  }
+  __device__ __forceinline__ K key(int sp) const { return key_of<K>(key_[sp * level]); }
+  __device__ __forceinline__ int link(int sp) const { return link_[sp * level]; }
+  __device__ __forceinline__ int cnt(int sp) const { return cnt_[sp * level]; }
+};
+
+template <class K>
+__device__ __forceinline__ DeepStack<K> deep_stack(const Params& P) {
+  const size_t n = static_cast<size_t>(P.n_lanes);
+  int* base = P.deep_stack + (blockIdx.x * blockDim.x + threadIdx.x);
+  const size_t plane = n * static_cast<size_t>(P.bvh_depth);
+  return {base, base + plane, base + 2 * plane, n};
+}
+
 // Nearest hit through the BVH: the brute sweep's answer, ties included
 // (equal t goes to the lower triangle row, triangles beat spheres).
 //
@@ -393,21 +464,21 @@ __device__ __forceinline__ void leaf_nearest(const Tables& T, int first, int cnt
 // a leaf, and the warp's threads then test their leaves together. Testing
 // each row's leaf children in place instead ran up to two sparse leaf loops
 // per step, and was slower than the stackless walk it replaced (PERF.md).
-__device__ Hit nearest_bvh(const Tables& T, V3 o, V3 d, bool textured) {
+template <class Stack>
+__device__ __forceinline__ Hit nearest_walk(const Tables& T, V3 o, V3 d, bool textured,
+                                            Stack& st) {
   const V3 inv = mk(1.0f / d.x, 1.0f / d.y, 1.0f / d.z);
   float t_best = kTMax, bu = 0.0f, bv = 0.0f;
   int best = -1, best_row = -1;  // the winner's row in `tri` and in `leaf`
-  int stack_link[kStack], stack_cnt[kStack];
-  float stack_t[kStack];
   int sp = 0;
   int link = 0, cnt = 0;  // the item to visit: a row (cnt 0) or a leaf; link -1: none
   auto pop = [&] {  // the next entry still in reach
     link = -1;
     while (sp > 0) {
       --sp;
-      if (stack_t[sp] - kEps <= t_best) {
-        link = stack_link[sp];
-        cnt = stack_cnt[sp];
+      if (st.key(sp) - kEps <= t_best) {
+        link = st.link(sp);
+        cnt = st.cnt(sp);
         return;
       }
     }
@@ -426,9 +497,7 @@ __device__ Hit nearest_bvh(const Tables& T, V3 o, V3 d, bool textured) {
       const bool eb = (cb > 0 || lb > 0) && passes(tb, swap ? x0 : x1) && tb - kEps <= t_best;
       if (ea) {
         if (eb) {
-          stack_link[sp] = lb;
-          stack_cnt[sp] = cb;
-          stack_t[sp] = tb;
+          st.push(sp, lb, cb, tb);
           ++sp;
         }
         link = la;
@@ -448,6 +517,20 @@ __device__ Hit nearest_bvh(const Tables& T, V3 o, V3 d, bool textured) {
   if (best_row >= 0) take_tri(h, T.leaf + best_row * kTriSmem, t_best, bu, bv, textured);
   near_spheres(T, o, d, h);
   return finish(T, o, d, h);
+}
+
+// The nearest walk of a tree of up to kStack levels ...
+__device__ Hit nearest_bvh(const Tables& T, V3 o, V3 d, bool textured) {
+  int stack_link[kStack], stack_cnt[kStack];
+  float stack_t[kStack];
+  LocalStack<float> st{stack_link, stack_cnt, stack_t};
+  return nearest_walk(T, o, d, textured, st);
+}
+
+// ... and of a deeper one.
+__device__ Hit nearest_bvh_deep(const Tables& T, V3 o, V3 d, bool textured,
+                                DeepStack<float> st) {
+  return nearest_walk(T, o, d, textured, st);
 }
 
 // The shadow fan's division-free blocked-visibility predicate for one
@@ -567,9 +650,9 @@ __device__ __forceinline__ void leaf_fan(const Tables& T, int first, int cnt, V3
 // it enters, as its own walk would test it. Leaves wait as in nearest_bvh:
 // a thread descends rows until it holds a leaf. Then the spheres, by brute
 // force.
-template <int NS>
-__device__ void occlude_fan_walk(const Tables& T, V3 o, const V3* ws, const float* dists,
-                                 int ns, bool* vis) {
+template <int NS, class Stack>
+__device__ __forceinline__ void fan_walk(const Tables& T, V3 o, const V3* ws, const float* dists,
+                                         int ns, bool* vis, Stack& st) {
   float xs[NS];
   V3 inv[NS];
   uint32_t open = 0;
@@ -581,8 +664,6 @@ __device__ void occlude_fan_walk(const Tables& T, V3 o, const V3* ws, const floa
       open |= 1u << si;
     }
   }
-  int stack_link[kStack], stack_cnt[kStack];
-  uint32_t stack_mask[kStack];
   int sp = 0;
   // the item to visit: a row (cnt 0) or a leaf, with its rays; link -1: none
   int link = open ? 0 : -1, cnt = 0;
@@ -591,10 +672,11 @@ __device__ void occlude_fan_walk(const Tables& T, V3 o, const V3* ws, const floa
     link = -1;
     while (open && sp > 0) {
       --sp;
-      if (stack_mask[sp] & open) {
-        link = stack_link[sp];
-        cnt = stack_cnt[sp];
-        mask = stack_mask[sp] & open;
+      const uint32_t m_sp = st.key(sp);
+      if (m_sp & open) {
+        link = st.link(sp);
+        cnt = st.cnt(sp);
+        mask = m_sp & open;
         return;
       }
     }
@@ -614,9 +696,7 @@ __device__ void occlude_fan_walk(const Tables& T, V3 o, const V3* ws, const floa
       }
       if (m0) {
         if (m1) {
-          stack_link[sp] = r.link1;
-          stack_cnt[sp] = r.cnt1;
-          stack_mask[sp] = m1;
+          st.push(sp, r.link1, r.cnt1, m1);
           ++sp;
         }
         link = r.link0;
@@ -652,6 +732,16 @@ __device__ void occlude_fan_walk(const Tables& T, V3 o, const V3* ws, const floa
   }
 }
 
+// The fan walk of a tree of up to kStack levels.
+template <int NS>
+__device__ void occlude_fan_walk(const Tables& T, V3 o, const V3* ws, const float* dists,
+                                 int ns, bool* vis) {
+  int stack_link[kStack], stack_cnt[kStack];
+  uint32_t stack_mask[kStack];
+  LocalStack<uint32_t> st{stack_link, stack_cnt, stack_mask};
+  fan_walk<NS>(T, o, ws, dists, ns, vis, st);
+}
+
 // The fan through the BVH: the S = 4 instances walk the vertex's rays
 // together; the generic instances (NS > 4) walk each ray alone, since a walk
 // of 16 or 32 rays keeps their inverse directions and bounds live and spills
@@ -663,6 +753,17 @@ __device__ void occlude_fan_bvh(const Tables& T, V3 o, const V3* ws, const float
     for (int si = 0; si < ns; ++si) occlude_fan_walk<1>(T, o, ws + si, dists + si, 1, vis + si);
   } else {
     occlude_fan_walk<NS>(T, o, ws, dists, ns, vis);
+  }
+}
+
+// occlude_fan_bvh of a tree of more than kStack levels.
+template <int NS>
+__device__ void occlude_fan_bvh_deep(const Tables& T, V3 o, const V3* ws, const float* dists,
+                                     int ns, bool* vis, DeepStack<uint32_t> st) {
+  if constexpr (NS > 4) {
+    for (int si = 0; si < ns; ++si) fan_walk<1>(T, o, ws + si, dists + si, 1, vis + si, st);
+  } else {
+    fan_walk<NS>(T, o, ws, dists, ns, vis, st);
   }
 }
 
@@ -898,6 +999,29 @@ __device__ __forceinline__ Hit trace(const Tables& T, V3 o, V3 d, bool textured)
   }
 }
 
+// The nearest-hit query and the shadow fan of an instance: the deep walks
+// (DEEP), the shallow ones (BVH), or the brute-force sweeps.
+template <bool BVH, bool DEEP>
+__device__ __forceinline__ Hit trace_any(const Params& P, const Tables& T, V3 o, V3 d) {
+  if constexpr (DEEP) {
+    return nearest_bvh_deep(T, o, d, P.textured, deep_stack<float>(P));
+  } else {
+    return trace<BVH>(T, o, d, P.textured);
+  }
+}
+
+template <int NS, bool BVH, bool DEEP>
+__device__ __forceinline__ void fan_any(const Params& P, const Tables& T, V3 o, const V3* ws,
+                                        const float* dists, int ns, bool* vis) {
+  if constexpr (DEEP) {
+    occlude_fan_bvh_deep<NS>(T, o, ws, dists, ns, vis, deep_stack<uint32_t>(P));
+  } else if constexpr (BVH) {
+    occlude_fan_bvh<NS>(T, o, ws, dists, ns, vis);
+  } else {
+    occlude_fan<NS>(T, o, ws, dists, ns, vis);
+  }
+}
+
 // Stage the scene tables into shared memory (a few KB for DEMO; at most
 // ~181 KB at the 1024-triangle bound) and return the block's view of them.
 // Triangle rows land at kTriSmem floats apart, so that every triangle and occluder row starts 16 bytes aligned (the occluder
@@ -979,8 +1103,15 @@ inline Params unpack_params(const void* const* tables, const int* rows, const fl
   P.use_env = ipar[14];
   P.use_bvh = ipar[15];
   P.lane_stride = ipar[16];
+  P.deep_stack = static_cast<int*>(const_cast<void*>(tables[11]));
+  P.bvh_depth = ipar[17];
   return P;
 }
+
+// Whether P's tree takes the deep instances, and whether P gives them their
+// stacks.
+inline bool deep(const Params& P) { return P.use_bvh && P.bvh_depth > kStack; }
+inline bool stack_ok(const Params& P) { return !deep(P) || P.deep_stack != nullptr; }
 
 // Whether the kernels take P: at most kMaxDir light samples, a positive
 // sample count and lane stride, an env map of at least 1x1.

@@ -56,7 +56,7 @@ struct Vertex {
 
 // `draw(use)` is the vertex's uniform at use-site `use` (1-4 the BSDF and
 // roulette, 16 + 4·si + 0..3 light sample si): the two kernels key it apart.
-template <int S, bool BVH, class Draw>
+template <int S, bool BVH, bool DEEP, class Draw>
 __device__ __forceinline__ Vertex shade_vertex(const Params& P, const Tables& T, const Hit& hit,
                                                V3 d, const Mat& m, int chan, float lam,
                                                float rr_rate, float total_area, int ns,
@@ -135,13 +135,7 @@ __device__ __forceinline__ Vertex shade_vertex(const Params& P, const Tables& T,
     bool vis[NS];
 #pragma unroll
     for (int si = 0; si < NS; ++si) vis[si] = true;
-    if (P.enable_shadow) {
-      if constexpr (BVH) {
-        occlude_fan_bvh<NS>(T, p_dl, ws, dist, gn, vis);
-      } else {
-        occlude_fan<NS>(T, p_dl, ws, dist, gn, vis);
-      }
-    }
+    if (P.enable_shadow) fan_any<NS, BVH, DEEP>(P, T, p_dl, ws, dist, gn, vis);
 
 #pragma unroll
     for (int si = 0; si < NS; ++si) {
@@ -180,7 +174,7 @@ __device__ __forceinline__ void bounce(const Vertex& v, const Mat& m, V3 d, floa
 
 // One thread's lanes: the kernel's body (mega_lockstep below gives it its
 // launch bounds).
-template <int S, bool BVH>
+template <int S, bool BVH, bool DEEP = false>
 __device__ __forceinline__ void lockstep_lanes(const Params& P) {
   extern __shared__ __align__(16) float smem[];
   const Tables T = stage_tables<BVH>(P, smem);
@@ -227,7 +221,7 @@ __device__ __forceinline__ void lockstep_lanes(const Params& P) {
       depth = 0;
     }
     // the one nearest-hit query, for camera and bounce rays alike
-    const Hit hit = trace<BVH>(T, o, d, P.textured);
+    const Hit hit = trace_any<BVH, DEEP>(P, T, o, d);
     ended = true;
     float acc;  // the value of the path's last record ...
     int below;  // ... and how many records fold onto it
@@ -253,7 +247,7 @@ __device__ __forceinline__ void lockstep_lanes(const Params& P) {
       } else {
         const uint32_t du = murmur(sample_key(s) + static_cast<uint32_t>(depth) * 0x85EBCA77u);
         const Vertex v =
-            shade_vertex<S, BVH>(P, T, hit, d, m, chan, lam, rr_rate, total_area, ns,
+            shade_vertex<S, BVH, DEEP>(P, T, hit, d, m, chan, lam, rr_rate, total_area, ns,
                                  [&](uint32_t use) { return unit(murmur(lane_mix + du + use)); });
         rays += static_cast<uint32_t>(ns);
         if (v.rr_kill) {  // the raw l_dir
@@ -298,24 +292,35 @@ template <int S, bool BVH, std::enable_if_t<kCapped<S, BVH>, int> = 0>
 __global__ void __launch_bounds__(kThreads, kCapBlocks) mega_lockstep(Params P) {
   lockstep_lanes<S, BVH>(P);
 }
+// The BVH instances for a tree of more than kStack levels (mega_common.cuh
+// DeepStack).
+template <int S>
+__global__ void __launch_bounds__(kThreads) mega_lockstep_deep(Params P) {
+  lockstep_lanes<S, true, true>(P);
+}
 
 // The instance that P takes: S = 4, -16 or -32 by its light-sample count,
-// BVH by its flag; launched[0..1] get its S and BVH.
+// BVH by its flag, a deep one for a tree of more than kStack levels;
+// launched[0..2] get its S, BVH and whether it is deep.
 Kernel pick_instance(const Params& P, int* launched) {
   const Kernel table[3][2] = {{mega_lockstep<4, false>, mega_lockstep<4, true>},
                               {mega_lockstep<-16, false>, mega_lockstep<-16, true>},
                               {mega_lockstep<-32, false>, mega_lockstep<-32, true>}};
+  const Kernel deep_table[3] = {mega_lockstep_deep<4>, mega_lockstep_deep<-16>,
+                                mega_lockstep_deep<-32>};
   const int k = s_index(P.n_dir);
   launched[0] = kS[k];
   launched[1] = P.use_bvh != 0;
-  return table[k][P.use_bvh ? 1 : 0];
+  launched[2] = deep(P);
+  return deep(P) ? deep_table[k] : table[k][P.use_bvh ? 1 : 0];
 }
 
 }  // namespace
 
 // C interface (loaded with ctypes by kernels/megakernel.py): the arguments of
 // mcpt_mega_trace in megakernel.cu, with use_env = 0 (an env map is refused).
-//   launched: 2 ints out: the instance's S and BVH (set when it launches)
+//   launched: 3 ints out: the instance's S, BVH and whether it is deep (set
+//           when it launches)
 // Returns the cudaError_t of the launch (0 on success). Launches on `stream`
 // and does not synchronize.
 extern "C" int mcpt_mega_lockstep(const void* const* tables, const int* rows, const float* fpar,
@@ -323,7 +328,9 @@ extern "C" int mcpt_mega_lockstep(const void* const* tables, const int* rows, co
                                   int* launched) {
   const Params P = unpack_params(tables, rows, fpar, ipar, out_rad, out_rays);
   if (P.n_lanes <= 0) return 0;
-  if (!params_ok(P) || P.use_env) return static_cast<int>(cudaErrorInvalidValue);
+  if (!params_ok(P) || !stack_ok(P) || P.use_env) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(
       launch_lanes(pick_instance(P, launched), P, static_cast<cudaStream_t>(stream)));
 }

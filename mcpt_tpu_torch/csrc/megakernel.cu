@@ -90,7 +90,7 @@ __device__ __forceinline__ float path_draw(uint32_t base, uint32_t use) {
 
 // One thread's lanes: the kernel's body (mega_regen below gives it its
 // launch bounds).
-template <int S, bool ENV, bool BVH>
+template <int S, bool ENV, bool BVH, bool DEEP = false>
 __device__ __forceinline__ void regen_lanes(const Params& P) {
   constexpr int NS = S > 0 ? S : -S;
   extern __shared__ __align__(16) float smem[];
@@ -133,7 +133,7 @@ __device__ __forceinline__ void regen_lanes(const Params& P) {
       pend = 0.0f;
     }
     // the one nearest-hit query, for camera and bounce rays alike
-    const Hit hit = trace<BVH>(T, o, d, P.textured);
+    const Hit hit = trace_any<BVH, DEEP>(P, T, o, d);
     ended = true;
     if (depth > 0 && (!hit.happened || hit.emissive)) {
       // the bounce ray missed or reached an emitter: env-rule terminal
@@ -223,13 +223,7 @@ __device__ __forceinline__ void regen_lanes(const Params& P) {
       bool vis[NS];
 #pragma unroll
       for (int si = 0; si < NS; ++si) vis[si] = true;
-      if (P.enable_shadow) {
-        if constexpr (BVH) {
-          occlude_fan_bvh<NS>(T, p_dl, ws, dist, gn, vis);
-        } else {
-          occlude_fan<NS>(T, p_dl, ws, dist, gn, vis);
-        }
-      }
+      if (P.enable_shadow) fan_any<NS, BVH, DEEP>(P, T, p_dl, ws, dist, gn, vis);
 
 #pragma unroll
       for (int si = 0; si < NS; ++si) {
@@ -304,9 +298,16 @@ template <int S, bool ENV, bool BVH, std::enable_if_t<kCapped<S, BVH>, int> = 0>
 __global__ void __launch_bounds__(kThreads, kCapBlocks) mega_regen(Params P) {
   regen_lanes<S, ENV, BVH>(P);
 }
+// The BVH instances for a tree of more than kStack levels (mega_common.cuh
+// DeepStack).
+template <int S, bool ENV>
+__global__ void __launch_bounds__(kThreads) mega_regen_deep(Params P) {
+  regen_lanes<S, ENV, true, true>(P);
+}
 
 // The instance that P takes: S = 4, -16 or -32 by its light-sample count,
-// ENV and BVH by its flags; launched[0..2] get its S, ENV and BVH.
+// ENV and BVH by its flags, a deep one for a tree of more than kStack levels;
+// launched[0..3] get its S, ENV, BVH and whether it is deep.
 Kernel pick_instance(const Params& P, int* launched) {
   const Kernel table[3][4] = {
       {mega_regen<4, false, false>, mega_regen<4, false, true>, mega_regen<4, true, false>,
@@ -315,25 +316,33 @@ Kernel pick_instance(const Params& P, int* launched) {
        mega_regen<-16, true, false>, mega_regen<-16, true, true>},
       {mega_regen<-32, false, false>, mega_regen<-32, false, true>,
        mega_regen<-32, true, false>, mega_regen<-32, true, true>}};
+  const Kernel deep_table[3][2] = {{mega_regen_deep<4, false>, mega_regen_deep<4, true>},
+                                   {mega_regen_deep<-16, false>, mega_regen_deep<-16, true>},
+                                   {mega_regen_deep<-32, false>, mega_regen_deep<-32, true>}};
   const int k = s_index(P.n_dir);
   launched[0] = kS[k];
   launched[1] = P.use_env != 0;
   launched[2] = P.use_bvh != 0;
+  launched[3] = deep(P);
+  if (deep(P)) return deep_table[k][P.use_env ? 1 : 0];
   return table[k][(P.use_env ? 2 : 0) + (P.use_bvh ? 1 : 0)];
 }
 
 }  // namespace
 
 // C interface (loaded with ctypes by kernels/megakernel.py).
-//   tables: 11 device pointers (tri, occ, sph, mat, emt, emeta, lcum, par
+//   tables: 12 device pointers (tri, occ, sph, mat, emt, emeta, lcum, par
 //           float32 tables; env float32 (env_h, env_w, 3); bvh float32
-//           (rows, 16); leaf_tri float32 (L, 28); kernels/tables.py layouts)
+//           (rows, 16); leaf_tri float32 (L, 28); kernels/tables.py layouts;
+//           the deep instances' walk stacks, int32 3 x bvh_depth x n_lanes,
+//           or null below kStack levels)
 //   rows:   6 ints (tri, occ, sph, mat, emt, lcum)
 //   fpar:   17 floats: xscale, yscale, om[9], pos[3], focal, aperture, 1/S
-//   ipar:   17 ints: seed, lane_offset, n_lanes, spp, width, height,
+//   ipar:   18 ints: seed, lane_offset, n_lanes, spp, width, height,
 //           max_bounces, n_dir, enable_shadow, textured, n_sph_emitters,
-//           use_dof, env_h, env_w, use_env, use_bvh, lane_stride
-//   launched: 3 ints out: the instance's S, ENV and BVH (set when it launches)
+//           use_dof, env_h, env_w, use_env, use_bvh, lane_stride, bvh_depth
+//   launched: 4 ints out: the instance's S, ENV, BVH and whether it is deep
+//           (set when it launches)
 // Thread idx runs lane lane_offset + idx * lane_stride. Returns the
 // cudaError_t of the launch (0 on success). Launches on `stream` and does not
 // synchronize.
@@ -342,7 +351,7 @@ extern "C" int mcpt_mega_trace(const void* const* tables, const int* rows, const
                                int* launched) {
   const Params P = unpack_params(tables, rows, fpar, ipar, out_rad, out_rays);
   if (P.n_lanes <= 0) return 0;
-  if (!params_ok(P)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!params_ok(P) || !stack_ok(P)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       launch_lanes(pick_instance(P, launched), P, static_cast<cudaStream_t>(stream)));
 }

@@ -30,6 +30,8 @@
 // of mega_common.cuh (the device versions of what bsdf.py and envmap.py call).
 
 #include "mega_common.cuh"
+#include "wf_lights.cuh"
+#include "wf_random.cuh"
 
 namespace {
 
@@ -46,47 +48,6 @@ __device__ __forceinline__ float t_clamp_min(float x, float lo) {
 }
 __device__ __forceinline__ float t_maximum(float a, float b) {
   return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
-}
-
-// ---- jax.random's threefry2x32 (prng.py) -----------------------------------
-
-struct Key {
-  uint32_t a, b;
-};
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
-
-// The hash of the counter (0, x1) under key k.
-__device__ __forceinline__ Key threefry(Key k, uint32_t x1) {
-  const uint32_t ks[3] = {k.a, k.b, k.a ^ k.b ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  uint32_t x0 = ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[i % 2][j]) ^ x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
-  }
-  return {x0, x1};
-}
-
-__device__ __forceinline__ Key load_key(const long long* key) {
-  return {static_cast<uint32_t>(key[0]), static_cast<uint32_t>(key[1])};
-}
-
-// jax.random.fold_in(k, data)
-__device__ __forceinline__ Key fold_in(Key k, uint32_t data) { return threefry(k, data); }
-
-// Element `idx` of jax.random.uniform(k, shape): the top 23 bits of b0 ^ b1
-// as the mantissa of a float in [1, 2), minus 1.
-__device__ __forceinline__ float uniform_at(Key k, uint32_t idx) {
-  const Key h = threefry(k, idx);
-  return __uint_as_float(((h.a ^ h.b) >> 9) | 0x3F800000u) - 1.0f;
 }
 
 // ---- camera_rays (camera.py generate_rays_c) --------------------------------
@@ -159,42 +120,18 @@ struct PreArgs {
   float total_area, rr_rate, inv_rr, bg[3];
 };
 
-// Row `idx` of a (rows, cols) table, or zeros outside it (intersect._gather).
-__device__ __forceinline__ void row_or_zero(const float* table, int idx, int rows, int cols,
-                                            float* out) {
-  const bool ok = idx >= 0 && idx < rows;
-  for (int c = 0; c < cols; ++c) out[c] = ok ? table[idx * cols + c] : 0.0f;
-}
-
 // The env map along dir at the lane's channel, or the background's channel.
 __device__ __forceinline__ float env_chan(const PreArgs& A, V3 dir, int chan) {
   return A.use_env ? env_lookup(A.T, dir, chan) : pick3(chan, A.bg[0], A.bg[1], A.bg[2]);
 }
 
 // lights.py sample_light_c of one lane from its draws lu: the two-stage pick
-// (mesh by area, searchsorted on lmesh_cum; the mesh's first emitter row
-// whose intra-mesh cumulative area exceeds sqrt(u1)·mesh_area, else its last
-// row), then the point, its normal, the emission at `chan` and the pdf.
+// (wf_lights.cuh light_pick), then the point, its normal, the emission at
+// `chan` and the pdf.
 __device__ void light_sample(const PreArgs& A, const float* lu, int chan, V3& lp, V3& ln,
                              float& emit, float& lpdf) {
-  const float target = lu[0] * A.total_area;
-  int mesh = 0;
-  for (int j = 0; j < A.n_lcum; ++j) mesh += A.lcum[j] < target ? 1 : 0;
-  mesh = min(max(mesh, 0), A.n_lcum - 1);
-  float mesh_area = 0.0f;
-  for (int e = 0; e < A.n_emt; ++e) {
-    const float a = A.emt_mesh[e] == mesh ? A.mesh_area[e] : 0.0f;
-    mesh_area = e == 0 ? a : fmaxf(mesh_area, a);
-  }
-  const float p_tgt = sqrtf(lu[1]) * mesh_area;
-  int sel = A.n_emt, last = -1;
-  for (int e = 0; e < A.n_emt; ++e) {
-    if (A.emt_mesh[e] != mesh) continue;
-    last = e;
-    if (sel == A.n_emt && p_tgt < A.intra[e]) sel = e;
-  }
-  sel = sel >= A.n_emt ? last : sel;
-  sel = min(max(sel, 0), A.n_emt - 1);
+  float mesh_area;
+  const int sel = light_pick(A, lu, mesh_area);
   const float* row = A.emt + sel * kEmtCols;
   const float x = sqrtf(lu[2]), y = lu[3];
   const float wx = x * (1.0f - y), wy = x * y;

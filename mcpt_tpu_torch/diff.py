@@ -7,15 +7,18 @@ reflectance per material, and a global light scale) through the
 detached-sampling estimator: every discrete or stochastic decision
 (microfacet-normal draws, the reflect/refract branch, Russian roulette,
 light picks) is fixed by the counter-based random numbers, hits are
-detached (`integrator._detach_hit`), and autograd follows the eager torch
-shading around the intersector kernel pathwise through the eval, pdf,
-Fresnel and emission terms. Visibility discontinuities are not
-differentiated.
+detached (`integrator._detach_hit`), and the gradient follows the shading
+pathwise through the eval, pdf, Fresnel and emission terms. Visibility
+discontinuities are not differentiated.
 
 `render_lanes` runs the wavefront integrator with every bounce
-(`early_exit=False`, as JAX's `lax.scan`); on the card its intersector is
-the CUDA kernel (K2's sweep and its occlusion fan form, or K3's walk on a
-pack with a BVH), which carries no gradient. `make_train_step` fits the
+(`early_exit=False`, as JAX's `lax.scan`). Each bounce's halves and the
+fold are `torch.autograd.Function`s (`kernels/wavefront.py`): on the card
+the wavefront's CUDA kernels forward and their backward kernels
+(`csrc/wavefront_bwd.cu`) back, on the CPU their plain versions, the
+hand-written reverse modes of `kernels/wavefront_ref.py`. The intersector
+is the CUDA kernel (K2's sweep and its occlusion fan form, or K3's walk on
+a pack with a BVH), forward only: its hits carry no gradient. `make_train_step` fits the
 parameters to a target with `torch.optim.Adam`; with `devices` each device
 renders its block of the pixel ids and the gradients and losses are
 averaged over them (JAX's `pmean` under `shard_map`), and over processes

@@ -24,15 +24,19 @@ JAX function.
 With `early_exit` the bounce loop is a Python loop that stops once no lane
 is alive (one host sync per bounce); records are preallocated (D, B).
 
-The training route: when grad mode is on and a pack tensor requires grad
-(`diff.render_lanes` under `make_train_step` and the hybrid step's
-pull-back), the bounce runs the plain halves on every device, so that
-autograd follows them (the kernels have no backward yet); the wrapper
-counts those calls under the route `plain (autograd)`. Autograd follows the
-whole pass as the detached-sampling estimator of the JAX package: every
-hit's t, u and v are detached (`_detach_hit`), so gradients flow through
-the shading terms (eval, pdf, Fresnel, emission, the reparameterized GGX
-draw), not through the intersector.
+The training route: when grad mode is on and `mat_fat` or `emt_fat`
+requires grad (`diff.render_lanes` under `make_train_step` and the hybrid
+step's pull-back), the halves and the fold run as `torch.autograd.Function`s
+on the same route (the kernels on a CUDA device), each with its backward
+kernel (`csrc/wavefront_bwd.cu`; on the CPU their plain versions, the
+hand-written reverse modes of `wavefront_ref`). A depth's records come back
+as rows of `shade_post_row` and are stacked for the fold. Inside
+`wavefront.autograd_oracle()` such a pass runs the plain forward under
+autograd instead (route `plain (autograd)`, the tests' oracle). The
+gradient is the detached-sampling estimator of the JAX package: every hit's
+t, u and v are detached (`_detach_hit`), so gradients flow through the
+shading terms (eval, pdf, Fresnel, emission, the reparameterized GGX draw),
+not through the intersector.
 """
 
 from typing import NamedTuple
@@ -55,18 +59,13 @@ class PathStats(NamedTuple):
     rays: torch.Tensor  # () total rays traced (primary + shadow + bounce)
 
 
-def needs_autograd(pack) -> bool:
-    """Grad mode is on and a tensor of `pack` requires grad."""
-    return torch.is_grad_enabled() and any(
-        isinstance(v, torch.Tensor) and v.requires_grad for v in vars(pack).values())
-
-
 def trace_route(pack, device) -> str:
-    """The route of the bounce's halves and the fold: `plain (autograd)` by
-    the training rule, else the device's (`wavefront.device_route`: the
-    kernels on a CUDA device, the plain versions on the CPU or inside
-    `wavefront.plain_route()`)."""
-    if needs_autograd(pack):
+    """The route of the bounce's halves and the fold: the device's
+    (`wavefront.device_route`: the kernels on a CUDA device, the plain
+    versions on the CPU or inside `wavefront.plain_route()`), with or
+    without gradients; `plain (autograd)` for a pack that needs gradients
+    inside `wavefront.autograd_oracle()`."""
+    if wavefront.oracle_active() and wavefront.needs_grad(pack):
         return "plain (autograd)"
     return wavefront.device_route(device)
 
@@ -79,10 +78,11 @@ def trace_paths_c(pack, o, d, lam, chan, key, max_bounces=8, method="auto", earl
     b = o[0].shape[0]
     dev = o[0].device
     route = trace_route(pack, dev)
+    rows = [] if route != "plain (autograd)" and wavefront.needs_grad(pack) else None
     s = n_samples(pack)
     hit = _detach_hit(intersect_c(pack, o, d, method=method))
     alive = torch.ones(b, dtype=torch.bool, device=dev)
-    rec = new_records(max_bounces, b, dev)
+    rec = new_records(max_bounces, b, dev) if rows is None else None
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     for depth in range(max_bounces):
         if early_exit and not bool(alive.any()):
@@ -93,8 +93,14 @@ def trace_paths_c(pack, o, d, lam, chan, key, max_bounces=8, method="auto", earl
             # a fan of s shadow rays from each of the b points, ray k·b + i from p[i]
             sh_t = occlude_t_c(pack, pre.p_dl, pre.ws, method=method, fan=s)
         nxt = _detach_hit(intersect_c(pack, pre.p_new, pre.wi, method=method))
-        alive = wavefront.shade_post(pack, pre, sh_t, nxt.prim, rec, depth, rays, route=route)
+        if rows is None:
+            alive = wavefront.shade_post(pack, pre, sh_t, nxt.prim, rec, depth, rays, route=route)
+        else:
+            alive, row = wavefront.shade_post_row(pack, pre, sh_t, nxt.prim, rays, route=route)
+            rows.append(row)
         o, d, hit = pre.p_new, pre.wi, nxt
+    if rows is not None:
+        rec = wavefront.stack_records(rows, max_bounces, b, dev)
     return wavefront.fold(rec, route=route), PathStats(rays=rays + b)
 
 

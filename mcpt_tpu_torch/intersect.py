@@ -17,8 +17,9 @@ quadratic's stable q-form, AABB slabs with ±EPSILON slack, nearest hit wins
 - **bvh**: every ray walks the threaded BVH (`pack.bvh_fat`) in lockstep,
   one `.any()` per step; leaves test their primitives with gathered rows.
 
-`auto` picks `kernel` on a CUDA device at any table size (the walk takes
-any tree of at most `constants.BVH_STACK` levels), and on the CPU `dense`
+`auto` picks `kernel` on a CUDA device at any table size and tree depth
+(a tree deeper than `constants.BVH_STACK` levels takes the walk whose
+stack lives in device memory), and on the CPU `dense`
 up to 4096 padded triangles and `bvh` above (JAX's rule). Every function
 takes the device pack (`scene.pack_to`); vectors are 3-tuples of (B,)
 tensors in the `_c` functions and (B, 3) rows elsewhere.
@@ -309,8 +310,8 @@ def resolve_method(pack, method: str) -> str:
 def wavefront_pack(host, device, method: str = "auto"):
     """(`host`, a compiled `ScenePack`, moved to `device` as the wavefront
     reads it, the method it resolves to there): the card's kernel walks the
-    scene's BVH where it has one (a tree deeper than the walk's stack
-    raises, naming method="bvh"), the `bvh` method gets its node rows."""
+    scene's BVH where it has one, at any depth, and the `bvh` method gets
+    its node rows."""
     pack = pack_to(host, device)
     method = resolve_method(pack, method)
     walk = method == "kernel" and pack.tri_sc.device.type == "cuda"
@@ -360,32 +361,47 @@ def occlude_t_c(pack, oc, dc, method: str = "auto", fan=None) -> torch.Tensor:
 def surface_at_c(pack, oc, dc, hit: Hit) -> SurfaceC:
     """Shading info for the winning primitive per lane; barycentrics come
     from the Hit record, so nothing is re-intersected."""
+    happened, is_tri, ts, ss, mat, emissive = surface_rows(pack, hit)
+    p, n, uv = surface_math(oc, dc, hit.t, hit.u, hit.v, happened, is_tri, ts.unbind(1),
+                            ss.unbind(1))
+    return SurfaceC(happened=happened, p=p, n=n, uv=uv, mat=mat, emissive=emissive, t=hit.t)
+
+
+def surface_rows(pack, hit: Hit):
+    """The discrete half of `surface_at_c`: (happened, is_tri, the
+    tri_shade row (a zero row when not a triangle), the sph_shade row (a
+    zero row when not a sphere), the int64 material id, emissive)."""
     n_tris = pack.n_tris
     prim = hit.prim.to(torch.int64)
     happened = prim >= 0
     is_tri = happened & (prim < n_tris)
     tid = torch.where(is_tri, prim, -1)
     sid = torch.where(happened & ~is_tri, prim - n_tris, -1)
-    # missed lanes keep p = o (o + d*T_MAX would overflow downstream)
-    t_eff = torch.where(happened, hit.t, 0.0)
-    p = tuple(oc[k] + dc[k] * t_eff for k in range(3))
-    ts = _gather(pack.tri_shade, tid)  # zero row when not a triangle
-    u, v = hit.u, hit.v
-    w0 = 1.0 - u - v
-    uv_tri = (
-        w0 * ts[:, 3] + u * ts[:, 5] + v * ts[:, 7],
-        w0 * ts[:, 4] + u * ts[:, 6] + v * ts[:, 8],
-    )
-    ss = _gather(pack.sph_shade, sid)  # zero row when not a sphere
-    ns = tuple(p[k] - ss[:, k] for k in range(3))
-    inv = 1.0 / torch.clamp_min(sqrt_f32(ns[0] * ns[0] + ns[1] * ns[1] + ns[2] * ns[2]), 1e-20)
-    n = tuple(torch.where(is_tri, ts[:, k], ns[k] * inv) for k in range(3))
-    zero = torch.zeros_like(u)
-    uv = (torch.where(is_tri, uv_tri[0], zero), torch.where(is_tri, uv_tri[1], zero))
+    ts = _gather(pack.tri_shade, tid)
+    ss = _gather(pack.sph_shade, sid)
     mat = torch.where(is_tri, ts[:, 9], ss[:, 3]).to(torch.int64)
     mat = torch.where(happened, mat, 0)
     emissive = happened & (torch.where(is_tri, ts[:, 10], ss[:, 4]) > 0.5)
-    return SurfaceC(happened=happened, p=p, n=n, uv=uv, mat=mat, emissive=emissive, t=hit.t)
+    return happened, is_tri, ts, ss, mat, emissive
+
+
+def surface_math(oc, dc, t, u, v, happened, is_tri, ts, ss):
+    """The arithmetic half of `surface_at_c` (ts, ss: the rows' columns):
+    (p, n, uv). Missed lanes keep p = o (o + d*T_MAX would overflow
+    downstream)."""
+    t_eff = torch.where(happened, t, 0.0)
+    p = tuple(oc[k] + dc[k] * t_eff for k in range(3))
+    w0 = 1.0 - u - v
+    uv_tri = (
+        w0 * ts[3] + u * ts[5] + v * ts[7],
+        w0 * ts[4] + u * ts[6] + v * ts[8],
+    )
+    ns = tuple(p[k] - ss[k] for k in range(3))
+    inv = 1.0 / torch.clamp_min(sqrt_f32(ns[0] * ns[0] + ns[1] * ns[1] + ns[2] * ns[2]), 1e-20)
+    n = tuple(torch.where(is_tri, ts[k], ns[k] * inv) for k in range(3))
+    zero = torch.zeros_like(u)
+    uv = (torch.where(is_tri, uv_tri[0], zero), torch.where(is_tri, uv_tri[1], zero))
+    return p, n, uv
 
 
 # ---------------------------------------------------------------------------

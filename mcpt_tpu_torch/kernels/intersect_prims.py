@@ -21,12 +21,14 @@ import ctypes
 
 import torch
 
+from mcpt_tpu_torch.constants import BVH_STACK
 from mcpt_tpu_torch.kernels import build as _build
 from mcpt_tpu_torch.kernels.intersect_prims_ref import fan_origins, intersect_prims_ref
 
 SOURCE = _build.CSRC / "intersect_prims.cu"
 MODES = ("nearest", "occlusion", "tris")  # csrc/intersect_prims.cu `Mode`
-FORMS = ("", " tiled", " walk", " fan", " fan tiled")  # csrc/intersect_prims.cu `Form`
+# csrc/intersect_prims.cu `Form`
+FORMS = ("", " tiled", " walk", " fan", " fan tiled", " deep walk")
 MAX_SPHERES = 4096  # csrc/intersect_prims.cu kMaxSph
 
 
@@ -40,8 +42,8 @@ def _bind(lib):
     fn = lib.mcpt_intersect_prims
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
 
@@ -97,13 +99,18 @@ def _launch(tri, sph, sph_base, oc, dc, occlusion, walk=None, fan=0):
     lib = load_library()
     ray_ptrs = (ctypes.c_void_p * 6)(*(x.data_ptr() for x in rays))
     out_ptrs = (ctypes.c_void_p * 4)(*outs)
+    # a tree deeper than the kernel's local stack: the walk's stack in
+    # device memory, 3 x depth entries a ray
+    stack = (torch.empty(3 * depth * b, dtype=torch.int32, device=dev)
+             if walk is not None and depth > BVH_STACK else None)
     launched = (ctypes.c_int * 2)(-1, 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.mcpt_intersect_prims(
             ctypes.cast(ray_ptrs, ctypes.c_void_p), tri.data_ptr(), tri.shape[0],
             None if bvh is None else bvh.data_ptr(), 0 if bvh is None else bvh.shape[0], depth,
-            sph.data_ptr(), sph.shape[0], int(sph_base), b, int(bool(occlusion)), fan,
+            None if stack is None else stack.data_ptr(), sph.data_ptr(), sph.shape[0],
+            int(sph_base), b, int(bool(occlusion)), fan,
             ctypes.cast(out_ptrs, ctypes.c_void_p), stream, ctypes.cast(launched, ctypes.c_void_p),
         )
     if status != 0:

@@ -21,6 +21,7 @@ from types import SimpleNamespace
 
 import torch
 
+from mcpt_tpu_torch.constants import BVH_STACK
 from mcpt_tpu_torch.kernels.megakernel_ref import (
     T_MAX_F,
     _sph_candidates,
@@ -99,7 +100,8 @@ def intersect_prims_ref(tri, sph, sph_base, oc, dc, occlusion=False, fan=None):
     return _with_spheres((t_best, prim, u_best, v_best), sph, sph_base, oc, dc, occlusion)
 
 
-def intersect_walk_ref(bvh, leaf_sc, sph, sph_base, oc, dc, occlusion=False, ops=None):
+def intersect_walk_ref(bvh, leaf_sc, sph, sph_base, oc, dc, occlusion=False, ops=None,
+                       depth=BVH_STACK):
     """`intersect_prims_ref`'s answers, bit for bit, through the pack's BVH
     (`kernels/tables.py::walk_tables`: child-pair rows `bvh` (R, 16), tri_sc
     rows in leaf order `leaf_sc` (L, 16)), then the spheres by brute force.
@@ -111,12 +113,13 @@ def intersect_walk_ref(bvh, leaf_sc, sph, sph_base, oc, dc, occlusion=False, ops
     sweep's first minimum), u and v from that row. Occlusion: the same
     winner's t alone. Tallies under `ops` (a Counter) the rows loaded
     (`row`), box tests (`slab`), triangle tests (`woop`) and sphere tests
-    (`sph`)."""
+    (`sph`). `depth`, the tree's levels, sizes the walk's stack above
+    BVH_STACK (the kernel's deep walk)."""
     b = oc[0].shape[0]
     best_t, best_i, best_u, best_v = _no_hit(b, oc[0].device)
     inv = [1.0 / x for x in dc]
     leaf_id = leaf_sc.view(torch.int32)[:, WALK_ID].to(torch.int64)
-    walk = _Walk(SimpleNamespace(bvh=bvh, leaf_tri=leaf_sc),
+    walk = _Walk(SimpleNamespace(bvh=bvh, leaf_tri=leaf_sc, bvh_depth=depth),
                  torch.ones(b, dtype=torch.bool, device=best_t.device),
                  torch.zeros_like(best_t), ops)
     while walk.lanes.numel():

@@ -16,6 +16,7 @@ import re
 
 import torch
 
+from mcpt_tpu_torch.constants import BVH_STACK
 from mcpt_tpu_torch.kernels import build as _build
 from mcpt_tpu_torch.kernels.megakernel_ref import (
     MAX_BOUNCES_LIMIT,
@@ -38,10 +39,14 @@ _KERNELS = {
 }
 
 
-def instance_name(s: int, *flags: int) -> str:
+def instance_name(s: int, *flags: int, deep: bool = False) -> str:
     """The template instance as the C++ source writes it: `mega_regen<S,
-    ENV, BVH>` for two flags, `mega_lockstep<S, BVH>` for one."""
+    ENV, BVH>` for two flags, `mega_lockstep<S, BVH>` for one; with `deep`
+    the instance for a tree of more than BVH_STACK levels, which drops the
+    BVH flag: `mega_regen_deep<S, ENV>`, `mega_lockstep_deep<S>`."""
     kernel = "mega_regen" if len(flags) == 2 else "mega_lockstep"
+    if deep:
+        kernel, flags = kernel + "_deep", flags[:-1]
     return f"{kernel}<{', '.join([str(s), *(('false', 'true')[f] for f in flags)])}>"
 
 
@@ -50,11 +55,15 @@ def ptxas_summary(log: str) -> list:
     template arguments, registers and spill bytes."""
     out, name = [], None
     for line in log.splitlines():
-        m = re.search(r"entry function '[^']*(?:mega_regen|mega_lockstep)ILi(n?\d+)E((?:Lb\dE)+)",
-                      line)
+        m = re.search(r"entry function '[^']*(mega_regen|mega_lockstep)(_deep)?ILi(n?\d+)E"
+                      r"((?:Lb\dE)*)", line)
         if m:  # the mangled name writes a negative S as n<digits>
-            flags = [int(f) for f in re.findall(r"Lb(\d)E", m[2])]
-            name = instance_name(int(m[1].replace("n", "-")), *flags)
+            flags = [int(f) for f in re.findall(r"Lb(\d)E", m[4])]
+            if m[2]:  # a deep instance drops its BVH flag, which is true
+                flags.append(1)
+            if len(flags) != (2 if m[1] == "mega_regen" else 1):
+                continue
+            name = instance_name(int(m[3].replace("n", "-")), *flags, deep=bool(m[2]))
             spill = ""
         elif name and "spill stores" in line:
             spill = line.strip()
@@ -96,15 +105,23 @@ def _check_tables(tables):
         raise ValueError("emeta rows must equal emt rows and par must be (1, 8)")
 
 
+def deep(tables) -> bool:
+    """Whether the tables' tree takes the kernels' deep instances (more than
+    BVH_STACK levels: their walks keep their stacks in device memory)."""
+    return tables.use_bvh and tables.bvh_depth > BVH_STACK
+
+
 def kernel_args(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces, rad, rays,
-                lane_stride=1):
+                lane_stride=1, stack=None):
     """The C interface's argument list for one launch (see the comment on
     `mcpt_mega_trace` in csrc/megakernel.cu; the lockstep entry takes the
     same), pointers from `data_ptr()`; each ctypes array stays alive through
-    the cast that points at it."""
+    the cast that points at it. `stack`: the deep instances' walk stacks
+    (`walk_stack`), or None."""
     n_dir = tables.n_dir_sample if tables.n_emitters else 0
-    ptrs = (ctypes.c_void_p * 11)(
-        *(getattr(tables, k).data_ptr() for k in (*TABLE_COLS, *EXTRA))
+    ptrs = (ctypes.c_void_p * 12)(
+        *(getattr(tables, k).data_ptr() for k in (*TABLE_COLS, *EXTRA)),
+        None if stack is None else stack.data_ptr(),
     )
     rows = (ctypes.c_int * 6)(
         *(getattr(tables, k).shape[0] for k in ("tri", "occ", "sph", "mat", "emt", "lcum"))
@@ -114,18 +131,28 @@ def kernel_args(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces, rad, 
         cam["xscale"], cam["yscale"], *om, *cam["pos"], cam["focal"],
         cam["aperture"], (1.0 / n_dir) if n_dir else 0.0,
     )
-    ipar = (ctypes.c_int * 17)(
+    ipar = (ctypes.c_int * 18)(
         int(seed), int(lane_offset), int(n_lanes), int(spp), cam["width"],
         cam["height"], int(max_bounces), n_dir, int(tables.enable_shadow),
         int(tables.any_textured), int(tables.n_sph_emitters), int(cam["use_dof"]),
         tables.env.shape[0], tables.env.shape[1], int(tables.use_env),
-        int(tables.use_bvh), int(lane_stride),
+        int(tables.use_bvh), int(lane_stride), int(tables.bvh_depth),
     )
     return [
         ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(rows, ctypes.c_void_p),
         ctypes.cast(fpar, ctypes.c_void_p), ctypes.cast(ipar, ctypes.c_void_p),
         rad.data_ptr(), rays.data_ptr(),
     ]
+
+
+def walk_stack(tables, n_lanes):
+    """The deep instances' walk stacks for `n_lanes` lanes (int32, 3 x
+    bvh_depth entries a lane: 12 bytes a level), or None for a shallow
+    tree."""
+    if not deep(tables):
+        return None
+    return torch.empty(3 * tables.bvh_depth * max(n_lanes, 1), dtype=torch.int32,
+                       device=tables.device)
 
 
 def trace_block(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8, *, regen=True,
@@ -162,17 +189,19 @@ def trace_block(tables, cam, seed, lane_offset, spp, n_lanes, max_bounces=8, *, 
     _, entry, n_flags = _KERNELS[regen]
     rad = torch.empty(n_lanes, dtype=torch.float32, device=dev)
     rays = torch.empty(n_lanes, dtype=torch.float32, device=dev)
+    stack = walk_stack(tables, n_lanes)
     args = kernel_args(
-        tables, cam, seed, lane_offset, spp, n_lanes, max_bounces, rad, rays, lane_stride
+        tables, cam, seed, lane_offset, spp, n_lanes, max_bounces, rad, rays, lane_stride, stack
     )
-    launched = (ctypes.c_int * 3)(0, 0, 0)  # S stays 0 if nothing launched
+    launched = (ctypes.c_int * 4)(0, 0, 0, 0)  # S stays 0 if nothing launched
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = getattr(lib, entry)(*args, stream, ctypes.cast(launched, ctypes.c_void_p))
     if status != 0:
         raise RuntimeError(f"megakernel launch failed: cudaError {status}")
     if launched[0]:
-        trace_block.last_instance = instance_name(*launched[: 1 + n_flags])
+        trace_block.last_instance = instance_name(*launched[: 1 + n_flags],
+                                                  deep=bool(launched[1 + n_flags]))
         trace_block.launches += 1
         trace_block.by_instance[trace_block.last_instance] += 1
     return rad, rays
@@ -192,7 +221,7 @@ def instance_info(tables, cam, max_bounces=8, *, regen=True) -> dict:
     _, entry, n_flags = _KERNELS[regen]
     out = torch.empty(1, dtype=torch.float32, device=tables.device)
     args = kernel_args(tables, cam, 0, 0, 1, 1, max_bounces, out, out)[:4]
-    launched = (ctypes.c_int * 3)(0, 0, 0)
+    launched = (ctypes.c_int * 4)(0, 0, 0, 0)
     info = (ctypes.c_int * 5)()
     with torch.cuda.device(tables.device):
         status = getattr(lib, entry + "_info")(
@@ -200,7 +229,8 @@ def instance_info(tables, cam, max_bounces=8, *, regen=True) -> dict:
     if status != 0:
         raise RuntimeError(f"megakernel query failed: cudaError {status}")
     keys = ("blocks_per_sm", "threads", "registers", "local_bytes", "smem_bytes")
-    return {"instance": instance_name(*launched[: 1 + n_flags]), **dict(zip(keys, info))}
+    name = instance_name(*launched[: 1 + n_flags], deep=bool(launched[1 + n_flags]))
+    return {"instance": name, **dict(zip(keys, info))}
 
 
 # launches of the kernels, in all and by template instance

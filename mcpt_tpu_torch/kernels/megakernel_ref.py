@@ -528,8 +528,10 @@ class _Walk:
     """The rays of one walk: `lanes` (ray ids), each at its item (`link`,
     `cnt`: a row when cnt is 0, else a leaf of cnt `leaf_tri` rows) with a
     `key` (the entry t of a nearest walk, or the ray mask of a fan walk) and
-    a stack of (link, cnt, key) entries. Each row a ray loads counts one
-    under `row` in `ops`."""
+    a stack of (link, cnt, key) entries, BVH_STACK of them or, for a tree of
+    more levels, one a level (`tables.bvh_depth`: the kernels' deep
+    instances, which keep it in device memory). Each row a ray loads counts
+    one under `row` in `ops`."""
 
     def __init__(self, tables, live, key, ops=None):
         self.nodes = tables.bvh
@@ -540,7 +542,8 @@ class _Walk:
         self.link = torch.zeros_like(self.lanes)  # row 0, the root's
         self.cnt = torch.zeros_like(self.lanes)
         self.key = key[self.lanes]
-        self.stack = [torch.zeros((n, BVH_STACK), dtype=t.dtype, device=dev)
+        depth = max(BVH_STACK, tables.bvh_depth)
+        self.stack = [torch.zeros((n, depth), dtype=t.dtype, device=dev)
                       for t in (self.link, self.cnt, key)]
         self.sp = torch.zeros(n, dtype=torch.int64, device=dev)
         self.max_leaf = int(self.links[:, 1::2].max().clamp(min=0).item())
@@ -783,14 +786,26 @@ MAX_COPIES = 4096
 def gather_mat(mat, mat_id, chan):
     """Per-lane material params with refl/emission channel-picked (ids
     outside the table gather zeros, like the JAX select loop)."""
+    rows, ok, _ = mat_rows(mat, mat_id)
+    return mat_fields(rows.unbind(-1), ok, chan)
+
+
+def mat_rows(mat, mat_id):
+    """(the rows of `mat` at the float ids `mat_id`, clamped into the table,
+    whether each id names a row, the clamped int64 ids)."""
     n_m = mat.shape[0]
     idx = mat_id.to(torch.int64).clamp(0, n_m - 1)
     ok = mat_id == idx.to(torch.float32)
-    zero = torch.zeros_like(mat_id)
-    rows = take_rows(mat, idx)
+    return take_rows(mat, idx), ok, idx
+
+
+def mat_fields(cols, ok, chan):
+    """`gather_mat`'s fields from a row's columns `cols` (zeros where not
+    `ok`), refl and emission picked at `chan`."""
+    zero = torch.zeros_like(cols[0])
 
     def col(c):
-        return torch.where(ok, rows[..., c], zero)
+        return torch.where(ok, cols[c], zero)
 
     return {
         "mtype": col(0),
@@ -820,6 +835,20 @@ def take_rows(table, idx):
         return table[idx]
     copy = torch.arange(n, device=idx.device).reshape(idx.shape) % k
     return table.repeat(k, 1)[idx + r * copy]
+
+
+def fold_rows(adj, idx, rows: int):
+    """The gradient that `take_rows(table, idx)`'s backward gives `table`
+    (`rows` rows) for the per-lane row adjoints `adj` (n, cols): each
+    lane's row into copy i % k of k copies, summed per row in sort order
+    (`index_put_` with accumulate, deterministic), then over the copies.
+    The backward kernels hand their per-lane adjoints to it."""
+    n = idx.numel()
+    k = max(1, min(MAX_COPIES, n // (rows * LANES_PER_COPY)))
+    out = torch.zeros((k * rows, adj.shape[1]), dtype=adj.dtype, device=adj.device)
+    at = idx if k == 1 else idx + rows * (torch.arange(n, device=idx.device) % k)
+    out.index_put_((at,), adj, accumulate=True)
+    return out if k == 1 else out.reshape(k, rows, -1).sum(0)
 
 
 def is_conductor(mtype):

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mcpt_tpu_torch.constants import BVH_STACK, EPSILON, T_MAX
+from mcpt_tpu_torch.constants import EPSILON, T_MAX
 from mcpt_tpu_torch.scene import MEGA_MAX_TRIS
 
 # Table name → row width. Layouts (mega_tables docstring in mcpt_tpu):
@@ -51,7 +51,7 @@ TABLE_COLS = {
 EXTRA = ("env", "bvh", "leaf_tri")
 STATIC = (
     "n_emitters", "n_sph_emitters", "n_dir_sample", "enable_shadow",
-    "any_textured", "use_env", "use_bvh",
+    "any_textured", "use_env", "use_bvh", "bvh_depth",
 )
 NODE_COLS = 16
 LEAF_COLS = 28  # csrc/mega_common.cuh kTriSmem
@@ -124,8 +124,9 @@ def bvh_tables(pack, tri) -> tuple:
     The flat tree is threaded in DFS preorder: interior node i's children
     are i + 1 and miss[i + 1], and the right child inherits its parent's
     miss link, which this function checks. A root that is a leaf becomes
-    one row with an empty second child. Trees of more than BVH_STACK levels
-    raise: the walks' stacks would overflow.
+    one row with an empty second child. Any depth is taken: the walks of a
+    tree deeper than BVH_STACK levels keep their stack in device memory
+    (`SceneTables.bvh_depth` picks them).
 
     Child boxes are inflated by max(EPSILON, 1e-5 x the largest coordinate):
     the Woop test can accept a hit a few float32 ULPs of the coordinates
@@ -141,10 +142,6 @@ def bvh_tables(pack, tri) -> tuple:
     count = np.asarray(pack.bvh_leaf_count, np.int64)
     prims = np.asarray(pack.bvh_prims, np.int64)
     leaf = start >= 0
-    depth = bvh_depth(miss, leaf)
-    if depth > BVH_STACK:
-        raise ValueError(f"BVH of {depth} levels > {BVH_STACK}, the walks' stack: render "
-                         f'such a tree through the wavefront with method="bvh"')
     finite = np.isfinite(lo) & np.isfinite(hi)
     scale = float(np.abs(np.where(finite, lo, 0.0)).max(initial=0.0))
     scale = max(scale, float(np.abs(np.where(finite, hi, 0.0)).max(initial=0.0)))
@@ -191,20 +188,27 @@ def bvh_tables(pack, tri) -> tuple:
     return bvh, leaf_tri
 
 
+def pack_depth(pack) -> int:
+    """Levels of the pack's flat BVH (0 without one)."""
+    if not pack.use_bvh:
+        return 0
+    return bvh_depth(np.asarray(pack.bvh_miss, np.int64), np.asarray(pack.bvh_leaf_start) >= 0)
+
+
 class WalkTables(NamedTuple):
     """The wavefront intersector's BVH walk tables (`walk_tables`), numpy
     arrays or, on a moved pack (`scene.pack_to`), tensors."""
 
     bvh: object  # (R, 16) float32: `bvh_tables`' child-pair rows
     leaf: object  # (L, 16) float32: tri_sc rows in leaf order, col WALK_ID the row
-    depth: int  # the tree's levels (<= BVH_STACK), for the kernel's refusal
+    depth: int  # the tree's levels: above BVH_STACK the kernel walks with a device stack
 
 
 def walk_tables(pack) -> WalkTables:
     """The tables of the wavefront intersector's walk mode for a pack with a
     BVH: the child-pair rows exactly as `bvh_tables` lays them out (the
-    same inflation, empty children for leaves of spheres only, the same
-    refusal of trees deeper than BVH_STACK), and the pack's tri_sc rows in
+    same inflation, empty children for leaves of spheres only, any depth),
+    and the pack's tri_sc rows in
     leaf order in tri_sc's 16-column layout, column WALK_ID holding each
     row's index in tri_sc as non-negative int32 bits (the tie rule and the
     returned prim). Spheres stay out: the kernel tests them after the walk."""
@@ -213,8 +217,7 @@ def walk_tables(pack) -> WalkTables:
     bvh, rows = bvh_tables(pack, np.asarray(pack.tri_sc))
     leaf = np.ascontiguousarray(rows[:, :NODE_COLS])
     leaf[:, WALK_ID] = rows[:, LEAF_ID]
-    miss = np.asarray(pack.bvh_miss, np.int64)
-    return WalkTables(bvh, leaf, bvh_depth(miss, np.asarray(pack.bvh_leaf_start) >= 0))
+    return WalkTables(bvh, leaf, pack_depth(pack))
 
 
 class SceneTables(nn.Module):
@@ -233,6 +236,7 @@ class SceneTables(nn.Module):
         any_textured: bool,
         use_env: bool = False,
         use_bvh: bool = False,
+        bvh_depth: int = 0,
         device=None,
     ):
         super().__init__()
@@ -257,6 +261,9 @@ class SceneTables(nn.Module):
         self.any_textured = bool(any_textured)
         self.use_env = bool(use_env)
         self.use_bvh = bool(use_bvh)
+        # the tree's levels: above BVH_STACK the kernels take their deep
+        # instances, whose walk stacks live in device memory
+        self.bvh_depth = int(bvh_depth)
 
     @classmethod
     def from_pack(cls, pack, device=None) -> "SceneTables":
@@ -278,6 +285,7 @@ class SceneTables(nn.Module):
             any_textured=bool(np.asarray(pack.mat_textured).any()),
             use_env=pack.use_env,
             use_bvh=pack.use_bvh,
+            bvh_depth=pack_depth(pack),
             device=device,
         )
 

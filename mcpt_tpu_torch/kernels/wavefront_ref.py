@@ -18,11 +18,20 @@ S light samples with their shadow directions, visibility thresholds and
 unshadowed contributions, roulette, the reflect/refract branch, the next
 ray and its weight), then the intersector (the shadow fan and the next
 ray's nearest hit), then `shade_post` (visibility, the NEE sum, `l_dir`,
-`leaf`, `cont`, the depth's records and the ray count). These are also the
-training path's forward: autograd follows them (`integrator.trace_paths_c`
-takes them, not the kernels, when a pack tensor requires grad).
+`leaf`, `cont`, the depth's records and the ray count). `shade_pre`'s
+arithmetic is `vertex_math` and `sample_math` on per-lane values, after a
+discrete half of row gathers, draws and light picks.
+
+The backward kernels' plain versions close the module: `shade_pre_bwd`
+replays the reverse mode of `vertex_math` and `sample_math`, traced from
+this very code by `lane_ad` (`vertex_program`, `sample_program`; the
+kernel's C++ is generated from the same traces, `wavefront_lanes`), and
+`shade_post_bwd` and `fold_bwd` are written out by hand. Autograd through
+the forward functions here is the tests' oracle of them (the route
+`plain (autograd)`).
 """
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -30,20 +39,23 @@ import numpy as np
 import torch
 
 from mcpt_tpu_torch import prng
-from mcpt_tpu_torch.bsdf import (
-    eval_bsdf_c,
-    fresnel_c,
-    gather_material,
-    pdf_c,
-    refract_c,
-    sample_mfn_c,
-)
+from mcpt_tpu_torch.bsdf import eval_bsdf_c, fresnel_c, pdf_c, refract_c, sample_mfn_c
 from mcpt_tpu_torch.constants import CLAMP_DIRECT, CLAMP_INDIRECT, EPSILON, REL_EPS
 from mcpt_tpu_torch.envmap import sample_env_chan
-from mcpt_tpu_torch.intersect import surface_at_c
-from mcpt_tpu_torch.kernels.megakernel_ref import _dot, _neg, _reflect, _where3
+from mcpt_tpu_torch.intersect import surface_math, surface_rows
+from mcpt_tpu_torch.kernels import lane_ad
+from mcpt_tpu_torch.kernels.megakernel_ref import (
+    _dot,
+    _neg,
+    _reflect,
+    _where3,
+    fold_rows,
+    mat_fields,
+    mat_rows,
+    take_rows,
+)
 from mcpt_tpu_torch.kernels.megakernel_ref import sqrt_f32 as _sqrt
-from mcpt_tpu_torch.lights import sample_light_c
+from mcpt_tpu_torch.lights import light_point, pick
 
 
 class PreOut(NamedTuple):
@@ -142,34 +154,147 @@ def env_chan(pack, d, chan):
     return sample_env_chan(pack.env_pixels, bg, pack.use_env, d, chan)
 
 
-def _light_samples(pack, key, wo, p, n, uv, m, lam, chan, is_reflect):
-    """The light-sample half of the NEE estimator (Scene.cpp:56-82): per
-    sample k of lane i (row k·B + i) the shadow direction from p, its
-    visibility threshold and its contribution if visible:
-    emit · eval · (ws·n) · (−ws·n_light) / dist² / pdf / S."""
-    b = p[0].shape[0]
-    s = n_samples(pack)
-    if s == 0:
-        empty = p[0].new_empty((0,))
-        return (empty, empty, empty), empty, empty
-    ls = sample_light_c(pack, _draws(key, s * b, p[0].device), chan.expand(s, b).reshape(-1))
-    lp = tuple(x.reshape(s, b) for x in ls.p)
-    ln = tuple(x.reshape(s, b) for x in ls.n)
-    emit = ls.emit.reshape(s, b)
-    lpdf = ls.pdf.reshape(s, b)
+# ---------------------------------------------------------------------------
+# shade_pre: its discrete half (row gathers, draws, light picks), then its
+# arithmetic on per-lane values, `vertex_math` and `sample_math`, which the
+# backward kernels' programs are traced from (`lane_programs`)
+# ---------------------------------------------------------------------------
 
-    delta = tuple(lp[k] - p[k] for k in range(3))  # (S, B) by broadcast
+VERTEX_FLOATS = ("o0", "o1", "o2", "d0", "d1", "d2", "t", "u", "v", "lam",
+                 *(f"ts{k}" for k in range(11)), *(f"ss{k}" for k in range(5)),
+                 *(f"m{k}" for k in range(13)), *(f"xi{k}" for k in range(4)))
+VERTEX_FLAGS = ("happened", "is_tri", "mat_ok", "alive", "is_b")
+# the values of a vertex that its light samples read
+SHARED_FLOATS = ("p_dl0", "p_dl1", "p_dl2", "n0", "n1", "n2", "wo0", "wo1", "wo2", "uv0", "uv1",
+                 "lam", "mtype", "ior_a", "ior_b", "rough", "refl", "textured")
+SAMPLE_FLOATS = (*(f"e{k}" for k in range(17)), "mesh_area", "lu2", "lu3")
+# shade_pre's outputs that carry a gradient, in the backward seeds' order
+RAY_OUT = ("p_new0", "p_new1", "p_new2", "wi0", "wi1", "wi2")
+LEAF_OUT = ("fac", "leaf_pre", "env_c", "w")
+
+
+def vertex_inputs(pack, o, d, hit, alive, depth: int, kd, lam, chan):
+    """The per-lane inputs of `vertex_math` (names as VERTEX_FLOATS,
+    VERTEX_FLAGS and `chan`) and the lanes' int64 material rows."""
+    b = o[0].shape[0]
+    happened, is_tri, ts, ss, mat, emissive = surface_rows(pack, hit)
+    rows, ok, idx = mat_rows(pack.mat_fat, mat.float())
+    xi = _draws(prng.fold_in(kd, 0), b, o[0].device)
+    x = {"o0": o[0], "o1": o[1], "o2": o[2], "d0": d[0], "d1": d[1], "d2": d[2],
+         "t": hit.t, "u": hit.u, "v": hit.v, "lam": lam, "chan": chan,
+         "happened": happened, "is_tri": is_tri, "mat_ok": ok, "alive": alive,
+         # the depth-0 emitter hit (Scene.cpp:102-107)
+         "is_b": happened & emissive if depth == 0 else torch.zeros_like(happened)}
+    x.update({f"ts{k}": ts[:, k] for k in range(11)})
+    x.update({f"ss{k}": ss[:, k] for k in range(5)})
+    x.update({f"m{k}": rows[:, k] for k in range(13)})
+    x.update({f"xi{k}": xi[:, k] for k in range(4)})
+    return x, idx
+
+
+def vertex_math(x, prm, env):
+    """The arithmetic of shade_pre but for its light samples, per lane:
+    the surface (Scene.cpp:85-159 up to the ray queries), `x` the inputs of
+    `vertex_inputs`, `prm` the scalars rr_rate and inv_rr, `env(d, chan)`
+    the env term. Returns (outputs, shared): the PreOut fields but ws, thr
+    and contrib as names (vectors by component), and what `sample_math`
+    reads of the vertex (SHARED_FLOATS, `is_reflect`)."""
+    o = (x["o0"], x["o1"], x["o2"])
+    d = (x["d0"], x["d1"], x["d2"])
+    lam, chan, happened = x["lam"], x["chan"], x["happened"]
+    p, n, uv = surface_math(o, d, x["t"], x["u"], x["v"], happened, x["is_tri"],
+                            [x[f"ts{k}"] for k in range(11)], [x[f"ss{k}"] for k in range(5)])
+    wo = _neg(d)
+
+    env_leaf = env(d, chan)  # miss: env/background (Scene.cpp:88-95)
+    m = mat_fields([x[f"m{k}"] for k in range(13)], x["mat_ok"], chan)
+    # depth-0 emitter hit (Scene.cpp:102-107)
+    b_leaf = torch.clamp(m["emit"] * torch.abs(_dot(wo, n)), 0.0, 1.0)
+    at_vertex = x["alive"] & happened & ~x["is_b"]
+
+    # microfacet normal + Fresnel split (Scene.cpp:109-110)
+    mfn = sample_mfn_c(m, n, x["xi0"], x["xi1"])
+    kr = fresnel_c(m, d, mfn, lam)
+
+    # NEE from the scale-relative ε-offset point (Scene.cpp:113-119)
+    off_scale = torch.clamp_min(
+        REL_EPS * torch.maximum(torch.abs(p[0]), torch.maximum(torch.abs(p[1]), torch.abs(p[2]))),
+        EPSILON,
+    )
+    p_dl = tuple(p[k] + n[k] * off_scale for k in range(3))
+    inner = _dot(wo, n) < 0.0
+    fac = torch.where(inner, 1.0 - kr, kr)
+
+    # Russian roulette + stochastic reflect/refract (Scene.cpp:121-159)
+    rr_kill = x["xi2"] >= prm["rr_rate"]
+    branch_reflect = x["xi3"] < kr
+    sign_reflect = torch.where(_dot(wo, mfn) < 0.0, -1.0, 1.0)
+    sign = torch.where(branch_reflect, sign_reflect, -sign_reflect)
+    p_new = tuple(p[k] + n[k] * (off_scale * sign) for k in range(3))
+    wi = _where3(branch_reflect, _reflect(wo, mfn), refract_c(m, d, mfn, lam))
+
+    inv_rr = prm["inv_rr"]
+    ev = eval_bsdf_c(m, wi, wo, n, lam, uv, branch_reflect)
+    pv = pdf_c(m, wi, wo, n, lam, branch_reflect)
+    # indirect weight (Scene.cpp:135-144,162-171), the reference's |wo·n|
+    pv_ok = torch.abs(pv) > 1e-10
+    w_rough = torch.where(
+        pv_ok, ev * torch.abs(_dot(wo, n)) / torch.where(pv_ok, pv, 1.0) * inv_rr, 0.0
+    )
+    w = torch.where(m["dirac"] > 0.5, ev * inv_rr, w_rough)
+    env_ind = env(wi, chan) * ev * inv_rr
+    leaf_pre = torch.where(~x["alive"], 0.0, torch.where(~happened, env_leaf, b_leaf))
+    out = {"fac": fac, "leaf_pre": leaf_pre, "env_c": torch.clamp(env_ind, 0.0, CLAMP_INDIRECT),
+           "w": w, "at_vertex": at_vertex, "rr_kill": rr_kill}
+    for name, vec in (("p_new", p_new), ("wi", wi), ("p_dl", p_dl)):
+        out.update({f"{name}{k}": vec[k] for k in range(3)})
+    shared = {f"p_dl{k}": p_dl[k] for k in range(3)}
+    shared.update({f"n{k}": n[k] for k in range(3)})
+    shared.update({f"wo{k}": wo[k] for k in range(3)})
+    shared.update({"uv0": uv[0], "uv1": uv[1], "lam": lam, "is_reflect": ~inner})
+    shared.update({k: m[k] for k in ("mtype", "ior_a", "ior_b", "rough", "refl", "textured")})
+    return out, shared
+
+
+def sample_inputs(pack, k_light, b: int, chan):
+    """The per-sample inputs of `sample_math` (SAMPLE_FLOATS and `chan`,
+    sample k of lane i at k·B + i, with the draws of uniform(k_light,
+    (S·B, 4))) and the samples' int64 emitter rows."""
+    s = n_samples(pack)
+    u = _draws(k_light, s * b, chan.device)
+    sel, mesh_area = pick(pack, u)
+    rows = take_rows(pack.emt_fat, sel)
+    x = {f"e{k}": rows[:, k] for k in range(17)}
+    x.update({"mesh_area": mesh_area, "lu2": u[:, 2], "lu3": u[:, 3],
+              "chan": chan.expand(s, b).reshape(-1)})
+    return x, sel
+
+
+def sample_math(x, s, spheres: bool):
+    """The light-sample half of the NEE estimator (Scene.cpp:56-82) for one
+    sample: the point on the picked emitter row, the shadow direction from
+    p_dl, its visibility threshold and its contribution if visible,
+    emit · eval · (ws·n) · (−ws·n_light) / dist² / pdf / s. `x` holds the
+    vertex's shared values and the sample's inputs (broadcastable); returns
+    (ws, thr, contrib)."""
+    ls = light_point([x[f"e{k}"] for k in range(17)], x["mesh_area"], x["lu2"], x["lu3"],
+                     x["chan"], spheres)
+    p = (x["p_dl0"], x["p_dl1"], x["p_dl2"])
+    n = (x["n0"], x["n1"], x["n2"])
+    wo = (x["wo0"], x["wo1"], x["wo2"])
+    m = {k: x[k] for k in ("mtype", "ior_a", "ior_b", "rough", "refl", "textured")}
+    delta = tuple(ls.p[k] - p[k] for k in range(3))
     dist = _sqrt(torch.clamp_min(_dot(delta, delta), 1e-20))
     inv_dist = 1.0 / dist
-    ws = tuple(x * inv_dist for x in delta)
+    ws = tuple(c * inv_dist for c in delta)
     # no hit strictly closer than the light sample, by a relative margin
     thr = dist - torch.clamp_min(REL_EPS * dist, EPSILON)
-    ev = eval_bsdf_c(m, ws, wo, n, lam, uv, is_reflect)
+    ev = eval_bsdf_c(m, ws, wo, n, x["lam"], (x["uv0"], x["uv1"]), x["is_reflect"])
     contrib = (
-        emit * ev * _dot(ws, n) * -_dot(ws, ln) * (inv_dist * inv_dist)
-        / lpdf / torch.full_like(lpdf, s)
+        ls.emit * ev * _dot(ws, n) * -_dot(ws, ls.n) * (inv_dist * inv_dist)
+        / ls.pdf / torch.full_like(ls.pdf, s)
     )
-    return tuple(x.reshape(s * b) for x in ws), thr.reshape(s * b), contrib.reshape(s * b)
+    return ws, thr, contrib
 
 
 def shade_pre(pack, o, d, hit, alive, depth: int, key, lam, chan) -> PreOut:
@@ -179,57 +304,23 @@ def shade_pre(pack, o, d, hit, alive, depth: int, key, lam, chan) -> PreOut:
     and fold_in(fold_in(key, depth), 1) (S·B, 4)."""
     b = o[0].shape[0]
     kd = prng.fold_in(key, depth)
-    surf = surface_at_c(pack, o, d, hit)
-    happened = surf.happened
-    wo = _neg(d)
-
-    env_leaf = env_chan(pack, d, chan)  # miss: env/background (Scene.cpp:88-95)
-    m = gather_material(pack, surf.mat, chan)
-    # depth-0 emitter hit (Scene.cpp:102-107)
-    b_leaf = torch.clamp(m["emit"] * torch.abs(_dot(wo, surf.n)), 0.0, 1.0)
-    is_b = happened & surf.emissive if depth == 0 else torch.zeros_like(happened)
-    at_vertex = alive & happened & ~is_b
-
-    # microfacet normal + Fresnel split (Scene.cpp:109-110)
-    xi = _draws(prng.fold_in(kd, 0), b, o[0].device)
-    mfn = sample_mfn_c(m, surf.n, xi[:, 0], xi[:, 1])
-    kr = fresnel_c(m, d, mfn, lam)
-
-    # NEE from the scale-relative ε-offset point (Scene.cpp:113-119)
-    p = surf.p
-    off_scale = torch.clamp_min(
-        REL_EPS * torch.maximum(torch.abs(p[0]), torch.maximum(torch.abs(p[1]), torch.abs(p[2]))),
-        EPSILON,
-    )
-    p_dl = tuple(p[k] + surf.n[k] * off_scale for k in range(3))
-    inner = _dot(wo, surf.n) < 0.0
-    ws, thr, contrib = _light_samples(pack, prng.fold_in(kd, 1), wo, p_dl, surf.n, surf.uv, m,
-                                      lam, chan, ~inner)
-    fac = torch.where(inner, 1.0 - kr, kr)
-
-    # Russian roulette + stochastic reflect/refract (Scene.cpp:121-159)
-    rr_kill = xi[:, 2] >= float(pack.rr_rate)
-    branch_reflect = xi[:, 3] < kr
-    sign_reflect = torch.where(_dot(wo, mfn) < 0.0, -1.0, 1.0)
-    sign = torch.where(branch_reflect, sign_reflect, -sign_reflect)
-    p_new = tuple(p[k] + surf.n[k] * (off_scale * sign) for k in range(3))
-    wi = _where3(branch_reflect, _reflect(wo, mfn), refract_c(m, d, mfn, lam))
-
-    inv_rr = float(pack.inv_rr)
-    ev = eval_bsdf_c(m, wi, wo, surf.n, lam, surf.uv, branch_reflect)
-    pv = pdf_c(m, wi, wo, surf.n, lam, branch_reflect)
-    # indirect weight (Scene.cpp:135-144,162-171), the reference's |wo·n|
-    pv_ok = torch.abs(pv) > 1e-10
-    w_rough = torch.where(
-        pv_ok, ev * torch.abs(_dot(wo, surf.n)) / torch.where(pv_ok, pv, 1.0) * inv_rr, 0.0
-    )
-    w = torch.where(m["dirac"] > 0.5, ev * inv_rr, w_rough)
-    env_ind = env_chan(pack, wi, chan) * ev * inv_rr
-    leaf_pre = torch.where(~alive, 0.0, torch.where(~happened, env_leaf, b_leaf))
+    x, _ = vertex_inputs(pack, o, d, hit, alive, depth, kd, lam, chan)
+    prm = {"rr_rate": float(pack.rr_rate), "inv_rr": float(pack.inv_rr)}
+    out, shared = vertex_math(x, prm, lambda dd, ch: env_chan(pack, dd, ch))
+    s = n_samples(pack)
+    if s:
+        xs, _ = sample_inputs(pack, prng.fold_in(kd, 1), b, chan)
+        xs = {k: v.reshape(s, b) for k, v in xs.items()}
+        ws, thr, contrib = sample_math({**shared, **xs}, s, bool(pack.n_sph_emitters))
+        ws, thr, contrib = tuple(c.reshape(s * b) for c in ws), thr.reshape(-1), contrib.reshape(-1)
+    else:
+        empty = o[0].new_empty((0,))
+        ws, thr, contrib = (empty, empty, empty), empty, empty
     return PreOut(
-        p_new=p_new, wi=wi, p_dl=p_dl, ws=ws, thr=thr, contrib=contrib, fac=fac,
-        leaf_pre=leaf_pre, env_c=torch.clamp(env_ind, 0.0, CLAMP_INDIRECT), w=w,
-        at_vertex=at_vertex, rr_kill=rr_kill,
+        p_new=tuple(out[f"p_new{k}"] for k in range(3)), wi=tuple(out[f"wi{k}"] for k in range(3)),
+        p_dl=tuple(out[f"p_dl{k}"] for k in range(3)), ws=ws, thr=thr, contrib=contrib,
+        fac=out["fac"], leaf_pre=out["leaf_pre"], env_c=out["env_c"], w=out["w"],
+        at_vertex=out["at_vertex"], rr_kill=out["rr_kill"],
     )
 
 
@@ -283,3 +374,216 @@ def fold(rec: Records):
             + torch.clamp(rec.w[depth] * radiance, 0.0, CLAMP_INDIRECT),
         )
     return radiance
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels' plain versions: the reverse mode of shade_pre (traced
+# from vertex_math and sample_math, `lane_ad`), of shade_post and of fold
+# ---------------------------------------------------------------------------
+
+
+class LaneProgram(NamedTuple):
+    """A traced lane program with its reverse: `tape` holds the forward's
+    `n_fwd` ops, then the adjoint's; `outs` names forward values, `seeds`
+    the seed inputs in seed order, `adj` each input's adjoint."""
+
+    tape: lane_ad.Tape
+    n_fwd: int
+    outs: dict
+    seeds: tuple
+    adj: dict
+
+    def split(self, wanted):
+        """The live ops toward the values `wanted`: (the forward's, the
+        adjoint's)."""
+        ops = lane_ad.live_ops(self.tape, wanted)
+        first = self.tape.ops[self.n_fwd].out
+        return [op for op in ops if op.out < first], [op for op in ops if op.out >= first]
+
+
+def _trace_inputs(tp, floats, flags=(), ints=()):
+    x = {n: tp.input(n) for n in floats}
+    x.update({n: tp.input(n, "b") for n in flags})
+    x.update({n: tp.input(n, "i") for n in ints})
+    return x
+
+
+def _reversed(tp, outs, seed_names):
+    n_fwd = len(tp.ops)
+    seeds = [(outs[n], tp.input("g_" + n)) for n in seed_names]
+    return LaneProgram(tp, n_fwd, outs, tuple(seed_names), lane_ad.reverse(tp, seeds))
+
+
+@functools.lru_cache(maxsize=None)
+def vertex_program(use_env: bool, ray: bool) -> LaneProgram:
+    """`vertex_math` traced, with its reverse for the seeds of LEAF_OUT,
+    RAY_OUT (with `ray`; the last bounce's next ray takes no gradient) and
+    SHARED_FLOATS (the light samples' adjoints of the vertex's values).
+    Parameters: rr_rate, inv_rr, and the map's env_h, env_w (`use_env`) or
+    the background bg0-2; table: env."""
+    tp = lane_ad.Tape()
+    x = _trace_inputs(tp, VERTEX_FLOATS, VERTEX_FLAGS, ("chan",))
+    prm = {"rr_rate": tp.param("rr_rate"), "inv_rr": tp.param("inv_rr")}
+    if use_env:
+        hw = (tp.param("env_h", "pi"), tp.param("env_w", "pi"))
+        table = lane_ad.Table("env")
+
+        def env(dd, ch):
+            return sample_env_chan(table, None, True, dd, ch, hw=hw)
+    else:
+        bg = tuple(tp.param(f"bg{k}") for k in range(3))
+
+        def env(dd, ch):
+            return sample_env_chan(None, bg, False, dd, ch)
+    out, shared = vertex_math(x, prm, env)
+    outs = {**out, **{"sh_" + k: v for k, v in shared.items()}}
+    seeds = (RAY_OUT if ray else ()) + LEAF_OUT + tuple("sh_" + k for k in shared_seeds())
+    return _reversed(tp, outs, seeds)
+
+
+def shared_seeds() -> tuple:
+    """The vertex values (SHARED_FLOATS) that a light sample's reverse
+    gives an adjoint."""
+    got = set(sample_program(False).adj) | set(sample_program(True).adj)
+    return tuple(n for n in SHARED_FLOATS if n in got and n != "lam")  # lam is an input
+
+
+@functools.lru_cache(maxsize=None)
+def sample_program(spheres: bool) -> LaneProgram:
+    """`sample_math` traced for one (sample, lane), with its reverse for the
+    contribution's seed. Parameter: s, the samples a vertex."""
+    tp = lane_ad.Tape()
+    x = _trace_inputs(tp, SHARED_FLOATS + SAMPLE_FLOATS, ("is_reflect",), ("chan",))
+    ws, thr, contrib = sample_math(x, tp.param("s", "pi"), spheres)
+    outs = {"ws0": ws[0], "ws1": ws[1], "ws2": ws[2], "thr": thr, "contrib": contrib}
+    return _reversed(tp, outs, ("contrib",))
+
+
+def _run(prog, env, wanted, like, tables, part):
+    """Replay the live ops of `prog` toward `wanted` values: its forward
+    (`part` 0) or its adjoint (1)."""
+    return lane_ad.replay(prog.split(wanted)[part], env, like, tables)
+
+
+def shade_pre_bwd(pack, o, d, hit, alive, depth: int, key, lam, chan, grads):
+    """The reverse mode of `shade_pre` (the plain version of the backward
+    kernel `shade_pre_bwd`): `grads` maps the names of RAY_OUT (all or
+    none), LEAF_OUT and "contrib" ((S·B,)) to output gradients. Returns
+    (g_o, g_d, g_mat, g_emt): the lanes' o and d adjoints (3-tuples of
+    (B,)) and the gradients of `pack.mat_fat` and `pack.emt_fat`, their
+    per-lane row adjoints folded into the tables by `fold_rows`.
+
+    Every lane first recomputes its vertex (`vertex_program`'s forward), then
+    each light sample k from 0 up runs forward and back (`sample_program`),
+    its adjoints of the vertex's values summed in k order, then the vertex
+    runs back with those sums and the output gradients as seeds."""
+    b = o[0].shape[0]
+    s = n_samples(pack)
+    kd = prng.fold_in(key, depth)
+    x, mat_idx = vertex_inputs(pack, o, d, hit, alive, depth, kd, lam, chan)
+    ray = "p_new0" in grads
+    vp = vertex_program(bool(pack.use_env), ray)
+    tables = {"env": pack.env_pixels}
+    prm = {"rr_rate": float(pack.rr_rate), "inv_rr": float(pack.inv_rr),
+           "env_h": pack.env_pixels.shape[0], "env_w": pack.env_pixels.shape[1],
+           **{f"bg{k}": float(pack.background[k]) for k in range(3)}}
+    env = {v.id: x[n] for n, v in vp.tape.inputs.items() if not n.startswith("g_")}
+    env.update({v.id: prm[n] for n, v in vp.tape.params.items()})
+    wanted = [vp.adj[n] for n in ("o0", "o1", "o2", "d0", "d1", "d2",
+                                  *(f"m{k}" for k in range(13))) if n in vp.adj]
+    shared_names = (*SHARED_FLOATS, "is_reflect")
+    _run(vp, env, wanted + [vp.outs["sh_" + n] for n in shared_names], x["t"], tables, 0)
+    acc = {n: torch.zeros_like(x["t"]) for n in shared_seeds()}
+    g_emt = pack.emt_fat.new_zeros((0, 17))
+    sel = torch.zeros(0, dtype=torch.int64, device=x["t"].device)
+    if s:
+        xs, sel = sample_inputs(pack, prng.fold_in(kd, 1), b, chan)
+        sp = sample_program(bool(pack.n_sph_emitters))
+        senv = {sp.tape.inputs[n].id: env[vp.outs["sh_" + n].id].repeat(s)
+                for n in shared_names}
+        senv.update({sp.tape.inputs[n].id: v for n, v in xs.items()})
+        senv[sp.tape.inputs["g_contrib"].id] = grads["contrib"]
+        senv[sp.tape.params["s"].id] = s
+        like = xs["lu2"]
+        want_s = [sp.adj[n] for n in (*SHARED_FLOATS, *(f"e{k}" for k in range(17)))
+                  if n in sp.adj]
+        _run(sp, senv, want_s, like, tables, 0)
+        _run(sp, senv, want_s, like, tables, 1)
+        for n in acc:
+            if n in sp.adj:
+                a = senv[sp.adj[n].id].reshape(s, b)
+                for k in range(s):
+                    acc[n] = acc[n] + a[k]
+        zero = torch.zeros_like(like)
+        g_emt = torch.stack([senv[sp.adj[f"e{k}"].id] if f"e{k}" in sp.adj else zero
+                             for k in range(17)], dim=1)
+    for n in vp.seeds:
+        env[vp.tape.inputs["g_" + n].id] = acc[n[3:]] if n.startswith("sh_") else grads[n]
+    _run(vp, env, wanted, x["t"], tables, 1)
+    zero = torch.zeros_like(x["t"])
+
+    def adj(n):
+        return env[vp.adj[n].id] if n in vp.adj else zero
+
+    g_mat = torch.stack([adj(f"m{k}") for k in range(13)], dim=1)
+    return (tuple(adj(f"o{k}") for k in range(3)), tuple(adj(f"d{k}") for k in range(3)),
+            fold_rows(g_mat, mat_idx, pack.mat_fat.shape[0]),
+            fold_rows(g_emt, sel, pack.emt_fat.shape[0]))
+
+
+def shade_post_bwd(pre: PreOut, sh_t, s: int, g_l_dir, g_w, g_leaf):
+    """The reverse mode of `shade_post` for the gradients of its record row
+    (l_dir, w, leaf): (g_contrib (S·B,), g_fac, g_leaf_pre, g_env_c, g_w),
+    each lane's in the kernel `shade_post_bwd`'s order."""
+    b = pre.fac.shape[0]
+    total = torch.zeros_like(pre.fac)
+    vis = None
+    if s:
+        contrib = pre.contrib.reshape(s, b)
+        if sh_t is not None:
+            vis = sh_t.reshape(s, b) >= pre.thr.reshape(s, b)
+            contrib = torch.where(vis, contrib, 0.0)
+        total = contrib[0]
+        for k in range(1, s):
+            total = total + contrib[k]
+    l_dir = pre.fac * total
+    gv = torch.where(pre.at_vertex, g_leaf, 0.0)  # the vertex's leaf
+    g_leaf_pre = torch.where(pre.at_vertex, 0.0, g_leaf)
+    g_env_c = torch.where(pre.rr_kill, 0.0, gv)
+    inside = (l_dir >= 0.0) & (l_dir <= CLAMP_DIRECT)
+    g_l = (g_l_dir + torch.where(pre.rr_kill, gv, 0.0)
+           + torch.where(inside & ~pre.rr_kill, gv, 0.0))
+    g_fac = g_l * total
+    g_total = g_l * pre.fac
+    g_contrib = g_total.repeat(s)
+    if vis is not None:
+        g_contrib = torch.where(vis.reshape(-1), g_contrib, 0.0)
+    return g_contrib, g_fac, g_leaf_pre, g_env_c, g_w
+
+
+def fold_bwd(rec: Records, g):
+    """The reverse mode of `fold` for the radiance gradient `g` (B,):
+    (g_l_dir, g_w, g_leaf), each (D, B), autograd's formulas through every
+    depth (a terminal depth passes nothing on)."""
+    depth = rec.leaf.shape[0]
+    radiance = torch.zeros_like(rec.leaf[0])
+    nxt = [None] * depth
+    for k in range(depth - 1, -1, -1):
+        nxt[k] = radiance
+        radiance = torch.where(
+            rec.terminal[k],
+            rec.leaf[k],
+            torch.clamp(rec.l_dir[k], 0.0, CLAMP_DIRECT)
+            + torch.clamp(rec.w[k] * radiance, 0.0, CLAMP_INDIRECT),
+        )
+    g_l_dir, g_w, g_leaf = [], [], []
+    for k in range(depth):
+        g_leaf.append(torch.where(rec.terminal[k], g, 0.0))
+        gn = torch.where(rec.terminal[k], 0.0, g)
+        inside = (rec.l_dir[k] >= 0.0) & (rec.l_dir[k] <= CLAMP_DIRECT)
+        g_l_dir.append(torch.where(inside, gn, 0.0))
+        z = rec.w[k] * nxt[k]
+        gz = torch.where((z >= 0.0) & (z <= CLAMP_INDIRECT), gn, 0.0)
+        g_w.append(gz * nxt[k])
+        g = gz * rec.w[k]
+    return torch.stack(g_l_dir), torch.stack(g_w), torch.stack(g_leaf)

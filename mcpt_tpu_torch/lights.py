@@ -25,19 +25,19 @@ class LightSampleC(NamedTuple):
 
 
 def _sphere_point(row, u2, u3):
-    """Uniform point on an emissive sphere row (c = cols 0:3, r = col 3):
-    y = 1 - 2a, azimuth 2πb."""
+    """Uniform point on an emissive sphere row (columns `row`: c = 0:3, r =
+    3): y = 1 - 2a, azimuth 2πb."""
     ys = 1.0 - 2.0 * u2
     s = _sqrt(torch.clamp_min(1.0 - ys * ys, 0.0))
     ph = 2.0 * math.pi * u3
     dv = (s * torch.cos(ph), ys, s * torch.sin(ph))
-    r = row[:, 3]
-    p = tuple(row[:, k] + r * dv[k] for k in range(3))
+    r = row[3]
+    p = tuple(row[k] + r * dv[k] for k in range(3))
     return p, dv
 
 
-def _pick(pack, u):
-    """The two-stage emitter pick: (fat row, mesh_area, x, y)."""
+def pick(pack, u):
+    """The two-stage emitter pick: (int64 emitter row, mesh_area)."""
     e = pack.emt_mesh.shape[0]
     target = u[:, 0] * float(pack.emit_total_area)
     mesh = torch.searchsorted(pack.lmesh_cum, target, right=False)
@@ -50,24 +50,31 @@ def _pick(pack, u):
     sel = torch.amin(torch.where(hit, idx[None, :], e), dim=1)
     last = torch.amax(torch.where(same_mesh, idx[None, :], -1), dim=1)
     sel = torch.where(sel >= e, last, sel).clamp(0, e - 1)
-    row = take_rows(pack.emt_fat, sel)
-    return row, mesh_area, _sqrt(u[:, 2]), u[:, 3]
+    return sel, mesh_area
+
+
+def light_point(row, mesh_area, u2, u3, chan, spheres: bool) -> LightSampleC:
+    """The sample on the picked emitter row (its 17 columns `row`) from the
+    draws u2, u3: p = v0 + e1·x(1-y) + e2·xy with x = √u2, y = u3, or with
+    `spheres` a uniform point where the row is an emissive sphere."""
+    x, y = _sqrt(u2), u3
+    wx = x * (1.0 - y)
+    wy = x * y
+    p = tuple(row[k] + row[3 + k] * wx + row[6 + k] * wy for k in range(3))
+    n = (row[9], row[10], row[11])
+    if spheres:
+        is_se = row[16] > 0.5
+        ps, ns = _sphere_point(row, u2, u3)
+        p = tuple(torch.where(is_se, ps[k], p[k]) for k in range(3))
+        n = tuple(torch.where(is_se, ns[k], n[k]) for k in range(3))
+    emit = torch.where(chan == 0, row[12], torch.where(chan == 1, row[13], row[14]))
+    pdf = 1.0 / torch.clamp_min(mesh_area, 1e-20)
+    return LightSampleC(p=p, n=n, emit=emit, pdf=pdf)
 
 
 def sample_light_c(pack, u, chan) -> LightSampleC:
     """u: (B, 4) uniforms, chan (B,) → a light sample per lane. Requires
     pack.n_emitters > 0."""
-    row, mesh_area, x, y = _pick(pack, u)
-    wx = x * (1.0 - y)
-    wy = x * y
-    # p = v0 + e1·x(1-y) + e2·xy
-    p = tuple(row[:, k] + row[:, 3 + k] * wx + row[:, 6 + k] * wy for k in range(3))
-    n = (row[:, 9], row[:, 10], row[:, 11])
-    if pack.n_sph_emitters:
-        is_se = row[:, 16] > 0.5
-        ps, ns = _sphere_point(row, u[:, 2], u[:, 3])
-        p = tuple(torch.where(is_se, ps[k], p[k]) for k in range(3))
-        n = tuple(torch.where(is_se, ns[k], n[k]) for k in range(3))
-    emit = torch.where(chan == 0, row[:, 12], torch.where(chan == 1, row[:, 13], row[:, 14]))
-    pdf = 1.0 / torch.clamp_min(mesh_area, 1e-20)
-    return LightSampleC(p=p, n=n, emit=emit, pdf=pdf)
+    sel, mesh_area = pick(pack, u)
+    row = take_rows(pack.emt_fat, sel).unbind(1)
+    return light_point(row, mesh_area, u[:, 2], u[:, 3], chan, bool(pack.n_sph_emitters))

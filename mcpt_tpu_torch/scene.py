@@ -226,7 +226,7 @@ def pack_to(pack: ScenePack, device, bvh: bool = False, walk: bool = False) -> S
     wavefront path reads it; with `bvh`, `bvh_fat` is built first
     (`fat_bvh`); with `walk`, a pack with a BVH gets the intersector's walk
     tables (`kernels/tables.py::walk_tables`, kept on `pack` at first use;
-    a tree deeper than BVH_STACK raises). Scalars and the three background
+    any depth). Scalars and the three background
     floats stay on the host."""
     if bvh:
         fat_bvh(pack)

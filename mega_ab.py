@@ -163,7 +163,7 @@ class Library:
         rad = torch.empty(n, dtype=torch.float32, device="cuda")
         rays = torch.empty(n, dtype=torch.float32, device="cuda")
         args = self.mk.kernel_args(tables, cs, seed, lane_offset, spp, n, mb, rad, rays)
-        launched = (ctypes.c_int * 3)()
+        launched = (ctypes.c_int * 4)()  # S and flags; a tree may write 3 or 4
         stream = torch.cuda.current_stream().cuda_stream
         status = self.fn(*args, stream, ctypes.cast(launched, ctypes.c_void_p))
         if status != 0:
@@ -175,7 +175,7 @@ class Library:
             return None
         out = torch.empty(1, device="cuda")
         args = self.mk.kernel_args(tables, cs, 0, 0, 1, 1, mb, out, out)[:4]
-        launched, info = (ctypes.c_int * 3)(), (ctypes.c_int * 5)()
+        launched, info = (ctypes.c_int * 4)(), (ctypes.c_int * 5)()
         status = self.info_fn(*args, ctypes.cast(launched, ctypes.c_void_p),
                               ctypes.cast(info, ctypes.c_void_p))
         if status != 0:

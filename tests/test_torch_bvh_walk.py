@@ -9,16 +9,17 @@ sweeps, on the x4-scaled Cornell box of tests/test_megakernel.py:207-279
   box inflated as `bvh_tables` says, a leaf of spheres only is the empty
   child, and the tree fits the walks' stack. On a chain whose every other
   leaf holds a sphere only, both walks equal the brute sweeps.
-- A tree of more levels than the stack (`chain_pack`) is refused; one of
-  exactly as many is taken, and walked to the brute sweep's answers. A flat
-  tree that is not threaded in DFS preorder is refused.
+- A tree of more levels than the kernels' local stack (`chain_pack`, from
+  chip_smoke.py) is taken, and walked to the brute sweep's answers, as is
+  one of exactly as many. A flat tree that is not threaded in DFS preorder
+  is refused.
 - `bvh_nearest` gives the brute sweep's hit record bitwise (t, the triangle
   row on equal t, spheres after triangles) on random rays and on rays aimed
   at edges two triangles share, where equal t occurs; `bvh_fan` gives the
   brute fan's visibility bits for fans of 1 to 32 rays from one origin.
 
 This file imports neither jax nor mcpt_tpu: the card's test file
-(tests/test_torch_cuda.py) borrows `chain_pack`, and with
+(tests/test_torch_cuda.py) borrows it, and with
 tests/test_torch_intersect_walk.py `fold_case`, the intersector walk's
 signed-zero ties.
 """
@@ -29,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import cornell_x4
+from chip_smoke import chain_pack, cornell_x4
 from mcpt_tpu_torch.constants import BVH_STACK, EPSILON, T_MAX
 from mcpt_tpu_torch.kernels.megakernel_ref import (
     _tri_candidates,
@@ -57,38 +58,6 @@ def x4():
     sc = cornell_x4(sky=False)
     pack = sc.compile(cluster_threshold=8)
     return pack, SceneTables.from_pack(sc.compile()), SceneTables.from_pack(pack)
-
-
-def chain_pack(levels, sphere_leaves=False):
-    """The x4 box's pack with its flat BVH replaced by a chain of `levels`
-    levels: interior node j has a leaf and interior node j + 1 as children
-    (DFS preorder: interior nodes at even, leaves at odd indices, the last
-    leaf last). The triangles are spread over the leaves, or with
-    `sphere_leaves` over every other leaf; leaves left over hold a sphere
-    only. Every box is the scene's, so every walk is exact."""
-    pack = cornell_x4(sky=False).compile(cluster_threshold=8)
-    prims = np.asarray(pack.bvh_prims)
-    tris = np.sort(prims[(prims >= 0) & (prims < pack.t_pad)])
-    k = levels - 1  # interior nodes; k + 1 leaves
-    slots = range(0, k + 1, 2 if sphere_leaves else 1)
-    groups = [np.array([pack.t_pad])] * (k + 1)
-    for j, g in zip(slots, np.array_split(tris, len(slots))):
-        groups[j] = g if g.size else groups[j]
-    n = 2 * k + 1
-    leaf_ix = [2 * j + 1 for j in range(k)] + [2 * k]
-    start = np.full(n, -1, np.int32)
-    count = np.zeros(n, np.int32)
-    start[leaf_ix] = np.cumsum([0] + [g.size for g in groups[:-1]])
-    count[leaf_ix] = [g.size for g in groups]
-    miss = np.where(np.arange(n) % 2 == 1, np.arange(n) + 1, -1).astype(np.int32)
-    lo = np.minimum(np.asarray(pack.bvh_min).min(0), np.asarray(pack.bvh_max).min(0))
-    hi = np.maximum(np.asarray(pack.bvh_min).max(0), np.asarray(pack.bvh_max).max(0))
-    return dataclasses.replace(
-        pack, bvh_min=np.tile(lo, (n, 1)).astype(np.float32),
-        bvh_max=np.tile(hi, (n, 1)).astype(np.float32), bvh_miss=miss,
-        bvh_leaf_start=start, bvh_leaf_count=count,
-        bvh_prims=np.concatenate(groups).astype(np.int32),
-    )
 
 
 def _t3(x):
@@ -205,15 +174,19 @@ def test_node_table_encodes_the_flat_tree(x4):
 
 
 def test_tree_deeper_than_the_stack_is_refused(x4):
-    with pytest.raises(ValueError, match=f"{BVH_STACK + 1} levels"):
-        SceneTables.from_pack(chain_pack(BVH_STACK + 1))
+    """Nothing is refused any more: a tree of BVH_STACK + 1 levels (past the
+    kernels' local stack) is taken with its depth, and both walks over it,
+    like one of exactly BVH_STACK levels, give the brute sweeps' answers
+    bitwise."""
     _, brute, _ = x4
-    deep = SceneTables.from_pack(chain_pack(BVH_STACK))
     o, d = _random_rays(np.random.default_rng(5), 512)
     want = intersect_tile(brute.tri, brute.sph, _t3(o), _t3(d))
-    got = bvh_nearest(deep, _t3(o), _t3(d), torch.ones(512, dtype=torch.bool))
-    for a, b in zip(_fields(got), _fields(want), strict=True):
-        assert torch.equal(a, b)
+    for levels in (BVH_STACK, BVH_STACK + 1):
+        deep = SceneTables.from_pack(chain_pack(levels))
+        assert deep.bvh_depth == levels
+        got = bvh_nearest(deep, _t3(o), _t3(d), torch.ones(512, dtype=torch.bool))
+        for a, b in zip(_fields(got), _fields(want), strict=True):
+            assert torch.equal(a, b)
 
 
 def test_tree_out_of_preorder_is_refused():

@@ -20,8 +20,14 @@ through the plain version. Renders strided
 over one card listed three times equal the single render bitwise. The
 training path's gradients through the intersector equal those through its
 plain version bitwise, and the hybrid train step launches both kernels.
+Trees deeper than the walks' local stack take the deep instances, bitwise
+their plain versions; the wavefront's backward kernels
+(`csrc/wavefront_bwd.cu`) equal their plain versions bitwise, the train
+step runs them (no `plain (autograd)` call), and its gradients repeat bit
+for bit.
 """
 
+import ctypes
 import dataclasses
 from pathlib import Path
 
@@ -412,34 +418,45 @@ def test_intersect_walk_signed_zero_ties(cuda_card, occlusion):
 
 @pytest.mark.gpu
 def test_intersect_walk_refuses_a_deep_tree(cuda_card):
-    """A tree deeper than the walk's stack: `walk_tables` refuses it, so a
-    wavefront render through the kernel refuses it (no fallback to the
-    sweep) while the `bvh` method renders it; the C entry refuses tables
-    that claim more levels than the stack, before any launch."""
-    from chip_smoke import cornell_x4
-    from test_torch_bvh_walk import chain_pack
+    """Nothing is refused any more: a tree of BVH_STACK levels fills the
+    shallow walk's local stack and takes that walk, a deeper one takes the
+    deep walk (its stack in device memory); each is bitwise its plain
+    version and the sweep in both modes, and a wavefront render through the
+    kernel equals the `bvh` method's within the repo's bound (both exact;
+    the intersectors' ULPs differ); the C entry still refuses deep tables
+    without the stack, before any launch."""
+    from chip_smoke import chain_pack, cornell_x4
+    from mcpt_tpu_torch.kernels.intersect_prims_ref import intersect_walk_ref
 
     deep = chain_pack(BVH_STACK + 1)
-    with pytest.raises(ValueError, match="levels"):
-        walk_tables(deep)
+    assert walk_tables(deep).depth == BVH_STACK + 1
     cam = dataclasses.replace(cornell_x4(sky=False).camera, width=8, height=6)
-    with pytest.raises(ValueError, match="levels"):
-        render_radiance(deep, cam, 1, 2, max_bounces=2, method="kernel", device="cuda")
-    img, _ = render_radiance(deep, cam, 1, 2, max_bounces=2, method="bvh", device="cuda")
+    img, _ = render_radiance(deep, cam, 1, 2, max_bounces=2, method="kernel", device="cuda")
+    assert IP.intersect_prims_c.last_mode.endswith("deep walk")
+    ref_img, _ = render_radiance(deep, cam, 1, 2, max_bounces=2, method="bvh", device="cuda")
     assert np.isfinite(img).all() and img.mean() > 0
-    pack = pack_to(chain_pack(BVH_STACK), "cuda", walk=True)
-    assert pack.walk.depth == BVH_STACK
-    oc, dc = _cuda_rays(256, 0.0, 500.0, ((0.0, 0.0, 0.0), (500.0, 500.0, 500.0)), 7)
-    before = IP.intersect_prims_c.launches
-    with pytest.raises(RuntimeError, match="cudaError"):
-        IP.intersect_prims_c(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc,
-                             walk=pack.walk._replace(depth=BVH_STACK + 1))
-    assert IP.intersect_prims_c.launches == before
-    got = IP.intersect_prims_c(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc, walk=pack.walk)
-    want = intersect_prims_ref(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc)
-    assert IP.intersect_prims_c.last_mode == "nearest walk"
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    assert (np.abs(img - ref_img) > 1e-3).mean() < 0.02
+    for levels in (BVH_STACK, BVH_STACK + 1, 64):
+        pack = pack_to(chain_pack(levels), "cuda", walk=True)
+        assert pack.walk.depth == levels
+        oc, dc = _cuda_rays(256, 0.0, 500.0, ((0.0, 0.0, 0.0), (500.0, 500.0, 500.0)), 7)
+        for occlusion in (False, True):
+            got = IP.intersect_prims_c(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc,
+                                       occlusion=occlusion, walk=pack.walk)
+            walk = ("occlusion" if occlusion else "nearest") + (
+                " deep walk" if levels > BVH_STACK else " walk")
+            assert IP.intersect_prims_c.last_mode == walk
+            plain = intersect_walk_ref(pack.walk.bvh, pack.walk.leaf, pack.sph_geom,
+                                       pack.n_tris, oc, dc, occlusion=occlusion,
+                                       depth=levels)
+            swept = intersect_prims_ref(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc,
+                                        occlusion=occlusion)
+            _bits_equal(got, plain, swept)
+    launched = (ctypes.c_int * 2)(0, 0)
+    status = IP.load_library().mcpt_intersect_prims(
+        None, pack.tri_sc.data_ptr(), 1, pack.walk.bvh.data_ptr(), 1, BVH_STACK + 1, None, None,
+        0, 0, 1, 0, 0, None, None, ctypes.cast(launched, ctypes.c_void_p))
+    assert status != 0
 
 
 @pytest.mark.gpu
@@ -677,16 +694,36 @@ def test_any_light_count_bitwise(cuda_card, n_dir, bvh, regen):
 
 
 @pytest.mark.gpu
-def test_deep_bvh_refused_for_the_card(cuda_card):
-    """A tree deeper than the walks' stack is refused when its tables are
-    made, before any launch (tests/test_torch_bvh_walk.py builds it)."""
-    from test_torch_bvh_walk import chain_pack
+@pytest.mark.parametrize("regen", [True, False])
+def test_deep_bvh_refused_for_the_card(cuda_card, regen):
+    """Nothing is refused any more: trees of BVH_STACK + 1 and 64 levels
+    take the deep instances (their walk stacks in device memory), which
+    equal the plain version bitwise on every lane and the same box on its
+    own shallow tree (both walks exact), at 4 light samples and at 7 and 40
+    (the generic instances); the regenerating kernel's under the sky too
+    (its env instances; the lockstep kernel takes no env map)."""
+    from chip_smoke import chain_pack, cornell_x4
 
-    before = K.trace_block.launches
-    with pytest.raises(ValueError, match="levels"):
-        SceneTables.from_pack(chain_pack(BVH_STACK + 1), device="cuda")
-    assert K.trace_block.launches == before
-    assert SceneTables.from_pack(chain_pack(BVH_STACK), device="cuda").use_bvh
+    plain = trace_block_ref if regen else trace_block_lockstep_ref
+    for sky in (False, True) if regen else (False,):
+        sc = cornell_x4(sky=sky)
+        shallow = SceneTables.from_pack(sc.compile(cluster_threshold=8), device="cuda")
+        cs = cam_static(dataclasses.replace(sc.camera, width=W, height=H))
+        n = W * H * 3
+        for levels in (BVH_STACK + 1, 64):
+            deep = SceneTables.from_pack(chain_pack(levels, sky=sky), device="cuda")
+            assert deep.use_env == sky
+            for n_dir in (4, 7, 40):
+                deep.n_dir_sample = shallow.n_dir_sample = n_dir
+                r, ry = K.trace_block(deep, cs, 5, 0, 2, n, 5, regen=regen)
+                s_inst = {4: 4, 7: -16, 40: -32}[n_dir]
+                assert K.trace_block.last_instance == (
+                    f"mega_regen_deep<{s_inst}, {str(sky).lower()}>" if regen
+                    else f"mega_lockstep_deep<{s_inst}>")
+                r2, ry2 = plain(deep, cs, 5, 0, 2, n, 5)
+                assert torch.equal(ry, ry2) and torch.equal(r, r2)
+                r3, ry3 = K.trace_block(shallow, cs, 5, 0, 2, n, 5, regen=regen)
+                assert torch.equal(ry, ry3) and torch.equal(r, r3)
 
 
 @pytest.mark.gpu
@@ -695,8 +732,7 @@ def test_sphere_only_leaves_on_the_card(cuda_card, regen):
     """A tree whose every other leaf holds a sphere only (empty children in
     the node table): both kernels' BVH instances equal the plain version
     bitwise on every lane, ray counts included."""
-    from chip_smoke import cornell_x4
-    from test_torch_bvh_walk import chain_pack
+    from chip_smoke import chain_pack, cornell_x4
 
     tables = SceneTables.from_pack(chain_pack(12, sphere_leaves=True), device="cuda")
     cs = cam_static(dataclasses.replace(cornell_x4(sky=False).camera, width=W, height=H))
@@ -791,6 +827,102 @@ def test_hybrid_step_launches_both_kernels(cuda_card):
     assert IP.intersect_prims_c.by_mode["occlusion fan"] > 0
     assert np.isfinite(loss)
     assert any(bool((a.detach() != b).any()) for a, b in zip(params, start))
+
+
+def _bwd_case(scene):
+    """(pack on the card, camera rays of a 48x32 image at three lanes a
+    pixel, their hits, the depth-0 shade_pre and random output gradients)
+    of the DEMO, the sky-lit DEMO, the DEMO at 40 light samples or the DEMO
+    seen through a thin lens with an emissive sphere."""
+    from chip_smoke import lens_lamp_demo
+    from mcpt_tpu_torch import prng
+    from mcpt_tpu_torch.intersect import intersect_c
+    from mcpt_tpu_torch.kernels import wavefront as WF
+    from mcpt_tpu_torch.kernels import wavefront_ref as ref
+
+    sc = lens_lamp_demo() if scene == "lens" else demo_scene()
+    if scene == "sky":
+        sc.load_env_map(SKY)
+    if scene == "forty":
+        sc.n_dir_sample = 40
+    pack = pack_to(sc.compile(), "cuda")
+    cam = dataclasses.replace(sc.camera, width=48, height=32)
+    key = prng.key(9, "cuda")
+    o, d = WF.camera_rays(cam, torch.arange(48 * 32, device="cuda"), key, 3)
+    b = o[0].numel()
+    chan = torch.arange(b, device="cuda") % 3
+    lam = torch.tensor([0.7, 0.5461, 0.4358], device="cuda")[chan]
+    alive = torch.ones(b, dtype=torch.bool, device="cuda")
+    hit = intersect_c(pack, o, d)
+    pre = WF.shade_pre(pack, o, d, hit, alive, 0, key, lam, chan)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    s = ref.n_samples(pack)
+    grads = {k: torch.randn(b, generator=gen, device="cuda") for k in (*ref.RAY_OUT,
+                                                                        *ref.LEAF_OUT)}
+    grads["contrib"] = torch.randn(s * b, generator=gen, device="cuda")
+    return pack, (o, d, hit, alive, key, lam, chan), pre, grads, gen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["demo", "sky", "forty", "lens"])
+def test_backward_kernels_equal_their_plain_versions(cuda_card, scene):
+    """shade_pre_bwd (with and without the next ray's seeds), shade_post_bwd
+    and fold_bwd on the card equal their plain versions (the hand-written
+    reverse modes of kernels/wavefront_ref.py) bitwise, and each launches."""
+    from mcpt_tpu_torch.intersect import occlude_t_c
+    from mcpt_tpu_torch.kernels import wavefront as WF
+    from mcpt_tpu_torch.kernels import wavefront_ref as ref
+
+    pack, (o, d, hit, alive, key, lam, chan), pre, grads, gen = _bwd_case(scene)
+    WF.reset_counts()
+    for g in (grads, {k: v for k, v in grads.items() if k not in ref.RAY_OUT}):
+        args = (pack, o, d, hit, alive, 0, key, lam, chan, g)
+        got = WF.shade_pre_bwd(*args, route="cuda")
+        want = WF.shade_pre_bwd(*args, route="plain")
+        for a, w in zip([*got[0], *got[1], got[2], got[3]], [*want[0], *want[1], *want[2:]]):
+            assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+    s = ref.n_samples(pack)
+    sh_t = occlude_t_c(pack, pre.p_dl, pre.ws, fan=s)
+    gs = [torch.randn(o[0].numel(), generator=gen, device="cuda") for _ in range(3)]
+    for a, w in zip(WF.shade_post_bwd(pre, sh_t, s, *gs, route="cuda"),
+                    WF.shade_post_bwd(pre, sh_t, s, *gs, route="plain")):
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+    b = o[0].numel()
+    rec = ref.Records(torch.randn((5, b), generator=gen, device="cuda") * 4,
+                      torch.rand((5, b), generator=gen, device="cuda") * 3,
+                      torch.rand((5, b), generator=gen, device="cuda") * 6,
+                      torch.rand((5, b), generator=gen, device="cuda") < 0.3)
+    for a, w in zip(WF.fold_bwd(rec, gs[0], route="cuda"), WF.fold_bwd(rec, gs[0], route="plain")):
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+    assert all(WF.launches[k] > 0 for k in WF.BWD_KERNELS)
+
+
+@pytest.mark.gpu
+def test_train_step_runs_the_backward_kernels(cuda_card):
+    """The train step's pass on the card runs the wavefront's kernels forward
+    and its backward kernels back, no `plain (autograd)` call, and two runs
+    give the same gradients bit for bit (fold_rows' fixed order)."""
+    from mcpt_tpu_torch import prng
+    from mcpt_tpu_torch.diff import SceneParams, apply_params, params_from_pack, render_lanes
+    from mcpt_tpu_torch.kernels import wavefront as WF
+    from mcpt_tpu_torch.parallel import replicate_pack
+
+    sc = demo_scene()
+    host = sc.compile()
+    cam = dataclasses.replace(sc.camera, width=W, height=H)
+    (pack, method), = replicate_pack(host, ["cuda"]).values()
+    runs = []
+    for _ in range(2):
+        WF.reset_counts()
+        p = [x.requires_grad_() for x in params_from_pack(host, "cuda")]
+        fb = render_lanes(apply_params(pack, SceneParams(*p)), cam,
+                          torch.arange(W * H, device="cuda"), prng.key(3, "cuda"), spp=2,
+                          max_bounces=4, method=method)
+        runs.append(torch.autograd.grad(((fb - 0.2) ** 2).mean(), p))
+        assert {r for (_, r) in WF.calls} == {"cuda"}
+        assert all(WF.launches[k] > 0 for k in (*WF.KERNELS, *WF.BWD_KERNELS))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -931,9 +1063,13 @@ def test_render_radiance_launches_the_wavefront_kernels(cuda_card):
 
 @pytest.mark.gpu
 def test_train_route_keeps_the_plain_halves(cuda_card):
-    """Under autograd with grad-requiring parameters the bounce's halves run
-    as their plain versions (route `plain (autograd)`); under torch.no_grad
-    the same render launches the kernels, with the same radiance."""
+    """Under autograd with grad-requiring parameters the bounce's halves now
+    launch the kernels too (the Functions of `kernels/wavefront.py`, route
+    `cuda`), their gradient through the backward kernels; the plain halves
+    under autograd (route `plain (autograd)`) run only inside
+    `autograd_oracle()`, to the same radiance and within 1e-5 relative or
+    1e-6 of the largest of the same gradient; under torch.no_grad the same
+    render launches the kernels, with the same radiance."""
     from mcpt_tpu_torch import prng
     from mcpt_tpu_torch.diff import SceneParams, apply_params, params_from_pack, render_lanes
     from mcpt_tpu_torch.kernels import wavefront as WF
@@ -947,9 +1083,18 @@ def test_train_route_keeps_the_plain_halves(cuda_card):
     WF.reset_counts()
     fb = render_lanes(apply_params(pack, p), cam, ids, prng.key(3, "cuda"), spp=1,
                       max_bounces=3, method=method)
-    assert WF.calls[("shade_pre", "plain (autograd)")] > 0 and "shade_pre" not in WF.launches
+    assert WF.calls[("shade_pre", "cuda")] > 0 and WF.launches["shade_pre"] > 0
+    assert not any(r == "plain (autograd)" for (_, r) in WF.calls)
     g = torch.autograd.grad(fb.sum(), [p.light_scale])[0]
     assert bool(torch.isfinite(g)) and float(g) != 0.0
+    assert all(WF.launches[k] > 0 for k in WF.BWD_KERNELS)
+    with WF.autograd_oracle():
+        fb3 = render_lanes(apply_params(pack, p), cam, ids, prng.key(3, "cuda"), spp=1,
+                           max_bounces=3, method=method)
+        assert WF.calls[("shade_pre", "plain (autograd)")] > 0
+        g3 = torch.autograd.grad(fb3.sum(), [p.light_scale])[0]
+    assert torch.equal(_bits(fb.detach()), _bits(fb3.detach()))
+    assert abs(float(g) - float(g3)) <= 1e-5 * abs(float(g3))
     with torch.no_grad():
         fb2 = render_lanes(apply_params(pack, p), cam, ids, prng.key(3, "cuda"), spp=1,
                            max_bounces=3, method=method)

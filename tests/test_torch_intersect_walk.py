@@ -99,7 +99,7 @@ def _same(pack, o, d, occlusion):
                                occlusion=occlusion)
     ops = collections.Counter()
     got = intersect_walk_ref(pack.walk.bvh, pack.walk.leaf, pack.sph_geom, pack.n_tris, oc, dc,
-                             occlusion=occlusion, ops=ops)
+                             occlusion=occlusion, ops=ops, depth=pack.walk.depth)
     bits_equal(got, want)
     assert 0 < ops["woop"] <= o.shape[0] * pack.walk.leaf.shape[0]
     assert ops["slab"] == 2 * ops["row"] and ops["sph"] == o.shape[0] * pack.sph_geom.shape[0]
@@ -127,19 +127,16 @@ def test_walk_tables_encode_the_flat_tree(lathe):
 
 
 def test_sphere_only_leaves_and_deep_trees():
-    """A leaf of spheres only is the empty child (0, 0); a tree of
-    BVH_STACK + 1 levels is refused by walk_tables and pack_to(...,
-    walk=True), one of BVH_STACK levels is taken and walked to the sweep's
-    answers."""
+    """A leaf of spheres only is the empty child (0, 0); trees of BVH_STACK
+    and BVH_STACK + 1 levels (past the kernel's local stack) are taken by
+    walk_tables and pack_to(..., walk=True) with their depth, and walked to
+    the sweep's answers."""
     pack = chain_pack(12, sphere_leaves=True)
     walk = walk_tables(pack)
     links = walk.bvh.view(np.int32)[:, 12:16]
     assert ((links[:, 0::2] == 0) & (links[:, 1::2] == 0)).sum() >= 5
-    with pytest.raises(ValueError, match=f"{BVH_STACK + 1} levels"):
-        walk_tables(chain_pack(BVH_STACK + 1))
-    with pytest.raises(ValueError, match="levels"):
-        TS.pack_to(chain_pack(BVH_STACK + 1), "cpu", walk=True)
-    for p in (pack, chain_pack(BVH_STACK)):
+    assert walk_tables(chain_pack(BVH_STACK + 1)).depth == BVH_STACK + 1
+    for p in (pack, chain_pack(BVH_STACK), chain_pack(BVH_STACK + 1)):
         moved = TS.pack_to(p, "cpu", walk=True)
         lo, hi = np.asarray(p.bvh_min).min(0), np.asarray(p.bvh_max).max(0)
         o, d = _rays(512, lo, hi, seed=8, aim=(lo, hi))

@@ -17,6 +17,7 @@ CPU.
   tables; a tree deeper than the walk's stack raises naming method="bvh".
 """
 
+import contextlib
 import dataclasses
 from types import SimpleNamespace
 
@@ -408,10 +409,10 @@ def test_split_trace_paths_within_jax_bounds(name, method):
 
 
 def test_route_rule_as_a_function_of_device_and_grad():
-    """Kernels on a CUDA device, plain versions on the CPU; the plain
-    versions under autograd when grad mode is on and a pack tensor
-    requires grad; inside `plain_route()`, the plain versions on any device
-    (the training rule still names its own route)."""
+    """Kernels on a CUDA device, plain versions on the CPU, with or without
+    gradients (a pack that needs them takes the Functions around the same
+    route); inside `plain_route()`, the plain versions on any device; autograd
+    through the plain forward only inside `autograd_oracle()`."""
     host = demo_scene().compile()
     pack = pack_to(host, "cpu")
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
@@ -423,10 +424,14 @@ def test_route_rule_as_a_function_of_device_and_grad():
     assert integrator.trace_route(pack, cuda) == "cuda"
     p = SceneParams(*(x.requires_grad_() for x in params_from_pack(host, "cpu")))
     live = apply_params(pack, p)
-    assert integrator.trace_route(live, cuda) == "plain (autograd)"
-    assert integrator.trace_route(live, cpu) == "plain (autograd)"
+    assert integrator.trace_route(live, cuda) == "cuda"
+    assert integrator.trace_route(live, cpu) == "plain"
     with WF.plain_route():
+        assert integrator.trace_route(live, cuda) == "plain"
+    with WF.autograd_oracle():
         assert integrator.trace_route(live, cuda) == "plain (autograd)"
+        assert integrator.trace_route(live, cpu) == "plain (autograd)"
+        assert integrator.trace_route(pack, cuda) == "cuda"
     with torch.no_grad():
         assert integrator.trace_route(live, cuda) == "cuda"
     with torch.inference_mode():
@@ -436,21 +441,32 @@ def test_route_rule_as_a_function_of_device_and_grad():
 
 
 def test_autograd_route_counts_and_carries_gradients():
-    """A render of grad-requiring parameters runs the plain halves, counted
-    as `plain (autograd)`, and autograd reaches the parameters."""
+    """A render of grad-requiring parameters on the CPU runs the Functions
+    on the plain route: the halves and the fold forward, their hand-written
+    reverse modes backward, counted by name and route, and the gradients
+    reach the parameters; inside `autograd_oracle()` the plain halves run
+    under autograd instead, counted as `plain (autograd)`, to the same
+    image."""
     from mcpt_tpu_torch.diff import render_lanes
 
     host = demo_scene().compile()
     pack = pack_to(host, "cpu")
     cam = dataclasses.replace(demo_scene().camera, width=4, height=3)
-    p = SceneParams(*(x.requires_grad_() for x in params_from_pack(host, "cpu")))
-    WF.reset_counts()
-    fb = render_lanes(apply_params(pack, p), cam, torch.arange(12), prng.key(3), spp=1,
-                      max_bounces=3, method="dense")
-    routes = {r for (name, r) in WF.calls if name != "camera_rays"}
-    assert routes == {"plain (autograd)"} and not WF.launches
-    g = torch.autograd.grad(fb.sum(), [p.refl, p.light_scale])
-    assert all(bool(torch.isfinite(x).all()) for x in g) and float(g[1]) != 0.0
+    fbs = []
+    for oracle in (False, True):
+        p = SceneParams(*(x.requires_grad_() for x in params_from_pack(host, "cpu")))
+        WF.reset_counts()
+        with WF.autograd_oracle() if oracle else contextlib.nullcontext():
+            fb = render_lanes(apply_params(pack, p), cam, torch.arange(12), prng.key(3), spp=1,
+                              max_bounces=3, method="dense")
+            g = torch.autograd.grad(fb.sum(), [p.refl, p.light_scale])
+        routes = {r for (name, r) in WF.calls if name != "camera_rays"}
+        assert routes == {"plain (autograd)" if oracle else "plain"} and not WF.launches
+        assert all(bool(torch.isfinite(x).all()) for x in g) and float(g[1]) != 0.0
+        backward = {name for (name, r) in WF.calls if name.endswith("_bwd")}
+        assert backward == (set() if oracle else set(WF.BWD_KERNELS))
+        fbs.append(fb.detach())
+    assert torch.equal(fbs[0], fbs[1])
 
 
 def test_ran_since_reads_the_route_from_the_counts():
@@ -537,8 +553,12 @@ def test_auto_takes_the_walk_on_the_card_at_any_size(tmp_path, fake_card):
 
 
 def test_auto_refuses_a_deep_tree_naming_bvh(fake_card):
+    """Nothing is refused any more: `auto` on the card walks a tree deeper
+    than the kernel's local stack (the deep walk, its stack in device
+    memory) as any other; an explicit bvh stays the eager walk."""
     deep = chain_pack(BVH_STACK + 1)
-    with pytest.raises(ValueError, match='method="bvh"'):
-        I.wavefront_pack(deep, "cuda")
+    pack, method = I.wavefront_pack(deep, "cuda")
+    assert method == "kernel" and pack.walk is not None
+    assert pack.walk.depth == BVH_STACK + 1 and fake_card == ["intersect_prims"]
     pack, method = I.wavefront_pack(deep, "cuda", "bvh")
     assert method == "bvh" and pack.walk is None
