@@ -8,7 +8,9 @@ raises, so the script exits nonzero and prints no result line.
 2. build: csrc/megakernel.cu, csrc/mega_lockstep.cu, csrc/intersect_prims.cu,
    csrc/wavefront.cu and csrc/wavefront_bwd.cu with nvcc for sm_90a (one
    nvcc each, started together), from this checkout; the registers and
-   spills of every kernel instance, the deep instances' among them
+   spills of every kernel instance, the deep instances' among them, and
+   each source's build seconds (the wavefront kernels' ptxas lines tagged
+   `[ptxas] wavefront.cu` and `[ptxas] wavefront_bwd.cu`)
 3. the DEMO kernel (`mega_regen<4, false, false>`) against its plain PyTorch
    version, both on the card: at 64x48, spp 8, mb 6, seed 11, and at the main
    path's lane count (384x384x3 lanes, mb 8) with spp 2. Every megakernel
@@ -136,9 +138,12 @@ raises, so the script exits nonzero and prints no result line.
    at the depth-0 shapes (the fold's on the tile's records), each launch
    timed alone after a read that evicts the L2, the median of 20 (and the
    median of 5 means of 10 back to back, its inputs L2-resident, beside
-   it), its plain version's ms and its bound (bytes: every input read once,
+   it), its plain version's ms and its bound: bytes (every input read once,
    every output written once; the fold's, the records up to each lane's
-   first terminal depth, counted on the tile's records)
+   first terminal depth, counted on the tile's records), float operations
+   (`shade_pre`'s: the plain version's tally, `plain_ops`) and 32-bit
+   integer operations (the threefry draws of `camera_rays` and `shade_pre`,
+   `DRAW_OPS` each), each term printed and the one that bounds named
 13. (h) the lockstep kernel K1b (`csrc/mega_lockstep.cu`, `render_mega(...,
    regen=False)`) and the lane-strided sharded render:
    (h1) `mega_lockstep<4, false>` against its plain version on the card on
@@ -166,10 +171,11 @@ raises, so the script exits nonzero and prints no result line.
 14. (i) many samples a lane: both megakernels' per-lane loop over path
    vertices against the plain versions, bitwise on every lane, where each
    lane ends and restarts many paths: `mega_regen<4, false, false>` and
-   `mega_lockstep<4, false>` on the DEMO at 96x96x3 lanes, spp 16, mb 8;
+   `mega_lockstep<4, false>` on the DEMO at 96x96x3 lanes, spp 8, mb 8;
    `mega_regen<4, true, true>` (sky) and `mega_lockstep<4, true>` (no sky) on
-   the x4 Cornell box at its 48x48x3 lanes, spp 8, mb 8 (half PR 10's spp,
-   which paid for (d-deep) and (k5) in the script's time)
+   the x4 Cornell box at its 48x48x3 lanes, spp 8, mb 8 (a quarter of PR
+   10's spp on the DEMO and half on the box, which paid for (d-deep), (k5)
+   and its 442,368-lane timings in the script's time)
 15. (j) any light-sample count: both megakernels at 40 light samples a
    vertex (the generic instance of 32, two groups a vertex) against their
    plain versions, bitwise on every lane, on the DEMO (brute force) at
@@ -197,10 +203,13 @@ raises, so the script exits nonzero and prints no result line.
    pull-back, its pull-back through the backward kernels, its peak memory
    and one profiled step; (k5) the backward kernels
    (`csrc/wavefront_bwd.cu`) bitwise against their plain versions at a
-   tile's depth-0 shapes (196,608 lanes)
+   tile's depth-0 shapes (196,608 lanes; `shade_pre_bwd` also at the
+   vertices of depths 1-3, the tile's paths traced on by the kernels)
    on (l)'s DEMO, sky-lit DEMO, DEMO at 40 light samples and thin-lens DEMO
    with an emissive sphere, timed with a cold L2 on the DEMO beside their
-   bounds, and two train steps' gradients bitwise equal; (k7)
+   bounds (`shade_pre_bwd`'s float operations its plain version's tally,
+   its integer operations its draws'), `shade_pre` and `shade_pre_bwd`
+   timed again at the (k1) step's 442,368 lanes, and two train steps' gradients bitwise equal; (k7)
    `entry.dryrun_multichip(4)` (["cuda:0"] x 4 on a host with fewer cards),
    through the backward kernels; (k6) a 384x384
    `render_radiance(trace_dir=...)` writes a torch.profiler Chrome trace
@@ -246,7 +255,6 @@ from mcpt_tpu_torch.intersect import surface_at_c
 from mcpt_tpu_torch.io.png import read_png
 from mcpt_tpu_torch.kernels import build as kbuild
 from mcpt_tpu_torch.kernels import intersect_prims as ip
-from mcpt_tpu_torch.kernels import lane_ad
 from mcpt_tpu_torch.kernels import megakernel as mk
 from mcpt_tpu_torch.kernels import wavefront as wf
 from mcpt_tpu_torch.kernels import wavefront_ref as wfr
@@ -332,6 +340,15 @@ OPS_PER = {
     "row": 0,  # a BVH row load: bytes, which `bound` counts once per table
 }
 PEAK_F32 = 67e12  # float32 outside the tensor cores, H100 SXM
+# 32-bit integer operations, H100 SXM: 64 INT32 lanes an SM (add, logical,
+# shift: CUDA's throughput table for compute capability 9.0) x 132 SMs x
+# 1,980 MHz
+PEAK_I32 = 64 * 132 * 1.98e9
+# integer operations of one threefry2x32 hash (csrc/wf_random.cuh): the key
+# schedule's two xors and the counter's add, 20 rounds of add, rotate and
+# xor, 5 key injections of 3 adds; a draw (uniform_at) adds xor, shift, or
+THREEFRY_OPS = 3 + 20 * 3 + 5 * 3
+DRAW_OPS = THREEFRY_OPS + 3
 # `cuda_ms`: device clocks of spin a timed run (0.5 ms at 1,980 MHz, several
 # times the host's issue of one intersector launch)
 SPIN_CYCLES = 1_000_000
@@ -419,18 +436,31 @@ def environment():
 
 
 def build():
-    """The five CUDA sources, one nvcc each, started together."""
+    """The five CUDA sources, one nvcc each, started together; each
+    wavefront source's ptxas lines (registers, stack, spill bytes) and
+    build seconds."""
     t0 = time.monotonic()
+
+    def timed(fn):
+        t = time.monotonic()
+        out = fn()
+        return out, time.monotonic() - t
+
+    def ptxas(source):
+        return lambda: kbuild.build(source, True, summary=lambda log: [
+            f"[ptxas] {source.name} {line}" for line in kbuild.ptxas_lines(log)])
+
     builds = (lambda: mk.build(True, regen=True), lambda: mk.build(True, regen=False),
-              lambda: ip.build(True), lambda: kbuild.build(wf.SOURCE, True),
-              lambda: kbuild.build(wf.BWD_SOURCE, True))
+              lambda: ip.build(True), ptxas(wf.SOURCE), ptxas(wf.BWD_SOURCE))
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
-        paths = list(pool.map(lambda b: b(), builds))
+        done = list(pool.map(lambda b: timed(b), builds))
+    paths = [p for p, _ in done]
     for load in (lambda: mk.load_library(True), lambda: mk.load_library(False),
                  ip.load_library, wf.load_library, lambda: wf.load_library(wf.BWD_SOURCE)):
         load()
     dt = time.monotonic() - t0
-    phase("build", f"{dt:.1f} s -> {[str(p.relative_to(ROOT)) for p in paths]}")
+    phase("build", f"{dt:.1f} s -> {[str(p.relative_to(ROOT)) for p in paths]}; "
+                   + ", ".join(f"{p.stem[3:]} {t:.1f} s" for p, t in done))
     return dt
 
 
@@ -464,10 +494,12 @@ def bound(tables, ops, n_lanes):
     return roofline(flops, nbytes)
 
 
-def roofline(flops, nbytes):
-    """(bound_ms, bound_by): the larger of float32 operations over the
-    card's float32 peak and bytes over its memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+def roofline(flops, nbytes, iops=0):
+    """(bound_ms, bound_by): the largest of float32 operations over the
+    card's float32 peak, of 32-bit integer operations over its integer peak
+    and of bytes over its memory rate ("operations" for either op term)."""
+    t_ops = max(flops / PEAK_F32, iops / PEAK_I32) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -1516,20 +1548,66 @@ def cuda_ms_cold(fn, reps=20):
     return statistics.median(start.elapsed_time(end) for start, end in events)
 
 
-def kernel_row(label, name, kernel, plain, flops, nbytes, extra=""):
+# aten ops that move, gather or allocate data (no arithmetic of a lane)
+MOVES = frozenset((
+    "view", "_unsafe_view", "reshape", "expand", "clone", "copy_", "stack", "cat", "select",
+    "slice", "unbind", "detach", "alias", "lift_fresh", "t", "permute", "unsqueeze", "squeeze",
+    "index", "index_put", "index_put_", "_index_put_impl_", "take", "zeros", "zeros_like",
+    "new_zeros", "empty", "empty_like", "new_empty", "full", "full_like", "fill_", "fill",
+    "arange", "repeat", "sum", "searchsorted", "scalar_tensor", "_local_scalar_dense",
+    "empty_strided", "new_empty_strided", "as_strided", "split", "split_with_sizes"))
+
+
+def plain_ops(fn):
+    """The float32 operations `fn` (a plain version) runs: the elements of
+    every aten op's float or bool result, but of ops that move, gather or
+    allocate data (`MOVES`) and of integer results (the draws' hashing,
+    which the bound counts as integer operations, and row ids). The plain
+    versions are straight-line over all lanes, so this is what the kernel's
+    lanes compute, selects and compares included."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Tally(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__ not in MOVES:
+                for x in tree_flatten(out)[0]:
+                    if isinstance(x, torch.Tensor) and (x.is_floating_point() or
+                                                        x.dtype == torch.bool):
+                        Tally.n += x.numel()
+            return out
+
+    with torch.no_grad(), Tally():
+        fn()
+    return Tally.n
+
+
+def kernel_row(label, name, kernel, plain, flops, nbytes, extra="", iops=0):
     """A wavefront kernel's row of the kernels line: its ms from DRAM
     (`cuda_ms_cold`), its plain version's ms (one run) and its bound; the
-    back-to-back time with its inputs L2-resident is printed beside them."""
+    back-to-back time with its inputs L2-resident is printed beside them,
+    and the bound's three terms (float and integer operations, bytes).
+    `flops` None: the float32 operations the plain version runs
+    (`plain_ops`)."""
     kernel()  # warm
     plain()
     plain_ms = synced_s(plain) * 1e3
+    if flops is None:
+        flops = plain_ops(plain)
     ms = cuda_ms_cold(kernel)
     warm_ms = cuda_ms(kernel, 10, windows=5)
-    bound_ms, bound_by = roofline(flops, nbytes)
+    bound_ms, bound_by = roofline(flops, nbytes, iops)
+    terms = {"float operations": flops / PEAK_F32 * 1e3, "integer operations":
+             iops / PEAK_I32 * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3}
     phase("kernel", f"{label} [{name}]: kernel {ms:.4f} ms with the L2 flushed before each "
                     f"launch ({warm_ms:.4f} ms back to back, L2-resident), plain "
                     f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
-                    f"{nbytes / 1e6:.2f} MB, {flops:.4g} operations), share "
+                    f"{nbytes / 1e6:.2f} MB, {flops:.4g} float and {iops:.4g} integer "
+                    f"operations: " + ", ".join(f"{k} {v:.5f} ms" for k, v in terms.items())
+                    + f"; bounded by {max(terms, key=terms.get)}), share "
                     f"{bound_ms / ms:.4f}{extra}")
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": 0.0, "bound_ms": bound_ms,
             "bound_by": bound_by}
@@ -1539,22 +1617,19 @@ def time_halves(label, args, post_args, rec, rays, cam, ids, k_cam, b, s):
     """The camera, shade_pre and shade_post at the tile's depth-0 shapes:
     kernel ms, plain ms and the bound (each input read once, each output
     written once: the lane planes, the tables the lanes read, the fan).
-    The shading's float operations are `OPS_PER['vertex']` a lane at four
-    light samples, scaled by S / 4, and two env lookups where the scene has
-    a map; bytes bound all three."""
+    shade_pre's float operations are its plain version's (`plain_ops`), its
+    integer operations the threefry hashes a lane runs (`vertex_iops`); the
+    camera's, `OPS_PER['camera']` and its 2 draws a lane (4 through a thin
+    lens)."""
     pack = args[0]
     p_px = ids.numel()
     cam_row = kernel_row(label, "camera_rays", lambda: wf.camera_rays(cam, ids, k_cam, 3),
                          lambda: wfr.camera_rays(cam, ids, k_cam, 3),
-                         b * OPS_PER["camera"], 8 * p_px + 16 + 24 * b)
-    env = pack.env_pixels if pack.use_env else pack.env_pixels[:0]
-    tabs = table_bytes(pack.tri_shade, pack.sph_shade, pack.mat_fat, pack.emt_fat, pack.emt_mesh,
-                       pack.emt_intra_cum, pack.emt_mesh_area, pack.lmesh_cum)
-    env_bytes = min(table_bytes(env), 2 * 4 * 4 * b)  # the texels 2 lookups a lane touch
-    pre_bytes = b * (53 + 13 * 4 + 2 + 5 * 4 * s) + 16 + tabs + env_bytes
-    pre_ops = b * (OPS_PER["vertex"] * max(s, 4) / 4 + (2 * OPS_PER["env"] if pack.use_env else 0))
+                         b * OPS_PER["camera"], 8 * p_px + 16 + 24 * b,
+                         iops=b * (4 if cam.use_dof else 2) * DRAW_OPS)
     pre_row = kernel_row(label, "shade_pre", lambda: wf.shade_pre(*args),
-                         lambda: wfr.shade_pre(*args), pre_ops, pre_bytes)
+                         lambda: wfr.shade_pre(*args), None, vertex_bytes(pack, b, s),
+                         iops=vertex_iops(b, s))
     scratch, rays_s = wfr.Records(*(x.clone() for x in rec)), rays.clone()
     post_bytes = b * (12 * s + 16 + 2 + 4 + 12 + 2) + 8 + table_bytes(pack.prim_emissive)
     post_row = kernel_row(label, "shade_post",
@@ -1562,6 +1637,31 @@ def time_halves(label, args, post_args, rec, rays, cam, ids, k_cam, b, s):
                           lambda: wfr.shade_post(*post_args, scratch, 0, rays_s),
                           b * (3 * s + 12), post_bytes)
     return {"camera_rays": cam_row, "shade_pre": pre_row, "shade_post": post_row}
+
+
+def vertex_tables(pack):
+    """Bytes of the tables the vertex kernels read, and of the env texels
+    two lookups a lane touch (at most the map)."""
+    return table_bytes(pack.tri_shade, pack.sph_shade, pack.mat_fat, pack.emt_fat,
+                       pack.emt_intra_cum, pack.lmesh_cum, pack.lmesh_area, pack.lmesh_first,
+                       pack.lmesh_count)
+
+
+def vertex_bytes(pack, b, s):
+    """shade_pre's bytes for b lanes at s light samples: in, a lane's ray,
+    hit, flags, wavelength and channel (53 B) and the key; out, its next
+    ray, fan origin and terms (13 floats, 2 flags) and each sample's
+    direction, threshold and contribution; the tables read once."""
+    env = pack.env_pixels if pack.use_env else pack.env_pixels[:0]
+    env_bytes = min(table_bytes(env), 2 * 4 * 4 * b)  # the texels 2 lookups a lane touch
+    return b * (53 + 13 * 4 + 2 + 5 * 4 * s) + 16 + vertex_tables(pack) + env_bytes
+
+
+def vertex_iops(b, s):
+    """The integer operations of the vertex kernels' threefry hashes for b
+    lanes at s light samples: the bounce's 3 keys a lane (`THREEFRY_OPS`
+    each) and the draws, 4 a lane and 4 a sample (`DRAW_OPS` each)."""
+    return b * (3 * THREEFRY_OPS + (4 + 4 * s) * DRAW_OPS)
 
 
 def time_fold(label, rec, b):
@@ -1720,7 +1820,7 @@ def many_samples():
     tables = SceneTables.from_pack(demo.compile(), device="cuda")
     cam96 = dataclasses.replace(demo.camera, width=96, height=96)
     for regen in (True, False):
-        kernel_vs_plain(tables, cam96, 16, 8, 21, "(i) DEMO many samples", every_lane=True,
+        kernel_vs_plain(tables, cam96, 8, 8, 21, "(i) DEMO many samples", every_lane=True,
                         regen=regen)
     for regen in (True, False):
         x4 = cornell_x4(sky=regen)  # the lockstep kernel takes no env map
@@ -1909,24 +2009,43 @@ def card_vs_cpu():
                f"largest (bounds 1e-3, 1e-5)")
 
 
-def program_ops(pack):
-    """Float32 operations a lane of `shade_pre_bwd` runs: its vertex's
-    reverse (with the next ray's seeds) and one light sample's, from the
-    programs the kernel is generated from (each op one operation)."""
-    vp = wfr.vertex_program(bool(pack.use_env), True)
-    sp = wfr.sample_program(bool(pack.n_sph_emitters))
-    out = []
-    for prog, names in ((vp, [vp.adj[n] for n in ("o0", "o1", "o2", "d0", "d1", "d2",
-                                                  *(f"m{k}" for k in range(13))) if n in vp.adj]
-                         + [vp.outs["sh_" + n] for n in wfr.SHARED_FLOATS]),
-                        (sp, [sp.adj[n] for n in sp.adj])):
-        out.append(sum(op.kind == "f" for op in lane_ad.live_ops(prog.tape, names)))
-    return out
+def pre_bwd_bytes(pack, b, s):
+    """shade_pre_bwd's bytes for b lanes at s light samples: in, a lane's
+    ray, hit, flags, channel, key, its 10 seeds and each sample's; out, its
+    o and d adjoints, its material row's adjoint and each sample's emitter
+    row's, with their ids; the tables read once."""
+    return b * (53 + 40 + 4 * s + 24 + 13 * 4 + 8 + s * (17 * 4 + 8)) + 16 + vertex_tables(pack)
+
+
+def vertex_at_step(sc):
+    """shade_pre and shade_pre_bwd at the (k1) step's 442,368 lanes (the
+    384x384 DEMO's depth-0 vertices, the next ray's seeds given): each timed
+    as `kernel_row` times them, the rows printed only."""
+    pack = pack_to(sc.compile(), DEV)
+    key = prng.key(22, DEV)
+    px = sc.camera.width * sc.camera.height
+    o, d = wf.camera_rays(sc.camera, torch.arange(px, device=DEV), key, 3)
+    b, s = o[0].numel(), wfr.n_samples(pack)
+    chan = torch.arange(b, device=DEV) % 3
+    lam = torch.tensor(WAVELEN_UM, dtype=torch.float32, device=DEV)[chan]
+    alive = torch.ones(b, dtype=torch.bool, device=DEV)
+    hit = intersect_c(pack, o, d)
+    args = (pack, o, d, hit, alive, 0, key, lam, chan)
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    grads = {k: torch.randn(b, generator=gen, device=DEV) for k in (*wfr.RAY_OUT, *wfr.LEAF_OUT)}
+    grads["contrib"] = torch.randn(s * b, generator=gen, device=DEV)
+    label = f"(k5) DEMO {sc.camera.width}x{sc.camera.height}, {b} lanes"
+    kernel_row(label, "shade_pre", lambda: wf.shade_pre(*args), lambda: wfr.shade_pre(*args),
+               None, vertex_bytes(pack, b, s), iops=vertex_iops(b, s))
+    kernel_row(label, "shade_pre_bwd", lambda: wf.shade_pre_bwd_rows(*args, grads),
+               lambda: wfr.shade_pre_bwd(*args, grads), None, pre_bwd_bytes(pack, b, s),
+               iops=vertex_iops(b, s))
 
 
 def backward_kernels(train_launches):
     """(k5): the three backward kernels bitwise against their plain versions
-    at a tile's depth-0 shapes (196,608 lanes, the next ray's seeds given),
+    at a tile's depth-0 shapes (196,608 lanes, the next ray's seeds given;
+    `shade_pre_bwd` also at the depth 1-3 vertices of the tile's paths),
     on the DEMO (timed with a cold L2: `kernel_row`), the sky-lit DEMO, the
     DEMO at 40 light samples and the DEMO through a thin lens with an
     emissive sphere; then two train steps' gradients, bitwise equal.
@@ -1963,6 +2082,22 @@ def backward_kernels(train_launches):
                 same_bits(label, f"shade_pre_bwd {name}{k}", g[k], w[k])
         same_bits(label, "shade_pre_bwd g_mat", got[2], want[2])
         same_bits(label, "shade_pre_bwd g_emt", got[3], want[3])
+        # the next bounces' vertices (refraction, total internal reflection,
+        # dead lanes), where a lane's reverse takes other blocks
+        rec_d = wfr.new_records(4, b, DEV)
+        rays_d = torch.zeros((), dtype=torch.int64, device=DEV)
+        pre_d = pre
+        for depth in range(1, 4):
+            sh = (occlude_t_c(pack, pre_d.p_dl, pre_d.ws, fan=s) if s and pack.enable_shadow
+                  else None)
+            nxt = intersect_c(pack, pre_d.p_new, pre_d.wi)
+            alive_d = wf.shade_post(pack, pre_d, sh, nxt.prim, rec_d, depth - 1, rays_d)
+            args_d = (pack, pre_d.p_new, pre_d.wi, nxt, alive_d, depth, key, lam, chan)
+            for name, g, w in zip(("g_o", "g_d", "g_mat", "g_emt"),
+                                  wf.shade_pre_bwd(*args_d, grads, route="cuda"),
+                                  wf.shade_pre_bwd(*args_d, grads, route="plain")):
+                same_bits(label, f"depth {depth} shade_pre_bwd {name}", g, w)
+            pre_d = wf.shade_pre(*args_d)
         sh_t = occlude_t_c(pack, pre.p_dl, pre.ws, fan=s) if s and pack.enable_shadow else None
         g3 = [torch.randn(b, generator=gen, device=DEV) for _ in range(3)]
         post = (pre, sh_t, s, *g3)
@@ -1979,21 +2114,15 @@ def backward_kernels(train_launches):
         for name, g, w in zip(("g_l_dir", "g_w", "g_leaf"), wf.fold_bwd(rec, g_rad, route="cuda"),
                               wf.fold_bwd(rec, g_rad, route="plain")):
             same_bits(label, f"fold_bwd {name}", g, w)
-        phase("k", f"{label}: shade_pre_bwd, shade_post_bwd and fold_bwd bitwise equal to their "
-                   f"plain versions at {b} lanes, {s} light samples")
+        phase("k", f"{label}: shade_pre_bwd (at depths 0-3), shade_post_bwd and fold_bwd "
+                   f"bitwise equal to their plain versions at {b} lanes, {s} light samples")
         if rows:
             continue
-        n_vtx, n_smp = program_ops(pack)
-        tabs = table_bytes(pack.tri_shade, pack.sph_shade, pack.mat_fat, pack.emt_fat,
-                           pack.emt_mesh, pack.emt_intra_cum, pack.emt_mesh_area,
-                           pack.lmesh_cum)
-        # in: the ray, hit, flags, channel, key, 10 seeds and the samples'; out: o and d
-        # adjoints, the material row's and each sample's emitter row's, with their ids
-        pre_bytes = b * (53 + 40 + 4 * s + 24 + 13 * 4 + 8 + s * (17 * 4 + 8)) + 16 + tabs
         rows["shade_pre_bwd"] = kernel_row(
             label, "shade_pre_bwd", lambda: wf.shade_pre_bwd_rows(*args),
-            lambda: wfr.shade_pre_bwd(*args), b * (n_vtx + s * n_smp), pre_bytes,
-            f" ({n_vtx} operations a vertex, {n_smp} a light sample)")
+            lambda: wfr.shade_pre_bwd(*args), None, pre_bwd_bytes(pack, b, s),
+            iops=vertex_iops(b, s))
+        vertex_at_step(sc)
         post_bytes = b * (12 * s + 4 + 2 + 12 + 4 * s + 16)
         rows["shade_post_bwd"] = kernel_row(
             label, "shade_post_bwd", lambda: wf.shade_post_bwd(*post, route="cuda"),

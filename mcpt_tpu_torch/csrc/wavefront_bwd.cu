@@ -10,42 +10,42 @@
 // and through those mat_fat and emt_fat.
 //
 // shade_pre_bwd recomputes the lane's vertex from the bounce's inputs (ray,
-// hit, draws), then runs each light sample forward and back, summing their
-// adjoints of the vertex's values in sample order, then the vertex back: the
-// straight-line code of csrc/wavefront_bwd_lanes.cuh, generated from the
-// plain forward (kernels/wavefront_lanes.py), which kernels/wavefront_ref.py
-// replays op for op as the plain version. It writes a lane's row adjoints,
-// not the tables': kernels/megakernel_ref.py fold_rows sums them per row in a
-// fixed order, so a step's gradients are the same bits run after run (no
-// float atomics). shade_post_bwd and fold_bwd are written out by hand, in the
-// order of their plain versions (wavefront_ref.shade_post_bwd, fold_bwd).
+// hit, draws) through wf_vertex.cuh's pieces, keeping only the values that
+// cross their boundaries, then runs each light sample forward and back,
+// summing their adjoints of the vertex's values in sample order, then the
+// vertex back through the hand-written reverses of its pieces (wf_vertex.cuh
+// `*_bwd`); kernels/wavefront_ref.py shade_pre_bwd, over
+// kernels/vertex_ref.py, is its plain version, the same operations in the
+// same order. It writes a lane's row adjoints, not the tables':
+// kernels/megakernel_ref.py fold_rows sums them per row in a fixed order, so
+// a step's gradients are the same bits run after run (no float atomics).
+// shade_post_bwd and fold_bwd follow their plain versions
+// (wavefront_ref.shade_post_bwd, fold_bwd) in the same way.
 //
-// What bounds them on this card: bytes, each input read and each output
-// written once. shade_pre_bwd only just: about 2,100 float operations a lane
-// for the vertex and 1,070 a light sample against about 200 bytes of inputs
-// and row adjoints a lane and 76 a sample (at 4 samples, 0.029 ms of bytes
-// against 0.019 of operations for 196,608 lanes); shade_post_bwd and
-// fold_bwd are a lane's records and adjoints. Built, as the forward, with -fmad=false and no fast
-// math: each kernel equals its plain version bit for bit on the card.
+// What bounds them on this card: shade_pre_bwd's integer hashing (the
+// threefry draws) and float arithmetic against its bytes (chip_smoke.py
+// counts each and says which bounds); shade_post_bwd and fold_bwd, bytes (a
+// lane's records and adjoints). Built, as the forward, with -fmad=false and
+// no fast math: each kernel equals its plain version bit for bit on the
+// card.
 
 #include "mega_common.cuh"
-#include "wf_lights.cuh"
-#include "wf_random.cuh"
-#include "wavefront_bwd_lanes.cuh"
+#include "wf_vertex.cuh"
 
 namespace {
 
 constexpr int kBwdThreads = 128;
-constexpr int kTsCols = 11, kSsCols = 5, kMatCols = 13, kEmtCols = 17;
+// shade_pre_bwd's block and its cap of 4 blocks a SM (128 registers):
+// measured 8% faster than uncapped (145 registers, no spills) and than 5
+// blocks (96 registers), and as fast as 256 threads capped at 2 (mega_ab.py,
+// the tile's depth-0 shape and the train step's, H100); the cap spills 96
+// bytes a thread
+constexpr int kPreBwdThreads = 128, kPreBwdBlocks = 4;
+constexpr int kMatCols = 13;
 constexpr float kClampDirectF = 15.0f, kClampIndirectF = 5.0f;
 
 struct PreBwdArgs {
-  const float *o[3], *d[3], *t, *u, *v, *lam;
-  const int* prim;
-  const bool* alive;
-  const long long *chan, *key;
-  const float *tri_shade, *sph_shade, *mat, *emt, *intra, *mesh_area, *lcum, *env;
-  const int* emt_mesh;
+  VtxArgs V;
   // output gradients: the next ray (null at the last bounce), the leaf terms,
   // the light samples' contributions (S·B)
   const float *g_ray[6], *g_leaf[4], *g_contrib;
@@ -53,169 +53,179 @@ struct PreBwdArgs {
   long long* mat_row;
   float* g_emt;  // (S·B, 17): each sample's emitter row
   long long* emt_row;
-  int b, depth, n_tris, n_ts, n_sph, n_mat, n_emt, n_lcum, s, n_sph_emitters;
-  float total_area;
-  VtxPar P;
 };
 
-template <bool ENV, bool RAY>
-__global__ void __launch_bounds__(kBwdThreads) shade_pre_bwd_kernel(PreBwdArgs A) {
-  // the lanes' value slots (wavefront_bwd_lanes.cuh) sit at threadIdx.y, a
-  // zero the compiler cannot fold, and are in bounds only in a 1-D block
-  if (blockDim.y != 1 || blockDim.z != 1) __trap();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// One thread a lane, any block shape; every value in registers. The lane
+// recomputes what its light samples read of its vertex (vertex_base) and
+// runs each sample k from 0 up forward and back, adding its adjoints of
+// the vertex's p_dl, n, wo, ior, roughness and reflectance to the lane's
+// sums in sample order; then it recomputes its whole vertex (vertex_base
+// again, vertex_rest: the loop holds only what the samples read, not what
+// the vertex's reverse reads) and runs it back, piece by piece, last first: the leaves and the
+// indirect weight, the next ray's env term, pdf and BSDF, reflect or
+// refract, fac and kr, the microfacet normal, the offset points, the
+// depth-0 emitter leaf, the env leaf of a miss, the surface. In the order of
+// its plain version, wavefront_ref.shade_pre_bwd.
+__global__ void __launch_bounds__(kPreBwdThreads, kPreBwdBlocks)
+    shade_pre_bwd_kernel(PreBwdArgs P) {
+  const VtxArgs& A = P.V;
+  const int i = lane_index();
   if (i >= A.b) return;
-  const Key kd = fold_in(load_key(A.key), static_cast<uint32_t>(A.depth));
-  const Key k_vtx = fold_in(kd, 0u), k_light = fold_in(kd, 1u);
+  const BounceKeys keys = bounce_keys(A.key, A.depth);
+  const V3 zero = mk(0.0f, 0.0f, 0.0f);
 
-  // the vertex's inputs: wavefront_ref.vertex_inputs
-  VtxIn in;
-  in.o0 = A.o[0][i];
-  in.o1 = A.o[1][i];
-  in.o2 = A.o[2][i];
-  in.d0 = A.d[0][i];
-  in.d1 = A.d[1][i];
-  in.d2 = A.d[2][i];
-  in.t = A.t[i];
-  in.u = A.u[i];
-  in.v = A.v[i];
-  in.lam = A.lam[i];
-  in.chan = A.chan[i];
-  in.alive = A.alive[i];
-  const int prim = A.prim[i];
-  in.happened = prim >= 0;
-  in.is_tri = in.happened && prim < A.n_tris;
-  float ts[kTsCols], ss[kSsCols];
-  row_or_zero(A.tri_shade, in.is_tri ? prim : -1, A.n_ts, kTsCols, ts);
-  row_or_zero(A.sph_shade, in.happened && !in.is_tri ? prim - A.n_tris : -1, A.n_sph, kSsCols,
-              ss);
-  in.ts0 = ts[0];
-  in.ts1 = ts[1];
-  in.ts2 = ts[2];
-  in.ts3 = ts[3];
-  in.ts4 = ts[4];
-  in.ts5 = ts[5];
-  in.ts6 = ts[6];
-  in.ts7 = ts[7];
-  in.ts8 = ts[8];
-  in.ts9 = ts[9];
-  in.ts10 = ts[10];
-  in.ss0 = ss[0];
-  in.ss1 = ss[1];
-  in.ss2 = ss[2];
-  in.ss3 = ss[3];
-  in.ss4 = ss[4];
-  const long long mat = in.happened ? static_cast<long long>(in.is_tri ? ts[9] : ss[3]) : 0;
-  const bool emissive = in.happened && (in.is_tri ? ts[10] : ss[4]) > 0.5f;
-  in.is_b = A.depth == 0 && emissive;
-  // megakernel_ref.mat_rows: the id clamped into the table, ok if it names a row
-  const float mat_id = static_cast<float>(mat);
-  const long long row = min(max(static_cast<long long>(mat_id), 0LL),
-                            static_cast<long long>(A.n_mat - 1));
-  in.mat_ok = mat_id == static_cast<float>(row);
-  const float* m = A.mat + row * kMatCols;
-  in.m0 = m[0];
-  in.m1 = m[1];
-  in.m2 = m[2];
-  in.m3 = m[3];
-  in.m4 = m[4];
-  in.m5 = m[5];
-  in.m6 = m[6];
-  in.m7 = m[7];
-  in.m8 = m[8];
-  in.m9 = m[9];
-  in.m10 = m[10];
-  in.m11 = m[11];
-  in.m12 = m[12];
-  in.xi0 = uniform_at(k_vtx, 4u * static_cast<uint32_t>(i));
-  in.xi1 = uniform_at(k_vtx, 4u * static_cast<uint32_t>(i) + 1u);
-  in.xi2 = uniform_at(k_vtx, 4u * static_cast<uint32_t>(i) + 2u);
-  in.xi3 = uniform_at(k_vtx, 4u * static_cast<uint32_t>(i) + 3u);
-
-  VtxSeed g;
-  g.p_new0 = RAY ? A.g_ray[0][i] : 0.0f;
-  g.p_new1 = RAY ? A.g_ray[1][i] : 0.0f;
-  g.p_new2 = RAY ? A.g_ray[2][i] : 0.0f;
-  g.wi0 = RAY ? A.g_ray[3][i] : 0.0f;
-  g.wi1 = RAY ? A.g_ray[4][i] : 0.0f;
-  g.wi2 = RAY ? A.g_ray[5][i] : 0.0f;
-  g.fac = A.g_leaf[0][i];
-  g.leaf_pre = A.g_leaf[1][i];
-  g.env_c = A.g_leaf[2][i];
-  g.w = A.g_leaf[3][i];
-
-  // light sample k of lane i (row k·B + i): forward and back, its adjoints
-  // of the vertex's values summed from k = 0 up
-  auto samples = [&](const Shared& sh, SharedAdj& acc) {
-    for (int k = 0; k < A.s; ++k) {
-      const size_t r = static_cast<size_t>(k) * A.b + i;
-      float lu[4];
-      for (int c = 0; c < 4; ++c) lu[c] = uniform_at(k_light, 4u * static_cast<uint32_t>(r) + c);
-      SmpIn smp;
-      const int sel = light_pick(A, lu, smp.mesh_area);
-      const float* e = A.emt + sel * kEmtCols;
-      smp.e0 = e[0];
-      smp.e1 = e[1];
-      smp.e2 = e[2];
-      smp.e3 = e[3];
-      smp.e4 = e[4];
-      smp.e5 = e[5];
-      smp.e6 = e[6];
-      smp.e7 = e[7];
-      smp.e8 = e[8];
-      smp.e9 = e[9];
-      smp.e10 = e[10];
-      smp.e11 = e[11];
-      smp.e12 = e[12];
-      smp.e13 = e[13];
-      smp.e14 = e[14];
-      smp.e15 = e[15];
-      smp.e16 = e[16];
-      smp.lu2 = lu[2];
-      smp.lu3 = lu[3];
-      smp.chan = in.chan;
-      SharedAdj a;
-      SmpAdj ge;
-      if (A.n_sph_emitters) {
-        sample_sph1(sh, smp, A.s, A.g_contrib[r], a, ge);
-      } else {
-        sample_sph0(sh, smp, A.s, A.g_contrib[r], a, ge);
-      }
-      add_shared(acc, a);
-      float* ge_row = A.g_emt + r * kEmtCols;
-      const float ge_v[kEmtCols] = {ge.e0,  ge.e1,  ge.e2,  ge.e3,  ge.e4,  ge.e5,
-                                    ge.e6,  ge.e7,  ge.e8,  ge.e9,  ge.e10, ge.e11,
-                                    ge.e12, ge.e13, ge.e14, ge.e15, ge.e16};
-      for (int c = 0; c < kEmtCols; ++c) ge_row[c] = ge_v[c];
-      A.emt_row[r] = sel;
-    }
-  };
-
-  VtxAdj out;
-  if constexpr (ENV) {
-    if constexpr (RAY) {
-      vertex_env1_ray1(in, A.P, g, samples, out);
-    } else {
-      vertex_env1_ray0(in, A.P, g, samples, out);
-    }
-  } else {
-    if constexpr (RAY) {
-      vertex_env0_ray1(in, A.P, g, samples, out);
-    } else {
-      vertex_env0_ray0(in, A.P, g, samples, out);
-    }
+  // the light samples, forward and back
+  V3 a_pdl = zero, a_n = zero, a_wo = zero;
+  float a_ior = 0.0f, a_alpha = 0.0f, a_refl = 0.0f;
+  const Vtx vs = vertex_base(A, i);
+  for (int k = 0; k < A.s; ++k) {
+    const Vtx& v = vs;
+    const V3 n = v.S.n;
+    const float mtype = v.m.mtype, alpha = v.m.rough;
+    const size_t r = static_cast<size_t>(k) * A.b + i;
+    const uint32_t base = 4u * static_cast<uint32_t>(r);
+    const Key kl = keys.light;
+    const float lu2 = uniform_at(kl, base + 2u), lu3 = uniform_at(kl, base + 3u);
+    const Light L = light_sample(A, uniform_at(kl, base), uniform_at(kl, base + 1u), lu2, lu3,
+                                 v.chan);
+    const V3 delta = sub(L.p, v.p_dl);
+    const float dd = dot(delta, delta);
+    const float cl = t_clamp_min(dd, 1e-20f);
+    const float inv_dist = 1.0f / sqrtf(cl);
+    const V3 ws = scale(delta, inv_dist);
+    const float dn = dot(ws, n), dl = dot(ws, L.n);
+    const float q = inv_dist * inv_dist;
+    // its contribution ((((emit·ev)·(ws·n))·(−ws·ln))·q)/pdf/s, backward;
+    // eval_bsdf_bwd gives ev, which the seeds before it do not read
+    const float g_a4 = qdiv(qdiv(P.g_contrib[r], static_cast<float>(A.s)), L.pdf);
+    const float g_a3 = g_a4 * q;
+    const float g_a2 = g_a3 * -dl;
+    const float g_a1 = g_a2 * dn;
+    const BsdfAdj e = eval_bsdf_bwd(mtype, v.ior, alpha, v.refl, ws, v.wo, n, !v.inner,
+                                    g_a1 * L.emit);
+    const float ev = e.f;
+    const float a1 = L.emit * ev;
+    const float a2 = a1 * dn;
+    const float a3 = a2 * -dl;
+    const float g_q = g_a4 * a3;
+    const float g_dl = -(g_a3 * a2);
+    const float g_dn = g_a2 * a1;
+    const float g_emit = g_a1 * ev;
+    const V3 g_ws = mk(e.wi.x + (g_dn * n.x + g_dl * L.n.x), e.wi.y + (g_dn * n.y + g_dl * L.n.y),
+                       e.wi.z + (g_dn * n.z + g_dl * L.n.z));
+    const V3 g_n = mk(e.n.x + g_dn * ws.x, e.n.y + g_dn * ws.y, e.n.z + g_dn * ws.z);
+    const float g_inv = dot(g_ws, delta) + twice(g_q, inv_dist);
+    const float g_dd = mask(dd >= 1e-20f, dsqrt(-g_inv * (inv_dist * inv_dist), cl));
+    const V3 g_lp = mk(g_ws.x * inv_dist + twice(g_dd, delta.x),
+                       g_ws.y * inv_dist + twice(g_dd, delta.y),
+                       g_ws.z * inv_dist + twice(g_dd, delta.z));
+    float g_row[kEmtCols];
+    light_point_bwd(A, A.emt + L.sel * kEmtCols, lu2, lu3, v.chan, g_lp, scale(ws, g_dl), g_emit,
+                    g_row);
+    float* out = P.g_emt + r * kEmtCols;
+#pragma unroll
+    for (int c = 0; c < kEmtCols; ++c) out[c] = g_row[c];
+    P.emt_row[r] = L.sel;
+    a_pdl = sub(a_pdl, g_lp);
+    a_n = add(a_n, g_n);
+    a_wo = add(a_wo, e.wo);
+    a_ior = a_ior + e.ior;
+    a_alpha = a_alpha + e.alpha;
+    a_refl = a_refl + e.refl;
   }
-  A.g_o[0][i] = out.o0;
-  A.g_o[1][i] = out.o1;
-  A.g_o[2][i] = out.o2;
-  A.g_d[0][i] = out.d0;
-  A.g_d[1][i] = out.d1;
-  A.g_d[2][i] = out.d2;
-  const float gm[kMatCols] = {out.m0, out.m1, out.m2, out.m3,  out.m4,  out.m5, out.m6,
-                              out.m7, out.m8, out.m9, out.m10, out.m11, out.m12};
-  float* gm_row = A.g_mat + static_cast<size_t>(i) * kMatCols;
-  for (int c = 0; c < kMatCols; ++c) gm_row[c] = gm[c];
-  A.mat_row[i] = row;
+
+  const Vtx v = vertex_rest(A, vertex_base(A, i), i, keys.vtx);
+  const Surf& S = v.S;
+  const V3 n = S.n;
+  const float mtype = v.m.mtype, alpha = v.m.rough;
+
+  // the leaves and the indirect weight
+  const float g_w = P.g_leaf[3][i], g_leaf = P.g_leaf[1][i], g_fac = P.g_leaf[0][i];
+  const float g_env_ind = mask(v.env_ind >= 0.0f && v.env_ind <= kClampIndirectF, P.g_leaf[2][i]);
+  const float g_t = g_env_ind * A.inv_rr;
+  float g_ev = g_t * v.env_wi + mask(v.dirac, g_w * A.inv_rr);
+  const float g_wr = mask(v.pv_ok, v.dirac ? 0.0f : g_w) * A.inv_rr;
+  const float g_num = qdiv(g_wr, v.pvs);
+  g_ev = g_ev + g_num * v.awon;
+  const float g_awon = g_num * v.ev;
+  const float g_pv = mask(v.pv_ok, -g_wr * qdiv(v.wr, v.pvs));
+  // the next ray's direction: its env term, pdf, BSDF, reflect or refract
+  const bool ray = P.g_ray[0] != nullptr;
+  V3 g_wi = ray ? mk(P.g_ray[3][i], P.g_ray[4][i], P.g_ray[5][i]) : zero;
+  if (A.use_env) g_wi = add(g_wi, env_bwd(A.T, v.wi, v.chan, g_t * v.ev));
+  const BsdfAdj b1 = pdf_bwd(mtype, v.ior, alpha, v.wi, v.wo, n, v.branch, g_pv);
+  const BsdfAdj b2 = eval_bsdf_bwd(mtype, v.ior, alpha, v.refl, v.wi, v.wo, n, v.branch, g_ev);
+  g_wi = add(add(g_wi, b1.wi), b2.wi);
+  V3 g_wo3 = zero, g_mfn = zero, g_d3 = zero, g_mfn3 = zero, g_d4, g_mfn4, g_n5;
+  float gi3 = 0.0f, gi4, ga5;
+  if (v.branch) {
+    reflect_bwd(v.wo, v.mfn, g_wi, g_wo3, g_mfn);
+  } else {
+    refract_bwd(v.ior, v.d, v.mfn, g_wi, gi3, g_d3, g_mfn3);
+  }
+  // fac, then kr and the microfacet normal
+  fresnel_bwd(mtype, v.ior, v.d, v.mfn, v.inner ? -g_fac : g_fac, gi4, g_d4, g_mfn4);
+  sample_mfn_bwd(mtype, alpha, n, v.xi0, v.xi1, add(add(g_mfn, g_mfn3), g_mfn4), g_n5, ga5);
+  // the next ray's origin p + n·(off_scale·sign) and the fan's p + n·off_scale
+  const V3 g_pn = ray ? mk(P.g_ray[0][i], P.g_ray[1][i], P.g_ray[2][i]) : zero;
+  const float os = v.off_scale * v.sign;
+  const float g_off = dot(g_pn, n) * v.sign + dot(a_pdl, n);
+  const float g_mx = mask(kRelEps * v.mx >= kEps, g_off) * kRelEps;
+  const float m12 = t_maximum(v.a1, v.a2);
+  const float h0 = v.a0 == m12 ? g_mx * 0.5f : g_mx;
+  const float g_m12 = v.a0 > m12 ? 0.0f : h0;
+  const float h1 = v.a1 == v.a2 ? g_m12 * 0.5f : g_m12;
+  const V3 g_a = mk(v.a0 < m12 ? 0.0f : h0, v.a1 < v.a2 ? 0.0f : h1, v.a1 > v.a2 ? 0.0f : h1);
+  const V3 g_p = mk((g_pn.x + a_pdl.x) + g_a.x * sgn(S.p.x),
+                    (g_pn.y + a_pdl.y) + g_a.y * sgn(S.p.y),
+                    (g_pn.z + a_pdl.z) + g_a.z * sgn(S.p.z));
+  // the depth-0 emitter leaf clamp(emit·|wo·n|, 0, 1)
+  const float bl = v.m.emit * v.awon;
+  const float g_bl = mask(v.alive && S.happened && bl >= 0.0f && bl <= 1.0f, g_leaf);
+  const float g_emit = g_bl * v.awon;
+  const float g_won = (g_awon + g_bl * v.m.emit) * sgn(v.won);
+  // the next ray's origin and the fan's, the samples', pdf's, eval's,
+  // sample_mfn's and the emitter leaf's adjoints of n, in that order
+  const V3 g_nr = mk(a_n.x + (g_pn.x * os + a_pdl.x * v.off_scale),
+                     a_n.y + (g_pn.y * os + a_pdl.y * v.off_scale),
+                     a_n.z + (g_pn.z * os + a_pdl.z * v.off_scale));
+  const V3 g_n = mk((((g_nr.x + b1.n.x) + b2.n.x) + g_n5.x) + g_won * v.wo.x,
+                    (((g_nr.y + b1.n.y) + b2.n.y) + g_n5.y) + g_won * v.wo.y,
+                    (((g_nr.z + b1.n.z) + b2.n.z) + g_n5.z) + g_won * v.wo.z);
+  const V3 g_wo = mk((((a_wo.x + b1.wo.x) + b2.wo.x) + g_wo3.x) + g_won * n.x,
+                     (((a_wo.y + b1.wo.y) + b2.wo.y) + g_wo3.y) + g_won * n.y,
+                     (((a_wo.z + b1.wo.z) + b2.wo.z) + g_wo3.z) + g_won * n.z);
+  const float g_ior = (((a_ior + b1.ior) + b2.ior) + gi3) + gi4;
+  const float g_alpha = ((a_alpha + b1.alpha) + b2.alpha) + ga5;
+  const float g_refl = v.m.textured > 0.5f ? 0.0f : a_refl + b2.refl;
+  // the ray: wo = -d, the env leaf of a miss, the surface
+  V3 g_d = sub(add(g_d3, g_d4), g_wo);
+  if (A.use_env) g_d = add(g_d, env_bwd(A.T, v.d, v.chan, mask(v.alive && !S.happened, g_leaf)));
+  V3 g_o, g_dp;
+  surface_bwd(S, v.o, v.d, g_p, g_n, g_o, g_dp);
+  g_d = add(g_d, g_dp);
+  P.g_o[0][i] = g_o.x;
+  P.g_o[1][i] = g_o.y;
+  P.g_o[2][i] = g_o.z;
+  P.g_d[0][i] = g_d.x;
+  P.g_d[1][i] = g_d.y;
+  P.g_d[2][i] = g_d.z;
+  // the material row (mat_fields: ior_a, ior_b, rough, refl and emit at chan)
+  float* gm = P.g_mat + static_cast<size_t>(i) * kMatCols;
+  const bool ok = v.ok;
+  gm[0] = 0.0f;
+  gm[1] = mask(ok, g_ior);
+  gm[2] = mask(ok, qdiv(g_ior, v.lam * v.lam));
+  gm[3] = mask(ok, g_alpha);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    gm[4 + c] = mask(ok && v.chan == c, g_refl);
+    gm[7 + c] = mask(ok && v.chan == c, g_emit);
+  }
+  gm[10] = 0.0f;
+  gm[11] = 0.0f;
+  gm[12] = 0.0f;
+  P.mat_row[i] = v.row;
 }
 
 // ---- shade_post_bwd (wavefront_ref.shade_post_bwd) --------------------------
@@ -274,8 +284,8 @@ __global__ void __launch_bounds__(kBwdThreads) fold_bwd_kernel(FoldBwdArgs A) {
     const size_t q = static_cast<size_t>(k) * A.b + i;
     A.g_w[q] = radiance;
     radiance = A.terminal[q] ? A.leaf[q]
-                             : ad_clamp(A.l_dir[q], 0.0f, kClampDirectF) +
-                                   ad_clamp(A.w[q] * radiance, 0.0f, kClampIndirectF);
+                             : t_clamp(A.l_dir[q], 0.0f, kClampDirectF) +
+                                   t_clamp(A.w[q] * radiance, 0.0f, kClampIndirectF);
   }
   float g = A.g[i];
   for (int k = 0; k < A.depth; ++k) {
@@ -307,85 +317,29 @@ extern "C" {
 
 int mcpt_wf_shade_pre_bwd(const void* const* in, void* const* out, const int* ip,
                           const float* fp, void* stream) {
-  PreBwdArgs A;
+  PreBwdArgs P;
+  if (!unpack_vtx(in, ip, fp, P.V)) return -1;
+  for (int k = 0; k < 6; ++k) P.g_ray[k] = static_cast<const float*>(in[24 + k]);
+  for (int k = 0; k < 4; ++k) P.g_leaf[k] = static_cast<const float*>(in[30 + k]);
+  P.g_contrib = static_cast<const float*>(in[34]);
   for (int k = 0; k < 3; ++k) {
-    A.o[k] = static_cast<const float*>(in[k]);
-    A.d[k] = static_cast<const float*>(in[3 + k]);
+    P.g_o[k] = static_cast<float*>(out[k]);
+    P.g_d[k] = static_cast<float*>(out[3 + k]);
   }
-  A.t = static_cast<const float*>(in[6]);
-  A.prim = static_cast<const int*>(in[7]);
-  A.u = static_cast<const float*>(in[8]);
-  A.v = static_cast<const float*>(in[9]);
-  A.alive = static_cast<const bool*>(in[10]);
-  A.lam = static_cast<const float*>(in[11]);
-  A.chan = static_cast<const long long*>(in[12]);
-  A.key = static_cast<const long long*>(in[13]);
-  A.tri_shade = static_cast<const float*>(in[14]);
-  A.sph_shade = static_cast<const float*>(in[15]);
-  A.mat = static_cast<const float*>(in[16]);
-  A.emt = static_cast<const float*>(in[17]);
-  A.emt_mesh = static_cast<const int*>(in[18]);
-  A.intra = static_cast<const float*>(in[19]);
-  A.mesh_area = static_cast<const float*>(in[20]);
-  A.lcum = static_cast<const float*>(in[21]);
-  A.env = static_cast<const float*>(in[22]);
-  for (int k = 0; k < 6; ++k) A.g_ray[k] = static_cast<const float*>(in[23 + k]);
-  for (int k = 0; k < 4; ++k) A.g_leaf[k] = static_cast<const float*>(in[29 + k]);
-  A.g_contrib = static_cast<const float*>(in[33]);
-  for (int k = 0; k < 3; ++k) {
-    A.g_o[k] = static_cast<float*>(out[k]);
-    A.g_d[k] = static_cast<float*>(out[3 + k]);
-  }
-  A.g_mat = static_cast<float*>(out[6]);
-  A.mat_row = static_cast<long long*>(out[7]);
-  A.g_emt = static_cast<float*>(out[8]);
-  A.emt_row = static_cast<long long*>(out[9]);
-  A.b = ip[0];
-  A.depth = ip[1];
-  A.n_tris = ip[2];
-  A.n_ts = ip[3];
-  A.n_sph = ip[4];
-  A.n_mat = ip[5];
-  A.n_emt = ip[6];
-  A.n_lcum = ip[7];
-  A.s = ip[8];
-  A.n_sph_emitters = ip[9];
-  const int use_env = ip[10];
-  A.P.env_h = ip[11];
-  A.P.env_w = ip[12];
-  A.total_area = fp[0];
-  A.P.rr_rate = fp[1];
-  A.P.inv_rr = fp[2];
-  A.P.bg0 = fp[3];
-  A.P.bg1 = fp[4];
-  A.P.bg2 = fp[5];
-  A.P.env = A.env;
-  const bool ray = A.g_ray[0] != nullptr;
-  if (A.b < 0 || A.depth < 0 || A.s < 0 || A.n_mat < 1 ||
-      (A.s > 0 && (A.n_emt < 1 || A.n_lcum < 1 || A.g_contrib == nullptr)) ||
-      A.P.env_h < 1 || A.P.env_w < 1) {
-    return -1;
-  }
+  P.g_mat = static_cast<float*>(out[6]);
+  P.mat_row = static_cast<long long*>(out[7]);
+  P.g_emt = static_cast<float*>(out[8]);
+  P.emt_row = static_cast<long long*>(out[9]);
+  if (P.V.s > 0 && P.g_contrib == nullptr) return -1;
   for (int k = 0; k < 6; ++k) {
-    if ((A.g_ray[k] != nullptr) != ray) return -1;
+    if ((P.g_ray[k] != nullptr) != (P.g_ray[0] != nullptr)) return -1;
   }
   for (int k = 0; k < 4; ++k) {
-    if (A.g_leaf[k] == nullptr) return -1;
+    if (P.g_leaf[k] == nullptr) return -1;
   }
-  if (A.b == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n = blocks_of(A.b);
-  if (use_env) {
-    if (ray) {
-      shade_pre_bwd_kernel<true, true><<<n, kBwdThreads, 0, st>>>(A);
-    } else {
-      shade_pre_bwd_kernel<true, false><<<n, kBwdThreads, 0, st>>>(A);
-    }
-  } else if (ray) {
-    shade_pre_bwd_kernel<false, true><<<n, kBwdThreads, 0, st>>>(A);
-  } else {
-    shade_pre_bwd_kernel<false, false><<<n, kBwdThreads, 0, st>>>(A);
-  }
+  if (P.V.b == 0) return 0;
+  const int blocks = (P.V.b + kPreBwdThreads - 1) / kPreBwdThreads;
+  shade_pre_bwd_kernel<<<blocks, kPreBwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(P);
   return bwd_status();
 }
 

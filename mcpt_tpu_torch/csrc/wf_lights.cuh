@@ -1,43 +1,45 @@
-// Device code that the wavefront's forward kernels (wavefront.cu) and their
-// backward kernels (wavefront_bwd.cu) share: the gather of a table row and
-// the pick of a light sample's emitter row.
+// The pick of a light sample's emitter row, which the wavefront's vertex
+// kernels (wavefront.cu, wavefront_bwd.cu) share.
 
 #pragma once
 
 namespace {
 
-// Row `idx` of a (rows, cols) table, or zeros outside it (intersect._gather).
-__device__ __forceinline__ void row_or_zero(const float* table, int idx, int rows, int cols,
-                                            float* out) {
-  const bool ok = idx >= 0 && idx < rows;
-  for (int c = 0; c < cols; ++c) out[c] = ok ? table[idx * cols + c] : 0.0f;
-}
-
-// lights.py pick of one (sample, lane) from its draws lu: the mesh by area
-// (searchsorted on lmesh_cum), then the mesh's first emitter row whose
-// intra-mesh cumulative area exceeds sqrt(u1)·mesh_area, else its last row.
-// A is the kernel's arguments (lcum, emt_mesh, mesh_area, intra and their
+// lights.py pick of one (sample, lane) from its draws u0, u1: the mesh by
+// area (the count of lcum's entries below u0 · total area, a binary search,
+// as searchsorted), then the mesh's first emitter row whose intra-mesh
+// cumulative area exceeds sqrt(u1)·mesh_area, else its last row (a binary
+// search over the mesh's rows, which scene.py light_mesh_rows lays out
+// contiguous with a nondecreasing intra). A is the kernel's arguments
+// (lcum and the per-mesh area, first row and row count, intra, and their
 // counts); mesh_area gets the picked mesh's area.
 template <class Args>
-__device__ __forceinline__ int light_pick(const Args& A, const float* lu, float& mesh_area) {
-  const float target = lu[0] * A.total_area;
-  int mesh = 0;
-  for (int j = 0; j < A.n_lcum; ++j) mesh += A.lcum[j] < target ? 1 : 0;
-  mesh = min(max(mesh, 0), A.n_lcum - 1);
-  mesh_area = 0.0f;
-  for (int e = 0; e < A.n_emt; ++e) {
-    const float a = A.emt_mesh[e] == mesh ? A.mesh_area[e] : 0.0f;
-    mesh_area = e == 0 ? a : fmaxf(mesh_area, a);
+__device__ __forceinline__ int light_pick(const Args& A, float u0, float u1, float& mesh_area) {
+  const float target = u0 * A.total_area;
+  int lo = 0, hi = A.n_lcum;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(A.lcum + mid) < target) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
   }
-  const float p_tgt = sqrtf(lu[1]) * mesh_area;
-  int sel = A.n_emt, last = -1;
-  for (int e = 0; e < A.n_emt; ++e) {
-    if (A.emt_mesh[e] != mesh) continue;
-    last = e;
-    if (sel == A.n_emt && p_tgt < A.intra[e]) sel = e;
+  const int mesh = min(max(lo, 0), A.n_lcum - 1);
+  mesh_area = __ldg(A.mesh_area + mesh);
+  const float p_tgt = sqrtf(u1) * mesh_area;
+  const int end = __ldg(A.mesh_first + mesh) + __ldg(A.mesh_count + mesh);
+  lo = __ldg(A.mesh_first + mesh);
+  hi = end;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (p_tgt < __ldg(A.intra + mid)) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
   }
-  sel = sel >= A.n_emt ? last : sel;
-  return min(max(sel, 0), A.n_emt - 1);
+  return min(max(lo < end ? lo : end - 1, 0), A.n_emt - 1);
 }
 
 }  // namespace

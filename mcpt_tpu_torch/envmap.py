@@ -21,13 +21,11 @@ def _sqrt(x):
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
-def _texel_coords(env, d0, d1, d2, hw=None):
+def _texel_coords(env, d0, d1, d2):
     """Shared front half of both lookups: safe-normalize the direction,
     map it to (u, v) and to the four bilinear taps. Returns the flat texel
-    indices (00, 10, 01, 11) and the weights (sx, sy). `hw`, the map's
-    (height, width), stands in for env.shape (a traced lane program,
-    `kernels/lane_ad.py`, passes them as parameters)."""
-    h, w = hw or (env.shape[0], env.shape[1])
+    indices (00, 10, 01, 11) and the weights (sx, sy)."""
+    h, w = env.shape[0], env.shape[1]
     n2 = d0 * d0 + d1 * d1 + d2 * d2
     ok = n2 > 1e-12
     inv = torch.where(ok, 1.0 / _sqrt(torch.where(ok, n2, 1.0)), 0.0)
@@ -62,17 +60,16 @@ def _bilerp(c00, c10, c01, c11, sx, sy):
     return c0 * (1.0 - sy) + c1 * sy
 
 
-def sample_env_chan(env, background, use_env, d, chan, hw=None):
+def sample_env_chan(env, background, use_env, d, chan):
     """Per-lane single-channel env radiance: `d` a 3-tuple of same-shape
     float32 tensors (any direction length), `chan` an int tensor of that
     shape (0, 1, 2 = R, G, B). `env` is the (H, W, 3) float32 map and
     `background` three floats; without a map (`use_env` False) the lane's
-    background channel is returned (`mcpt_tpu/envmap.py:14`). `hw` as in
-    `_texel_coords`."""
+    background channel is returned (`mcpt_tpu/envmap.py:14`)."""
     if not use_env:
         bg = [torch.full_like(d[0], b) for b in background]
         return torch.where(chan == 0, bg[0], torch.where(chan == 1, bg[1], bg[2]))
-    taps, sx, sy = _texel_coords(env, *d, hw)
+    taps, sx, sy = _texel_coords(env, *d)
     c = [torch.take(env, t * 3 + chan) for t in taps]
     return _bilerp(*c, sx, sy)
 

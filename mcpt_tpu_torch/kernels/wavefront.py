@@ -203,6 +203,43 @@ def _table(pack, name):
     return getattr(pack, name).detach().contiguous()
 
 
+def _vertex_args(pack, o, d, hit, alive, depth, key, lam, chan):
+    """The inputs, int and float parameters that `shade_pre` and
+    `shade_pre_bwd` share (`csrc/wf_vertex.cuh` unpack_vtx): the lanes'
+    ray, hit, flags, wavelength, channel and the path key's words, then the
+    tables (the per-mesh ones of the light pick's searches among them)."""
+    dev = o[0].device
+    b = o[0].shape[0]
+    s = ref.n_samples(pack)
+    if 4 * max(s, 1) * b >= 1 << 32:
+        raise ValueError(f"{s} light samples x {b} lanes: draw indices past 2^32")
+    lanes = [("o0", o[0]), ("o1", o[1]), ("o2", o[2]), ("d0", d[0]), ("d1", d[1]),
+             ("d2", d[2]), ("t", hit.t), ("prim", hit.prim), ("u", hit.u), ("v", hit.v),
+             ("alive", alive), ("lam", lam), ("chan", chan.to(torch.int64))]
+    types = {"prim": torch.int32, "alive": torch.bool, "chan": torch.int64}
+    ins = [_ptr(k, x.detach(), dev, types.get(k, torch.float32), (b,)) for k, x in lanes]
+    ins.append(_key_ptr(key, dev))
+    tabs = {k: _table(pack, k) for k in ("tri_shade", "sph_shade", "mat_fat", "emt_fat",
+                                          "emt_intra_cum", "lmesh_cum", "lmesh_area",
+                                          "lmesh_first", "lmesh_count", "env_pixels")}
+    cols = {"tri_shade": 11, "sph_shade": 5, "mat_fat": 13, "emt_fat": 17}
+    for k, c in cols.items():
+        ins.append(_ptr(k, tabs[k], dev, torch.float32, (tabs[k].shape[0], c)))
+    e = tabs["emt_fat"].shape[0]
+    m = tabs["lmesh_cum"].numel()
+    ins.append(_ptr("emt_intra_cum", tabs["emt_intra_cum"], dev, torch.float32, (e,)))
+    for k, dtype in (("lmesh_cum", torch.float32), ("lmesh_area", torch.float32),
+                     ("lmesh_first", torch.int32), ("lmesh_count", torch.int32)):
+        ins.append(_ptr(k, tabs[k], dev, dtype, (m,)))
+    env = tabs["env_pixels"]
+    ins.append(_ptr("env_pixels", env, dev, torch.float32, (env.shape[0], env.shape[1], 3)))
+    ipar = [b, depth, pack.n_tris, tabs["tri_shade"].shape[0], tabs["sph_shade"].shape[0],
+            tabs["mat_fat"].shape[0], e, m, s, pack.n_sph_emitters, int(bool(pack.use_env)),
+            env.shape[0], env.shape[1]]
+    fpar = [pack.emit_total_area, pack.rr_rate, pack.inv_rr, *pack.background]
+    return ins, ipar, fpar
+
+
 def shade_pre(pack, o, d, hit, alive, depth: int, key, lam, chan, route=None) -> ref.PreOut:
     """The first half of bounce `depth` (`wavefront_ref.shade_pre`): the
     kernel reads the path key's words from device memory and derives the
@@ -227,37 +264,12 @@ def _shade_pre(route, pack, o, d, hit, alive, depth, key, lam, chan) -> ref.PreO
     dev = o[0].device
     b = o[0].shape[0]
     s = ref.n_samples(pack)
-    if 4 * max(s, 1) * b >= 1 << 32:
-        raise ValueError(f"{s} light samples x {b} lanes: draw indices past 2^32")
-    lanes = [("o0", o[0]), ("o1", o[1]), ("o2", o[2]), ("d0", d[0]), ("d1", d[1]),
-             ("d2", d[2]), ("t", hit.t), ("prim", hit.prim), ("u", hit.u), ("v", hit.v),
-             ("alive", alive), ("lam", lam), ("chan", chan.to(torch.int64))]
-    types = {"prim": torch.int32, "alive": torch.bool, "chan": torch.int64}
-    ins = [_ptr(k, x.detach(), dev, types.get(k, torch.float32), (b,)) for k, x in lanes]
-    ins.append(_key_ptr(key, dev))
-    tabs = {k: _table(pack, k) for k in ("tri_shade", "sph_shade", "mat_fat", "emt_fat",
-                                          "emt_mesh", "emt_intra_cum", "emt_mesh_area",
-                                          "lmesh_cum", "env_pixels")}
-    cols = {"tri_shade": 11, "sph_shade": 5, "mat_fat": 13, "emt_fat": 17}
-    for k, c in cols.items():
-        ins.append(_ptr(k, tabs[k], dev, torch.float32, (tabs[k].shape[0], c)))
-    e = tabs["emt_fat"].shape[0]
-    ins.append(_ptr("emt_mesh", tabs["emt_mesh"], dev, torch.int32, (e,)))
-    ins.append(_ptr("emt_intra_cum", tabs["emt_intra_cum"], dev, torch.float32, (e,)))
-    ins.append(_ptr("emt_mesh_area", tabs["emt_mesh_area"], dev, torch.float32, (e,)))
-    ins.append(_ptr("lmesh_cum", tabs["lmesh_cum"], dev, torch.float32))
-    env = tabs["env_pixels"]
-    ins.append(_ptr("env_pixels", env, dev, torch.float32, (env.shape[0], env.shape[1], 3)))
-
+    ins, ipar, fpar = _vertex_args(pack, o, d, hit, alive, depth, key, lam, chan)
     f = torch.empty((13, b), dtype=torch.float32, device=dev)
     fan = torch.empty((5, s * b), dtype=torch.float32, device=dev)
     flags = torch.empty((2, b), dtype=torch.bool, device=dev)
     outs = [f[k].data_ptr() for k in range(9)] + [fan[k].data_ptr() for k in range(5)]
     outs += [f[k].data_ptr() for k in range(9, 13)] + [flags[0].data_ptr(), flags[1].data_ptr()]
-    ipar = [b, depth, pack.n_tris, tabs["tri_shade"].shape[0], tabs["sph_shade"].shape[0],
-            tabs["mat_fat"].shape[0], e, tabs["lmesh_cum"].numel(), s, pack.n_sph_emitters,
-            int(bool(pack.use_env)), env.shape[0], env.shape[1]]
-    fpar = [pack.emit_total_area, pack.rr_rate, pack.inv_rr, *pack.background]
     _launch("mcpt_wf_shade_pre", "shade_pre", dev, ins, outs, ipar, fpar)
     return ref.PreOut(
         p_new=(f[0], f[1], f[2]), wi=(f[3], f[4], f[5]), p_dl=(f[6], f[7], f[8]),
@@ -378,25 +390,7 @@ def shade_pre_bwd_rows(pack, o, d, hit, alive, depth: int, key, lam, chan, grads
     dev = o[0].device
     b = o[0].shape[0]
     s = ref.n_samples(pack)
-    lanes = [("o0", o[0]), ("o1", o[1]), ("o2", o[2]), ("d0", d[0]), ("d1", d[1]),
-             ("d2", d[2]), ("t", hit.t), ("prim", hit.prim), ("u", hit.u), ("v", hit.v),
-             ("alive", alive), ("lam", lam), ("chan", chan.to(torch.int64))]
-    types = {"prim": torch.int32, "alive": torch.bool, "chan": torch.int64}
-    ins = [_ptr(k, x.detach(), dev, types.get(k, torch.float32), (b,)) for k, x in lanes]
-    ins.append(_key_ptr(key, dev))
-    tabs = {k: _table(pack, k) for k in ("tri_shade", "sph_shade", "mat_fat", "emt_fat",
-                                          "emt_mesh", "emt_intra_cum", "emt_mesh_area",
-                                          "lmesh_cum", "env_pixels")}
-    cols = {"tri_shade": 11, "sph_shade": 5, "mat_fat": 13, "emt_fat": 17}
-    for k, c in cols.items():
-        ins.append(_ptr(k, tabs[k], dev, torch.float32, (tabs[k].shape[0], c)))
-    e = tabs["emt_fat"].shape[0]
-    ins.append(_ptr("emt_mesh", tabs["emt_mesh"], dev, torch.int32, (e,)))
-    ins.append(_ptr("emt_intra_cum", tabs["emt_intra_cum"], dev, torch.float32, (e,)))
-    ins.append(_ptr("emt_mesh_area", tabs["emt_mesh_area"], dev, torch.float32, (e,)))
-    ins.append(_ptr("lmesh_cum", tabs["lmesh_cum"], dev, torch.float32))
-    env = tabs["env_pixels"]
-    ins.append(_ptr("env_pixels", env, dev, torch.float32, (env.shape[0], env.shape[1], 3)))
+    ins, ipar, fpar = _vertex_args(pack, o, d, hit, alive, depth, key, lam, chan)
     ray = "p_new0" in grads
     ins += [_ptr(k, grads[k], dev, torch.float32, (b,)) if ray else 0 for k in ref.RAY_OUT]
     ins += [_ptr(k, grads[k], dev, torch.float32, (b,)) for k in ref.LEAF_OUT]
@@ -408,10 +402,6 @@ def shade_pre_bwd_rows(pack, o, d, hit, alive, depth: int, key, lam, chan, grads
     emt_row = torch.empty(s * b, dtype=torch.int64, device=dev)
     outs = [g[k].data_ptr() for k in range(6)]
     outs += [g_mat.data_ptr(), mat_row.data_ptr(), g_emt.data_ptr(), emt_row.data_ptr()]
-    ipar = [b, depth, pack.n_tris, tabs["tri_shade"].shape[0], tabs["sph_shade"].shape[0],
-            tabs["mat_fat"].shape[0], e, tabs["lmesh_cum"].numel(), s, pack.n_sph_emitters,
-            int(bool(pack.use_env)), env.shape[0], env.shape[1]]
-    fpar = [pack.emit_total_area, pack.rr_rate, pack.inv_rr, *pack.background]
     _launch("mcpt_wf_shade_pre_bwd", "shade_pre_bwd", dev, ins, outs, ipar, fpar)
     return (g[0], g[1], g[2]), (g[3], g[4], g[5]), g_mat, mat_row, g_emt, emt_row
 

@@ -18,43 +18,64 @@ S light samples with their shadow directions, visibility thresholds and
 unshadowed contributions, roulette, the reflect/refract branch, the next
 ray and its weight), then the intersector (the shadow fan and the next
 ray's nearest hit), then `shade_post` (visibility, the NEE sum, `l_dir`,
-`leaf`, `cont`, the depth's records and the ray count). `shade_pre`'s
-arithmetic is `vertex_math` and `sample_math` on per-lane values, after a
-discrete half of row gathers, draws and light picks.
+`leaf`, `cont`, the depth's records and the ray count). `shade_pre` is
+`_vertex`, then `_samples` for the vertex's light samples.
 
-The backward kernels' plain versions close the module: `shade_pre_bwd`
-replays the reverse mode of `vertex_math` and `sample_math`, traced from
-this very code by `lane_ad` (`vertex_program`, `sample_program`; the
-kernel's C++ is generated from the same traces, `wavefront_lanes`), and
-`shade_post_bwd` and `fold_bwd` are written out by hand. Autograd through
-the forward functions here is the tests' oracle of them (the route
-`plain (autograd)`).
+The backward kernels' plain versions close the module, each written out by
+hand in its kernel's order: `shade_pre_bwd` recomputes the vertex and its
+light samples and runs them back through the reverses of their pieces
+(`vertex_ref`, the plain versions of `csrc/wf_vertex.cuh`'s), and
+`shade_post_bwd` and `fold_bwd`. Autograd through the forward functions
+here is the tests' oracle of them (the route `plain (autograd)`).
 """
 
-import functools
 import math
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from mcpt_tpu_torch import prng
-from mcpt_tpu_torch.bsdf import eval_bsdf_c, fresnel_c, pdf_c, refract_c, sample_mfn_c
+from mcpt_tpu_torch.bsdf import ior_of
 from mcpt_tpu_torch.constants import CLAMP_DIRECT, CLAMP_INDIRECT, EPSILON, REL_EPS
 from mcpt_tpu_torch.envmap import sample_env_chan
 from mcpt_tpu_torch.intersect import surface_math, surface_rows
-from mcpt_tpu_torch.kernels import lane_ad
 from mcpt_tpu_torch.kernels.megakernel_ref import (
     _dot,
     _neg,
     _reflect,
+    _scale,
     _where3,
+    eval_bsdf,
     fold_rows,
+    fresnel,
     mat_fields,
     mat_rows,
+    pdf,
+    reflectance,
+    refract,
+    sample_mfn,
     take_rows,
 )
 from mcpt_tpu_torch.kernels.megakernel_ref import sqrt_f32 as _sqrt
+from mcpt_tpu_torch.kernels.vertex_ref import (
+    _acc,
+    _sum3,
+    _twice,
+    dsqrt,
+    env_bwd,
+    eval_bsdf_bwd,
+    fresnel_bwd,
+    light_point_bwd,
+    mask,
+    pdf_bwd,
+    reflect_bwd,
+    refract_bwd,
+    sample_mfn_bwd,
+    sgn,
+    surface_bwd,
+)
 from mcpt_tpu_torch.lights import light_point, pick
 
 
@@ -74,6 +95,12 @@ class PreOut(NamedTuple):
     w: torch.Tensor  # the indirect weight (the depth's `w` record)
     at_vertex: torch.Tensor  # bool: alive, hit, not the depth-0 emitter leaf
     rr_kill: torch.Tensor  # bool: Russian roulette ends the path here
+
+
+# shade_pre's outputs that carry a gradient but the light samples', in the
+# backward seeds' order
+RAY_OUT = ("p_new0", "p_new1", "p_new2", "wi0", "wi1", "wi2")
+LEAF_OUT = ("fac", "leaf_pre", "env_c", "w")
 
 
 class Records(NamedTuple):
@@ -155,146 +182,111 @@ def env_chan(pack, d, chan):
 
 
 # ---------------------------------------------------------------------------
-# shade_pre: its discrete half (row gathers, draws, light picks), then its
-# arithmetic on per-lane values, `vertex_math` and `sample_math`, which the
-# backward kernels' programs are traced from (`lane_programs`)
+# shade_pre: the vertex of each lane (`_vertex`), then its light samples
+# (`_samples`); the reverse mode below recomputes both
 # ---------------------------------------------------------------------------
 
-VERTEX_FLOATS = ("o0", "o1", "o2", "d0", "d1", "d2", "t", "u", "v", "lam",
-                 *(f"ts{k}" for k in range(11)), *(f"ss{k}" for k in range(5)),
-                 *(f"m{k}" for k in range(13)), *(f"xi{k}" for k in range(4)))
-VERTEX_FLAGS = ("happened", "is_tri", "mat_ok", "alive", "is_b")
-# the values of a vertex that its light samples read
-SHARED_FLOATS = ("p_dl0", "p_dl1", "p_dl2", "n0", "n1", "n2", "wo0", "wo1", "wo2", "uv0", "uv1",
-                 "lam", "mtype", "ior_a", "ior_b", "rough", "refl", "textured")
-SAMPLE_FLOATS = (*(f"e{k}" for k in range(17)), "mesh_area", "lu2", "lu3")
-# shade_pre's outputs that carry a gradient, in the backward seeds' order
-RAY_OUT = ("p_new0", "p_new1", "p_new2", "wi0", "wi1", "wi2")
-LEAF_OUT = ("fac", "leaf_pre", "env_c", "w")
 
-
-def vertex_inputs(pack, o, d, hit, alive, depth: int, kd, lam, chan):
-    """The per-lane inputs of `vertex_math` (names as VERTEX_FLOATS,
-    VERTEX_FLAGS and `chan`) and the lanes' int64 material rows."""
+def _vertex(pack, o, d, hit, alive, depth: int, kd, lam, chan):
+    """The vertex of bounce `depth` for each lane (Scene.cpp:85-159 up to
+    the ray queries): the surface, the material, the depth-0 emitter and
+    env leaves, the microfacet normal and Fresnel kr, the ε-offset points,
+    roulette, the reflect/refract branch, the next ray and its weight, with
+    the values the reverse mode reads (a namespace; vectors are 3-tuples).
+    The draws are fold_in(kd, 0)'s (B, 4)."""
     b = o[0].shape[0]
+    v = SimpleNamespace(o=o, d=d, lam=lam, chan=chan, alive=alive)
     happened, is_tri, ts, ss, mat, emissive = surface_rows(pack, hit)
-    rows, ok, idx = mat_rows(pack.mat_fat, mat.float())
+    rows, v.ok, v.mat_idx = mat_rows(pack.mat_fat, mat.float())
     xi = _draws(prng.fold_in(kd, 0), b, o[0].device)
-    x = {"o0": o[0], "o1": o[1], "o2": o[2], "d0": d[0], "d1": d[1], "d2": d[2],
-         "t": hit.t, "u": hit.u, "v": hit.v, "lam": lam, "chan": chan,
-         "happened": happened, "is_tri": is_tri, "mat_ok": ok, "alive": alive,
-         # the depth-0 emitter hit (Scene.cpp:102-107)
-         "is_b": happened & emissive if depth == 0 else torch.zeros_like(happened)}
-    x.update({f"ts{k}": ts[:, k] for k in range(11)})
-    x.update({f"ss{k}": ss[:, k] for k in range(5)})
-    x.update({f"m{k}": rows[:, k] for k in range(13)})
-    x.update({f"xi{k}": xi[:, k] for k in range(4)})
-    return x, idx
-
-
-def vertex_math(x, prm, env):
-    """The arithmetic of shade_pre but for its light samples, per lane:
-    the surface (Scene.cpp:85-159 up to the ray queries), `x` the inputs of
-    `vertex_inputs`, `prm` the scalars rr_rate and inv_rr, `env(d, chan)`
-    the env term. Returns (outputs, shared): the PreOut fields but ws, thr
-    and contrib as names (vectors by component), and what `sample_math`
-    reads of the vertex (SHARED_FLOATS, `is_reflect`)."""
-    o = (x["o0"], x["o1"], x["o2"])
-    d = (x["d0"], x["d1"], x["d2"])
-    lam, chan, happened = x["lam"], x["chan"], x["happened"]
-    p, n, uv = surface_math(o, d, x["t"], x["u"], x["v"], happened, x["is_tri"],
-                            [x[f"ts{k}"] for k in range(11)], [x[f"ss{k}"] for k in range(5)])
-    wo = _neg(d)
-
-    env_leaf = env(d, chan)  # miss: env/background (Scene.cpp:88-95)
-    m = mat_fields([x[f"m{k}"] for k in range(13)], x["mat_ok"], chan)
+    v.xi = [xi[:, c] for c in range(4)]
+    v.happened, v.is_tri, v.ss = happened, is_tri, [ss[:, k] for k in range(3)]
+    v.t_eff = torch.where(happened, hit.t, 0.0)
+    v.p, v.n, uv = surface_math(o, d, hit.t, hit.u, hit.v, happened, is_tri,
+                                [ts[:, k] for k in range(11)], [ss[:, k] for k in range(5)])
+    v.wo = wo = _neg(d)
+    n, p = v.n, v.p
+    v.env_leaf = env_chan(pack, d, chan)  # miss: env/background (Scene.cpp:88-95)
+    v.m = m = mat_fields([rows[:, k] for k in range(13)], v.ok, chan)
     # depth-0 emitter hit (Scene.cpp:102-107)
-    b_leaf = torch.clamp(m["emit"] * torch.abs(_dot(wo, n)), 0.0, 1.0)
-    at_vertex = x["alive"] & happened & ~x["is_b"]
+    v.won = _dot(wo, n)
+    v.awon = torch.abs(v.won)
+    v.b_leaf = torch.clamp(m["emit"] * v.awon, 0.0, 1.0)
+    is_b = happened & emissive if depth == 0 else torch.zeros_like(happened)
+    v.at_vertex = alive & happened & ~is_b
+    v.ior = ior = ior_of(m, lam)
+    v.refl = reflectance(m, uv)
 
     # microfacet normal + Fresnel split (Scene.cpp:109-110)
-    mfn = sample_mfn_c(m, n, x["xi0"], x["xi1"])
-    kr = fresnel_c(m, d, mfn, lam)
+    v.mfn = mfn = sample_mfn(m, n, v.xi[0], v.xi[1])
+    v.kr = kr = fresnel(m, ior, d, mfn)
 
     # NEE from the scale-relative ε-offset point (Scene.cpp:113-119)
-    off_scale = torch.clamp_min(
-        REL_EPS * torch.maximum(torch.abs(p[0]), torch.maximum(torch.abs(p[1]), torch.abs(p[2]))),
-        EPSILON,
-    )
-    p_dl = tuple(p[k] + n[k] * off_scale for k in range(3))
-    inner = _dot(wo, n) < 0.0
-    fac = torch.where(inner, 1.0 - kr, kr)
+    v.a = [torch.abs(p[k]) for k in range(3)]
+    v.mx = torch.maximum(v.a[0], torch.maximum(v.a[1], v.a[2]))
+    v.off_scale = torch.clamp_min(REL_EPS * v.mx, EPSILON)
+    v.p_dl = tuple(p[k] + n[k] * v.off_scale for k in range(3))
+    v.inner = v.won < 0.0
+    v.fac = torch.where(v.inner, 1.0 - kr, kr)
 
     # Russian roulette + stochastic reflect/refract (Scene.cpp:121-159)
-    rr_kill = x["xi2"] >= prm["rr_rate"]
-    branch_reflect = x["xi3"] < kr
+    v.rr_kill = v.xi[2] >= float(pack.rr_rate)
+    v.branch = v.xi[3] < kr
     sign_reflect = torch.where(_dot(wo, mfn) < 0.0, -1.0, 1.0)
-    sign = torch.where(branch_reflect, sign_reflect, -sign_reflect)
-    p_new = tuple(p[k] + n[k] * (off_scale * sign) for k in range(3))
-    wi = _where3(branch_reflect, _reflect(wo, mfn), refract_c(m, d, mfn, lam))
+    v.sign = torch.where(v.branch, sign_reflect, -sign_reflect)
+    v.p_new = tuple(p[k] + n[k] * (v.off_scale * v.sign) for k in range(3))
+    v.wi = wi = _where3(v.branch, _reflect(wo, mfn), refract(ior, d, mfn))
 
-    inv_rr = prm["inv_rr"]
-    ev = eval_bsdf_c(m, wi, wo, n, lam, uv, branch_reflect)
-    pv = pdf_c(m, wi, wo, n, lam, branch_reflect)
+    inv_rr = float(pack.inv_rr)
+    v.ev = ev = eval_bsdf(m, ior, v.refl, wi, wo, n, v.branch)
+    v.pv = pdf(m, ior, wi, wo, n, v.branch)
     # indirect weight (Scene.cpp:135-144,162-171), the reference's |wo·n|
-    pv_ok = torch.abs(pv) > 1e-10
-    w_rough = torch.where(
-        pv_ok, ev * torch.abs(_dot(wo, n)) / torch.where(pv_ok, pv, 1.0) * inv_rr, 0.0
-    )
-    w = torch.where(m["dirac"] > 0.5, ev * inv_rr, w_rough)
-    env_ind = env(wi, chan) * ev * inv_rr
-    leaf_pre = torch.where(~x["alive"], 0.0, torch.where(~happened, env_leaf, b_leaf))
-    out = {"fac": fac, "leaf_pre": leaf_pre, "env_c": torch.clamp(env_ind, 0.0, CLAMP_INDIRECT),
-           "w": w, "at_vertex": at_vertex, "rr_kill": rr_kill}
-    for name, vec in (("p_new", p_new), ("wi", wi), ("p_dl", p_dl)):
-        out.update({f"{name}{k}": vec[k] for k in range(3)})
-    shared = {f"p_dl{k}": p_dl[k] for k in range(3)}
-    shared.update({f"n{k}": n[k] for k in range(3)})
-    shared.update({f"wo{k}": wo[k] for k in range(3)})
-    shared.update({"uv0": uv[0], "uv1": uv[1], "lam": lam, "is_reflect": ~inner})
-    shared.update({k: m[k] for k in ("mtype", "ior_a", "ior_b", "rough", "refl", "textured")})
-    return out, shared
+    v.pv_ok = torch.abs(v.pv) > 1e-10
+    v.pvs = torch.where(v.pv_ok, v.pv, 1.0)
+    v.wr = ev * v.awon / v.pvs
+    v.dirac = m["dirac"] > 0.5
+    v.w = torch.where(v.dirac, ev * inv_rr, torch.where(v.pv_ok, v.wr * inv_rr, 0.0))
+    v.env_wi = env_chan(pack, wi, chan)
+    v.env_ind = v.env_wi * ev * inv_rr
+    v.leaf_pre = torch.where(~alive, 0.0, torch.where(~happened, v.env_leaf, v.b_leaf))
+    return v
 
 
-def sample_inputs(pack, k_light, b: int, chan):
-    """The per-sample inputs of `sample_math` (SAMPLE_FLOATS and `chan`,
-    sample k of lane i at k·B + i, with the draws of uniform(k_light,
-    (S·B, 4))) and the samples' int64 emitter rows."""
-    s = n_samples(pack)
-    u = _draws(k_light, s * b, chan.device)
-    sel, mesh_area = pick(pack, u)
-    rows = take_rows(pack.emt_fat, sel)
-    x = {f"e{k}": rows[:, k] for k in range(17)}
-    x.update({"mesh_area": mesh_area, "lu2": u[:, 2], "lu3": u[:, 3],
-              "chan": chan.expand(s, b).reshape(-1)})
-    return x, sel
-
-
-def sample_math(x, s, spheres: bool):
-    """The light-sample half of the NEE estimator (Scene.cpp:56-82) for one
-    sample: the point on the picked emitter row, the shadow direction from
-    p_dl, its visibility threshold and its contribution if visible,
-    emit · eval · (ws·n) · (−ws·n_light) / dist² / pdf / s. `x` holds the
-    vertex's shared values and the sample's inputs (broadcastable); returns
-    (ws, thr, contrib)."""
-    ls = light_point([x[f"e{k}"] for k in range(17)], x["mesh_area"], x["lu2"], x["lu3"],
-                     x["chan"], spheres)
-    p = (x["p_dl0"], x["p_dl1"], x["p_dl2"])
-    n = (x["n0"], x["n1"], x["n2"])
-    wo = (x["wo0"], x["wo1"], x["wo2"])
-    m = {k: x[k] for k in ("mtype", "ior_a", "ior_b", "rough", "refl", "textured")}
-    delta = tuple(ls.p[k] - p[k] for k in range(3))
-    dist = _sqrt(torch.clamp_min(_dot(delta, delta), 1e-20))
-    inv_dist = 1.0 / dist
-    ws = tuple(c * inv_dist for c in delta)
+def _samples(pack, v, k_light, s: int):
+    """The light-sample half of the NEE estimator (Scene.cpp:56-82) for the
+    S samples of each lane's vertex `v` (each value (S, B), sample k of
+    lane i at [k, i], with the draws of uniform(k_light, (S·B, 4))): the
+    picked emitter row and its point, the shadow direction from p_dl, its
+    visibility threshold and its contribution if visible, emit · eval ·
+    (ws·n) · (−ws·n_light) / dist² / pdf / s, with the values the reverse
+    mode reads."""
+    b = v.kr.shape[0]
+    u = _draws(k_light, s * b, v.kr.device)
+    sm = SimpleNamespace()
+    sm.sel, mesh_area = pick(pack, u)
+    rows = take_rows(pack.emt_fat, sm.sel).reshape(s, b, 17)
+    sm.e = [rows[..., k] for k in range(17)]
+    sm.lu2, sm.lu3 = u[:, 2].reshape(s, b), u[:, 3].reshape(s, b)
+    ls = light_point(sm.e, mesh_area.reshape(s, b), sm.lu2, sm.lu3, v.chan,
+                     bool(pack.n_sph_emitters))
+    sm.ln, sm.emit, sm.pdf = ls.n, ls.emit, ls.pdf
+    sm.delta = tuple(ls.p[k] - v.p_dl[k] for k in range(3))
+    sm.dd = _dot(sm.delta, sm.delta)
+    sm.cl = torch.clamp_min(sm.dd, 1e-20)
+    dist = _sqrt(sm.cl)
+    sm.inv_dist = 1.0 / dist
+    sm.ws = tuple(c * sm.inv_dist for c in sm.delta)
     # no hit strictly closer than the light sample, by a relative margin
-    thr = dist - torch.clamp_min(REL_EPS * dist, EPSILON)
-    ev = eval_bsdf_c(m, ws, wo, n, x["lam"], (x["uv0"], x["uv1"]), x["is_reflect"])
-    contrib = (
-        ls.emit * ev * _dot(ws, n) * -_dot(ws, ls.n) * (inv_dist * inv_dist)
-        / ls.pdf / torch.full_like(ls.pdf, s)
-    )
-    return ws, thr, contrib
+    sm.thr = dist - torch.clamp_min(REL_EPS * dist, EPSILON)
+    sm.ev = eval_bsdf(v.m, v.ior, v.refl, sm.ws, v.wo, v.n, ~v.inner)
+    sm.dn = _dot(sm.ws, v.n)
+    sm.dl = _dot(sm.ws, sm.ln)
+    sm.q = sm.inv_dist * sm.inv_dist
+    sm.a1 = sm.emit * sm.ev
+    sm.a2 = sm.a1 * sm.dn
+    sm.a3 = sm.a2 * -sm.dl
+    sm.contrib = sm.a3 * sm.q / sm.pdf / torch.full_like(sm.pdf, s)
+    return sm
 
 
 def shade_pre(pack, o, d, hit, alive, depth: int, key, lam, chan) -> PreOut:
@@ -302,25 +294,20 @@ def shade_pre(pack, o, d, hit, alive, depth: int, key, lam, chan) -> PreOut:
     hit `hit` (Scene.cpp:85-159 up to the two ray queries): `key` is the
     path key; the bounce draws from fold_in(fold_in(key, depth), 0) (B, 4)
     and fold_in(fold_in(key, depth), 1) (S·B, 4)."""
-    b = o[0].shape[0]
     kd = prng.fold_in(key, depth)
-    x, _ = vertex_inputs(pack, o, d, hit, alive, depth, kd, lam, chan)
-    prm = {"rr_rate": float(pack.rr_rate), "inv_rr": float(pack.inv_rr)}
-    out, shared = vertex_math(x, prm, lambda dd, ch: env_chan(pack, dd, ch))
+    v = _vertex(pack, o, d, hit, alive, depth, kd, lam, chan)
     s = n_samples(pack)
     if s:
-        xs, _ = sample_inputs(pack, prng.fold_in(kd, 1), b, chan)
-        xs = {k: v.reshape(s, b) for k, v in xs.items()}
-        ws, thr, contrib = sample_math({**shared, **xs}, s, bool(pack.n_sph_emitters))
-        ws, thr, contrib = tuple(c.reshape(s * b) for c in ws), thr.reshape(-1), contrib.reshape(-1)
+        sm = _samples(pack, v, prng.fold_in(kd, 1), s)
+        ws = tuple(c.reshape(-1) for c in sm.ws)
+        thr, contrib = sm.thr.reshape(-1), sm.contrib.reshape(-1)
     else:
         empty = o[0].new_empty((0,))
         ws, thr, contrib = (empty, empty, empty), empty, empty
     return PreOut(
-        p_new=tuple(out[f"p_new{k}"] for k in range(3)), wi=tuple(out[f"wi{k}"] for k in range(3)),
-        p_dl=tuple(out[f"p_dl{k}"] for k in range(3)), ws=ws, thr=thr, contrib=contrib,
-        fac=out["fac"], leaf_pre=out["leaf_pre"], env_c=out["env_c"], w=out["w"],
-        at_vertex=out["at_vertex"], rr_kill=out["rr_kill"],
+        p_new=v.p_new, wi=v.wi, p_dl=v.p_dl, ws=ws, thr=thr, contrib=contrib, fac=v.fac,
+        leaf_pre=v.leaf_pre, env_c=torch.clamp(v.env_ind, 0.0, CLAMP_INDIRECT), w=v.w,
+        at_vertex=v.at_vertex, rr_kill=v.rr_kill,
     )
 
 
@@ -377,92 +364,33 @@ def fold(rec: Records):
 
 
 # ---------------------------------------------------------------------------
-# The backward kernels' plain versions: the reverse mode of shade_pre (traced
-# from vertex_math and sample_math, `lane_ad`), of shade_post and of fold
+# The backward kernels' plain versions: the reverse modes of shade_pre (over
+# `vertex_ref`'s reverses of the vertex's pieces), of shade_post and of fold
 # ---------------------------------------------------------------------------
 
 
-class LaneProgram(NamedTuple):
-    """A traced lane program with its reverse: `tape` holds the forward's
-    `n_fwd` ops, then the adjoint's; `outs` names forward values, `seeds`
-    the seed inputs in seed order, `adj` each input's adjoint."""
-
-    tape: lane_ad.Tape
-    n_fwd: int
-    outs: dict
-    seeds: tuple
-    adj: dict
-
-    def split(self, wanted):
-        """The live ops toward the values `wanted`: (the forward's, the
-        adjoint's)."""
-        ops = lane_ad.live_ops(self.tape, wanted)
-        first = self.tape.ops[self.n_fwd].out
-        return [op for op in ops if op.out < first], [op for op in ops if op.out >= first]
-
-
-def _trace_inputs(tp, floats, flags=(), ints=()):
-    x = {n: tp.input(n) for n in floats}
-    x.update({n: tp.input(n, "b") for n in flags})
-    x.update({n: tp.input(n, "i") for n in ints})
-    return x
-
-
-def _reversed(tp, outs, seed_names):
-    n_fwd = len(tp.ops)
-    seeds = [(outs[n], tp.input("g_" + n)) for n in seed_names]
-    return LaneProgram(tp, n_fwd, outs, tuple(seed_names), lane_ad.reverse(tp, seeds))
-
-
-@functools.lru_cache(maxsize=None)
-def vertex_program(use_env: bool, ray: bool) -> LaneProgram:
-    """`vertex_math` traced, with its reverse for the seeds of LEAF_OUT,
-    RAY_OUT (with `ray`; the last bounce's next ray takes no gradient) and
-    SHARED_FLOATS (the light samples' adjoints of the vertex's values).
-    Parameters: rr_rate, inv_rr, and the map's env_h, env_w (`use_env`) or
-    the background bg0-2; table: env."""
-    tp = lane_ad.Tape()
-    x = _trace_inputs(tp, VERTEX_FLOATS, VERTEX_FLAGS, ("chan",))
-    prm = {"rr_rate": tp.param("rr_rate"), "inv_rr": tp.param("inv_rr")}
-    if use_env:
-        hw = (tp.param("env_h", "pi"), tp.param("env_w", "pi"))
-        table = lane_ad.Table("env")
-
-        def env(dd, ch):
-            return sample_env_chan(table, None, True, dd, ch, hw=hw)
-    else:
-        bg = tuple(tp.param(f"bg{k}") for k in range(3))
-
-        def env(dd, ch):
-            return sample_env_chan(None, bg, False, dd, ch)
-    out, shared = vertex_math(x, prm, env)
-    outs = {**out, **{"sh_" + k: v for k, v in shared.items()}}
-    seeds = (RAY_OUT if ray else ()) + LEAF_OUT + tuple("sh_" + k for k in shared_seeds())
-    return _reversed(tp, outs, seeds)
-
-
-def shared_seeds() -> tuple:
-    """The vertex values (SHARED_FLOATS) that a light sample's reverse
-    gives an adjoint."""
-    got = set(sample_program(False).adj) | set(sample_program(True).adj)
-    return tuple(n for n in SHARED_FLOATS if n in got and n != "lam")  # lam is an input
-
-
-@functools.lru_cache(maxsize=None)
-def sample_program(spheres: bool) -> LaneProgram:
-    """`sample_math` traced for one (sample, lane), with its reverse for the
-    contribution's seed. Parameter: s, the samples a vertex."""
-    tp = lane_ad.Tape()
-    x = _trace_inputs(tp, SHARED_FLOATS + SAMPLE_FLOATS, ("is_reflect",), ("chan",))
-    ws, thr, contrib = sample_math(x, tp.param("s", "pi"), spheres)
-    outs = {"ws0": ws[0], "ws1": ws[1], "ws2": ws[2], "thr": thr, "contrib": contrib}
-    return _reversed(tp, outs, ("contrib",))
-
-
-def _run(prog, env, wanted, like, tables, part):
-    """Replay the live ops of `prog` toward `wanted` values: its forward
-    (`part` 0) or its adjoint (1)."""
-    return lane_ad.replay(prog.split(wanted)[part], env, like, tables)
+def _sample_bwd(pack, v, sm, g_c, s: int):
+    """The reverse of `_samples` for the contributions' adjoints g_c (S, B):
+    (the adjoints of the vertex's p_dl, n, wo, ior, rough and reflectance,
+    each (S, B) per sample, and the emitter rows' adjoints, 17 of (S, B))."""
+    g_a4 = g_c / torch.full_like(g_c, s) / sm.pdf
+    g_q = g_a4 * sm.a3
+    g_a3 = g_a4 * sm.q
+    g_a2 = g_a3 * -sm.dl
+    g_dl = -(g_a3 * sm.a2)
+    g_a1 = g_a2 * sm.dn
+    g_dn = g_a2 * sm.a1
+    g_emit = g_a1 * sm.ev
+    g_ior, g_alpha, g_refl, g_ws, g_wo, g_n, _ = eval_bsdf_bwd(
+        v.m["mtype"], v.ior, v.m["rough"], v.refl, sm.ws, v.wo, v.n, ~v.inner, g_a1 * sm.emit)
+    g_ws = tuple(g_ws[k] + (g_dn * v.n[k] + g_dl * sm.ln[k]) for k in range(3))
+    g_n = tuple(g_n[k] + g_dn * sm.ws[k] for k in range(3))
+    g_inv = _sum3(g_ws, sm.delta) + _twice(g_q, sm.inv_dist)
+    g_dd = mask(sm.dd >= 1e-20, dsqrt(-g_inv * (sm.inv_dist * sm.inv_dist), sm.cl))
+    g_lp = tuple(g_ws[k] * sm.inv_dist + _twice(g_dd, sm.delta[k]) for k in range(3))
+    g_row = light_point_bwd(sm.e, sm.lu2, sm.lu3, v.chan, bool(pack.n_sph_emitters), g_lp,
+                            _scale(sm.ws, g_dl), g_emit)
+    return (g_lp, g_n, g_wo, g_ior, g_alpha, g_refl), g_row
 
 
 def shade_pre_bwd(pack, o, d, hit, alive, depth: int, key, lam, chan, grads):
@@ -473,61 +401,100 @@ def shade_pre_bwd(pack, o, d, hit, alive, depth: int, key, lam, chan, grads):
     (B,)) and the gradients of `pack.mat_fat` and `pack.emt_fat`, their
     per-lane row adjoints folded into the tables by `fold_rows`.
 
-    Every lane first recomputes its vertex (`vertex_program`'s forward), then
-    each light sample k from 0 up runs forward and back (`sample_program`),
-    its adjoints of the vertex's values summed in k order, then the vertex
-    runs back with those sums and the output gradients as seeds."""
+    Every lane recomputes its vertex (`_vertex`); then its light samples
+    run forward and back (`_samples`, `_sample_bwd`), and their adjoints of
+    the vertex's values are summed in sample order from k = 0; then the
+    vertex runs back, piece by piece, last first (`vertex_ref`)."""
     b = o[0].shape[0]
     s = n_samples(pack)
     kd = prng.fold_in(key, depth)
-    x, mat_idx = vertex_inputs(pack, o, d, hit, alive, depth, kd, lam, chan)
-    ray = "p_new0" in grads
-    vp = vertex_program(bool(pack.use_env), ray)
-    tables = {"env": pack.env_pixels}
-    prm = {"rr_rate": float(pack.rr_rate), "inv_rr": float(pack.inv_rr),
-           "env_h": pack.env_pixels.shape[0], "env_w": pack.env_pixels.shape[1],
-           **{f"bg{k}": float(pack.background[k]) for k in range(3)}}
-    env = {v.id: x[n] for n, v in vp.tape.inputs.items() if not n.startswith("g_")}
-    env.update({v.id: prm[n] for n, v in vp.tape.params.items()})
-    wanted = [vp.adj[n] for n in ("o0", "o1", "o2", "d0", "d1", "d2",
-                                  *(f"m{k}" for k in range(13))) if n in vp.adj]
-    shared_names = (*SHARED_FLOATS, "is_reflect")
-    _run(vp, env, wanted + [vp.outs["sh_" + n] for n in shared_names], x["t"], tables, 0)
-    acc = {n: torch.zeros_like(x["t"]) for n in shared_seeds()}
+    v = _vertex(pack, o, d, hit, alive, depth, kd, lam, chan)
+    m, ior, inv_rr = v.m, v.ior, float(pack.inv_rr)
+    mtype, alpha = m["mtype"], m["rough"]
+    zero = torch.zeros_like(v.kr)
+    z3 = (zero, zero, zero)
+    a_pdl, a_n, a_wo, a_ior, a_alpha, a_refl = z3, z3, z3, zero, zero, zero
     g_emt = pack.emt_fat.new_zeros((0, 17))
-    sel = torch.zeros(0, dtype=torch.int64, device=x["t"].device)
+    sel = torch.zeros(0, dtype=torch.int64, device=zero.device)
     if s:
-        xs, sel = sample_inputs(pack, prng.fold_in(kd, 1), b, chan)
-        sp = sample_program(bool(pack.n_sph_emitters))
-        senv = {sp.tape.inputs[n].id: env[vp.outs["sh_" + n].id].repeat(s)
-                for n in shared_names}
-        senv.update({sp.tape.inputs[n].id: v for n, v in xs.items()})
-        senv[sp.tape.inputs["g_contrib"].id] = grads["contrib"]
-        senv[sp.tape.params["s"].id] = s
-        like = xs["lu2"]
-        want_s = [sp.adj[n] for n in (*SHARED_FLOATS, *(f"e{k}" for k in range(17)))
-                  if n in sp.adj]
-        _run(sp, senv, want_s, like, tables, 0)
-        _run(sp, senv, want_s, like, tables, 1)
-        for n in acc:
-            if n in sp.adj:
-                a = senv[sp.adj[n].id].reshape(s, b)
-                for k in range(s):
-                    acc[n] = acc[n] + a[k]
-        zero = torch.zeros_like(like)
-        g_emt = torch.stack([senv[sp.adj[f"e{k}"].id] if f"e{k}" in sp.adj else zero
-                             for k in range(17)], dim=1)
-    for n in vp.seeds:
-        env[vp.tape.inputs["g_" + n].id] = acc[n[3:]] if n.startswith("sh_") else grads[n]
-    _run(vp, env, wanted, x["t"], tables, 1)
-    zero = torch.zeros_like(x["t"])
+        sm = _samples(pack, v, prng.fold_in(kd, 1), s)
+        (g_lp, g_n, g_wo, g_ior, g_alpha, g_refl), g_row = _sample_bwd(
+            pack, v, sm, grads["contrib"].reshape(s, b), s)
+        for k in range(s):
+            a_pdl = tuple(a_pdl[j] - g_lp[j][k] for j in range(3))
+            a_n = tuple(a_n[j] + g_n[j][k] for j in range(3))
+            a_wo = tuple(a_wo[j] + g_wo[j][k] for j in range(3))
+            a_ior = a_ior + g_ior[k]
+            a_alpha = a_alpha + g_alpha[k]
+            a_refl = a_refl + g_refl[k]
+        g_emt = torch.stack([c.expand(s, b) for c in g_row], -1).reshape(s * b, 17)
+        sel = sm.sel
 
-    def adj(n):
-        return env[vp.adj[n].id] if n in vp.adj else zero
-
-    g_mat = torch.stack([adj(f"m{k}") for k in range(13)], dim=1)
-    return (tuple(adj(f"o{k}") for k in range(3)), tuple(adj(f"d{k}") for k in range(3)),
-            fold_rows(g_mat, mat_idx, pack.mat_fat.shape[0]),
+    # the leaves and the indirect weight
+    g_env_ind = mask((v.env_ind >= 0.0) & (v.env_ind <= CLAMP_INDIRECT), grads["env_c"])
+    g_leaf, g_w = grads["leaf_pre"], grads["w"]
+    g_t = g_env_ind * inv_rr
+    g_ev = g_t * v.env_wi + mask(v.dirac, g_w * inv_rr)
+    g_wr = mask(v.pv_ok, torch.where(v.dirac, 0.0, g_w)) * inv_rr
+    g_num = g_wr / v.pvs
+    g_ev = g_ev + g_num * v.awon
+    g_awon = g_num * v.ev
+    g_pv = mask(v.pv_ok, -g_wr * (v.wr / v.pvs))
+    # the next ray's direction: its env term, pdf, BSDF, reflect or refract
+    g_wi = tuple(grads[f"wi{k}"] for k in range(3)) if "wi0" in grads else z3
+    if pack.use_env:
+        g_wi = _acc(g_wi, env_bwd(pack.env_pixels, v.wi, chan, g_t * v.ev))
+    gi1, ga1, g_wi1, g_wo1, g_n1 = pdf_bwd(mtype, ior, alpha, v.wi, v.wo, v.n, v.branch, g_pv)
+    gi2, ga2, gr2, g_wi2, g_wo2, g_n2, _ = eval_bsdf_bwd(mtype, ior, alpha, v.refl, v.wi, v.wo,
+                                                      v.n, v.branch, g_ev)
+    g_wi = _acc(_acc(g_wi, g_wi1), g_wi2)
+    g_wo3, g_mfn = (tuple(mask(v.branch, x) for x in y) for y in reflect_bwd(v.wo, v.mfn, g_wi))
+    gi3, g_d3, g_mfn3 = refract_bwd(ior, v.d, v.mfn, g_wi)
+    gi3, g_d3, g_mfn3 = (mask(~v.branch, gi3), tuple(mask(~v.branch, x) for x in g_d3),
+                         tuple(mask(~v.branch, x) for x in g_mfn3))
+    # fac, then kr and the microfacet normal
+    g_kr = torch.where(v.inner, -grads["fac"], grads["fac"])
+    gi4, g_d4, g_mfn4 = fresnel_bwd(mtype, ior, v.d, v.mfn, g_kr)
+    g_n5, ga5 = sample_mfn_bwd(mtype, alpha, v.n, v.xi[0], v.xi[1],
+                               _acc(_acc(g_mfn, g_mfn3), g_mfn4))
+    # the next ray's origin p + n·(off_scale·sign) and the fan's p + n·off_scale
+    g_pn = tuple(grads[f"p_new{k}"] for k in range(3)) if "p_new0" in grads else z3
+    os_ = v.off_scale * v.sign
+    g_off = _sum3(g_pn, v.n) * v.sign + _sum3(a_pdl, v.n)
+    g_mx = mask(REL_EPS * v.mx >= EPSILON, g_off) * REL_EPS
+    a0, a1, a2 = v.a
+    m12 = torch.maximum(a1, a2)
+    h0 = torch.where(a0 == m12, g_mx * 0.5, g_mx)
+    g_m12 = torch.where(a0 > m12, 0.0, h0)
+    h1 = torch.where(a1 == a2, g_m12 * 0.5, g_m12)
+    g_a = (torch.where(a0 < m12, 0.0, h0), torch.where(a1 < a2, 0.0, h1),
+           torch.where(a1 > a2, 0.0, h1))
+    g_p = tuple((g_pn[k] + a_pdl[k]) + g_a[k] * sgn(v.p[k]) for k in range(3))
+    # the depth-0 emitter leaf clamp(emit·|wo·n|, 0, 1)
+    bl = m["emit"] * v.awon
+    g_bl = mask(alive & v.happened & (bl >= 0.0) & (bl <= 1.0), g_leaf)
+    g_emit = g_bl * v.awon
+    g_won = (g_awon + g_bl * m["emit"]) * sgn(v.won)
+    g_n = tuple(((((a_n[k] + (g_pn[k] * os_ + a_pdl[k] * v.off_scale)) + g_n1[k]) + g_n2[k])
+                 + g_n5[k]) + g_won * v.wo[k] for k in range(3))
+    g_wo = tuple((((a_wo[k] + g_wo1[k]) + g_wo2[k]) + g_wo3[k]) + g_won * v.n[k]
+                 for k in range(3))
+    g_ior = (((a_ior + gi1) + gi2) + gi3) + gi4
+    g_alpha = ((a_alpha + ga1) + ga2) + ga5
+    g_refl = torch.where(m["textured"] > 0.5, 0.0, a_refl + gr2)
+    # the ray: wo = -d, the env leaf of a miss, the surface
+    g_d = tuple((g_d3[k] + g_d4[k]) - g_wo[k] for k in range(3))
+    if pack.use_env:
+        g_d = _acc(g_d, env_bwd(pack.env_pixels, d, chan, mask(alive & ~v.happened, g_leaf)))
+    g_o, g_dp = surface_bwd(o, d, v.t_eff, v.is_tri, v.ss, g_p, g_n)
+    g_d = _acc(g_d, g_dp)
+    # the material row (mat_fields: ior_a, ior_b, rough, refl and emit at chan)
+    ok = v.ok
+    g_mat = [zero, mask(ok, g_ior), mask(ok, g_ior / (lam * lam)), mask(ok, g_alpha)]
+    g_mat += [mask(ok & (chan == c), g_refl) for c in range(3)]
+    g_mat += [mask(ok & (chan == c), g_emit) for c in range(3)]
+    g_mat += [zero, zero, zero]
+    return (g_o, g_d, fold_rows(torch.stack(g_mat, 1), v.mat_idx, pack.mat_fat.shape[0]),
             fold_rows(g_emt, sel, pack.emt_fat.shape[0]))
 
 

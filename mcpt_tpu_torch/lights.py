@@ -37,19 +37,28 @@ def _sphere_point(row, u2, u3):
 
 
 def pick(pack, u):
-    """The two-stage emitter pick: (int64 emitter row, mesh_area)."""
+    """The two-stage emitter pick: (int64 emitter row, mesh_area). The mesh
+    is the count of lmesh_cum's entries below u0 · total area (a binary
+    search); the row is the mesh's first whose intra-mesh cumulative area
+    exceeds sqrt(u1) · mesh_area, else its last (a binary search over the
+    mesh's rows, `ScenePack.lmesh_first` and `lmesh_count`), both as
+    `csrc/wf_lights.cuh` light_pick searches."""
     e = pack.emt_mesh.shape[0]
     target = u[:, 0] * float(pack.emit_total_area)
     mesh = torch.searchsorted(pack.lmesh_cum, target, right=False)
     mesh = mesh.clamp(0, pack.lmesh_cum.shape[0] - 1)
-    idx = torch.arange(e, device=u.device)
-    same_mesh = pack.emt_mesh[None, :] == mesh[:, None]  # (B, E)
-    mesh_area = torch.amax(torch.where(same_mesh, pack.emt_mesh_area[None, :], 0.0), dim=1)
+    mesh_area = pack.lmesh_area[mesh]
     p_tgt = _sqrt(u[:, 1]) * mesh_area
-    hit = same_mesh & (p_tgt[:, None] < pack.emt_intra_cum[None, :])
-    sel = torch.amin(torch.where(hit, idx[None, :], e), dim=1)
-    last = torch.amax(torch.where(same_mesh, idx[None, :], -1), dim=1)
-    sel = torch.where(sel >= e, last, sel).clamp(0, e - 1)
+    lo = pack.lmesh_first[mesh].to(torch.int64)
+    end = lo + pack.lmesh_count[mesh].to(torch.int64)
+    hi = end
+    for _ in range(int(pack.lmesh_count.max()).bit_length()):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        active = lo < hi
+        right = ~(p_tgt < pack.emt_intra_cum[mid.clamp(max=e - 1)])
+        lo = torch.where(active & right, mid + 1, lo)
+        hi = torch.where(active & ~right, mid, hi)
+    sel = torch.where(lo < end, lo, end - 1).clamp(0, e - 1)
     return sel, mesh_area
 
 

@@ -170,6 +170,18 @@ class ScenePack:
     prim_emissive: Optional[np.ndarray] = None
     bvh_fat: Optional[np.ndarray] = None
     walk: Optional[tuple] = None
+    # per light mesh (lmesh_cum's rows): its first emitter row, its row
+    # count and its area (the largest emt_mesh_area of its rows, at least
+    # 0), which the light pick's binary searches read; built from the
+    # emitter fields when not given (`light_mesh_rows`)
+    lmesh_first: Optional[np.ndarray] = None
+    lmesh_count: Optional[np.ndarray] = None
+    lmesh_area: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        if self.lmesh_first is None:
+            self.lmesh_first, self.lmesh_count, self.lmesh_area = light_mesh_rows(
+                self.emt_mesh, self.emt_mesh_area, self.emt_intra_cum, self.lmesh_cum)
 
     @property
     def use_bvh(self) -> bool:
@@ -179,6 +191,36 @@ class ScenePack:
     def n_tris(self) -> int:
         """The JAX pack's `n_tris`: rows of the padded triangle arrays."""
         return self.t_pad
+
+
+def light_mesh_rows(emt_mesh, emt_mesh_area, emt_intra_cum, lmesh_cum):
+    """(first row, row count, area) of each light mesh, for the light
+    pick's binary searches (`lights.pick`, `csrc/wf_lights.cuh`), which
+    return the rows a scan over every emitter row returns when the pack is
+    laid out as `Scene.compile` lays it out: lmesh_cum nondecreasing, each
+    mesh's rows contiguous with a nondecreasing emt_intra_cum (ValueError
+    otherwise). A mesh without rows gets (0, 0, 0). Tensors in, tensors
+    out on their device."""
+    dev = emt_mesh.device if isinstance(emt_mesh, torch.Tensor) else None
+    mesh, area, intra, cum = (np.asarray(x.cpu()) if dev is not None else np.asarray(x)
+                              for x in (emt_mesh, emt_mesh_area, emt_intra_cum, lmesh_cum))
+    if np.any(np.diff(cum) < 0):
+        raise ValueError("lmesh_cum decreases: the light pick needs it sorted")
+    m = cum.shape[0]
+    first, count = np.zeros(m, np.int32), np.zeros(m, np.int32)
+    amax = np.zeros(m, np.float32)
+    for j in range(m):
+        rows = np.nonzero(mesh == j)[0]
+        if not rows.size:
+            continue
+        if rows[-1] - rows[0] + 1 != rows.size or np.any(np.diff(intra[rows]) < 0):
+            raise ValueError(f"light mesh {j}: its emitter rows are not contiguous with a "
+                             f"nondecreasing emt_intra_cum")
+        first[j], count[j] = rows[0], rows.size
+        amax[j] = max(np.float32(0.0), area[rows].max())
+    if dev is None:
+        return first, count, amax
+    return tuple(torch.from_numpy(x).to(dev) for x in (first, count, amax))
 
 
 def fat_bvh(pack: ScenePack) -> np.ndarray:

@@ -27,7 +27,7 @@ reverse order), `--rounds` times:
   which takes conf.json's 32 light samples, at spp 4;
 - `mega_lockstep<4, false>`: the 384x384 DEMO at spp 256 (and spp 2);
 - `mega_lockstep<4, true>`: the x4 Cornell box at 384x384, spp 16.
-and two wavefront shapes, for which each tree runs in a process of its own
+and four wavefront shapes, for which each tree runs in a process of its own
 (`python -P mega_ab.py --wavefront-turn`, with the tree's root first on the
 import path: the wavefront's modules import each other by package name, so
 a tree cannot be loaded beside another):
@@ -41,7 +41,16 @@ a tree cannot be loaded beside another):
 - `wavefront DEMO + soldier`: the intersector (the walk) at phase
   (e)'s 786,432 NEE rays of the DEMO plus one stand-in soldier, on the pack
   as `render_radiance` moves it, then that scene's render at 384x384, spp
-  8, mb 8, in one tile.
+  8, mb 8, in one tile;
+- `shade_pre`, `shade_pre_bwd`: the vertex kernels alone (the backward with
+  the next ray's seeds) at the DEMO's depth-0 vertices of a 256x256 tile
+  (196,608 lanes) and of the 384x384 train step (442,368 lanes): each
+  tree's wavefront sources built (ptxas lines and build seconds printed),
+  the kernel bitwise against the tree's own plain version, then timed
+  with the L2 evicted before each launch (the median of 20, `cold_ms`) and
+  back to back (the median of 5 means of 10). shade_pre's outputs must
+  equal the parent's; shade_pre_bwd's gradients may differ from another
+  design's in their last bits, so only its own plain version holds it.
 Each intersector call is timed with CUDA events (the median of 9 means of
 40 launches, queued behind a spin of the device: `queued_ms`), each render by the host's wall clock after a warm-up render
 at spp 1; on a tree's first turn the spp 1 render runs under
@@ -90,7 +99,10 @@ ROOT = Path(__file__).resolve().parent
 AB_DIR = kbuild.BUILD_DIR / "ab"
 SOURCES = {True: ("megakernel.cu", "mcpt_mega_trace"),
            False: ("mega_lockstep.cu", "mcpt_mega_lockstep")}
-WAVEFRONT = ("wavefront DEMO", "wavefront DEMO + soldier")
+WAVEFRONT = ("wavefront DEMO", "wavefront DEMO + soldier", "shade_pre", "shade_pre_bwd")
+# the vertex kernels' shapes: the DEMO's depth-0 vertices of a 256x256 tile
+# (196,608 lanes) and of the 384x384 train step (442,368 lanes)
+VERTEX_SIDES = (256, 384)
 
 
 KERNEL_MODULES = ("tables", "megakernel", "megakernel_ref")
@@ -328,6 +340,93 @@ def issue_ms(instructions):
     return instructions / (sms * 4 * 32 * mhz * 1e6) * 1e3, sms, mhz
 
 
+def cold_ms(fn, reps=20):
+    """Device ms of one fn() whose inputs come from DRAM: each run timed
+    alone between CUDA events after a 256 MB read that evicts the L2, the
+    median of `reps` (`chip_smoke.cuda_ms_cold`'s method, kept here, as
+    `queued_ms` is, so that every tree's turn times the same way)."""
+    flush = torch.ones((256 << 20) // 4, dtype=torch.float32, device="cuda")
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(4_000_000 * reps)
+    for start, end in events:
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sorted(start.elapsed_time(end) for start, end in events)[reps // 2]
+
+
+def vertex_turn(out, shape):
+    """One turn of a vertex kernel's shape (`shade_pre`, or `shade_pre_bwd`
+    with the next ray's seeds) on the tree first on the import path: the
+    tree's wavefront sources built (their ptxas lines and build seconds
+    printed), the kernel bitwise against the tree's own plain version, then
+    timed at each of VERTEX_SIDES cold (`cold_ms`) and back to back
+    (`queued_ms`). shade_pre's outputs go to `out`.npz, to be held against
+    the parent's; shade_pre_bwd's change in their last bits with its
+    reverse's design, so each tree holds its own plain version only."""
+    import numpy as np
+
+    from mcpt_tpu_torch import prng
+    from mcpt_tpu_torch.intersect import intersect_c
+    from mcpt_tpu_torch.kernels import wavefront as wf
+    from mcpt_tpu_torch.kernels import wavefront_ref as wfr
+    from mcpt_tpu_torch.scene import pack_to
+
+    for source in (wf.SOURCE, wf.BWD_SOURCE):
+        t0 = time.monotonic()
+        kbuild.build(source, True, summary=lambda log, name=source.name: [
+            f"[ptxas] {name} {line}" for line in kbuild.ptxas_lines(log)])
+        print(f"[build] {source.name} {time.monotonic() - t0:.1f} s", flush=True)
+    scene = demo_scene()
+    pack = pack_to(scene.compile(), "cuda")
+    res, answers = {"modes": {}}, {}
+    for side in VERTEX_SIDES:
+        cam = dataclasses.replace(scene.camera, width=side, height=side)
+        key = prng.key(21, "cuda")
+        o, d = wf.camera_rays(cam, torch.arange(side * side, device="cuda"), key, 3)
+        b, s = o[0].numel(), wfr.n_samples(pack)
+        chan = torch.arange(b, device="cuda") % 3
+        lam = torch.tensor([0.7, 0.5461, 0.4358], device="cuda")[chan]
+        alive = torch.ones(b, dtype=torch.bool, device="cuda")
+        args = (pack, o, d, intersect_c(pack, o, d), alive, 0, key, lam, chan)
+        if shape == "shade_pre":
+            fn = lambda: wf.shade_pre(*args)
+            got, want = fn(), wfr.shade_pre(*args)
+            flat, flat_w = [], []
+            for f, g, w in zip(got._fields, got, want):
+                gs, ws = (g, w) if isinstance(g, tuple) else ((g,), (w,))
+                for k, (x, y) in enumerate(zip(gs, ws)):
+                    answers[f"{b}_{f}{k}"] = x.cpu().numpy()
+                    flat.append(x)
+                    flat_w.append(y)
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            grads = {k: torch.randn(b, generator=gen, device="cuda")
+                     for k in (*wfr.RAY_OUT, *wfr.LEAF_OUT)}
+            grads["contrib"] = torch.randn(s * b, generator=gen, device="cuda")
+            fn = lambda: wf.shade_pre_bwd_rows(*args, grads)
+            got = wf.shade_pre_bwd(*args, grads, route="cuda")
+            want = wf.shade_pre_bwd(*args, grads, route="plain")
+            flat = [*got[0], *got[1], got[2], got[3]]
+            flat_w = [*want[0], *want[1], want[2], want[3]]
+        for g, w in zip(flat, flat_w):
+            view = (lambda x: x.view(torch.int32)) if g.dtype == torch.float32 else (lambda x: x)
+            if not torch.equal(view(g), view(w)):
+                raise AssertionError(f"{shape} at {b} lanes: the kernel differs from its plain "
+                                     f"version on {int((view(g) != view(w)).sum())} entries")
+        torch.cuda.synchronize()
+        res["modes"][f"{b} lanes"] = "bitwise equal to its plain version"
+        cold_ms(fn, 5)  # warm: the host's first calls, the card's clocks
+        res[f"{b} lanes_ms"] = cold_ms(fn)
+        res[f"{b} lanes warm_ms"] = sorted(queued_ms(fn, 10) for _ in range(5))[2]
+    np.savez(f"{out}.npz", **answers)
+    Path(f"{out}.json").write_text(json.dumps(res))
+
+
 def wavefront_turn(out, shape, profile, sass=None):
     """One turn of a wavefront shape in this process, on the tree first on
     the import path: writes its answers and image to `out`.npz and its
@@ -341,6 +440,8 @@ def wavefront_turn(out, shape, profile, sass=None):
     from mcpt_tpu_torch.render import render_radiance
     from mcpt_tpu_torch.scene import pack_to
 
+    if shape in ("shade_pre", "shade_pre_bwd"):
+        return vertex_turn(out, shape)
     cam = dataclasses.replace(demo_scene().camera, width=1920, height=1080)
     if shape == "wavefront DEMO":
         scene = demo_scene()
@@ -445,7 +546,7 @@ def wavefront_ab(roots, shapes, rounds, result, sass=None):
                         raise RuntimeError(f"{t}: {shape} turn failed\n{proc.stdout[-3000:]}\n"
                                            f"{proc.stderr[-6000:]}")
                     for line in proc.stdout.splitlines():
-                        if line.startswith("[profile]"):
+                        if line.startswith(("[profile]", "[ptxas]", "[build]")):
                             print(f"[ab] {t}: {line}", flush=True)
                     res = json.loads(Path(f"{out}.json").read_text())
                     turns.append(res)
@@ -457,8 +558,13 @@ def wavefront_ab(roots, shapes, rounds, result, sass=None):
                                                  f"on {(got[key] != want).sum()} entries")
                     timed = ", ".join(f"{k} {res[f'{k}_ms']:.4f} ms [{m}]"
                                       for k, m in res["modes"].items())
-                    print(f"[ab] {t} {shape} turn {r + 1}: {timed}, render spp 8 wall "
-                          f"{res['render_wall_s']:.3f} s, launches {res['render_launches']}; "
+                    if "render_wall_s" in res:
+                        timed += (f", render spp 8 wall {res['render_wall_s']:.3f} s, "
+                                  f"launches {res['render_launches']}")
+                    else:
+                        timed += ", back to back " + ", ".join(
+                            f"{k} {res[f'{k} warm_ms']:.4f} ms" for k in res["modes"])
+                    print(f"[ab] {t} {shape} turn {r + 1}: {timed}; "
                           f"{time.monotonic() - t0:.1f} s; bitwise equal to the parent's",
                           flush=True)
                     if res.get("issue_ms"):
@@ -478,7 +584,8 @@ def wavefront_ab(roots, shapes, rounds, result, sass=None):
             if rounds:
                 for t in trees:
                     turns = result["trees"][t]["wavefront"][shape]
-                    for k in [*turns[0]["modes"], "render_wall"]:
+                    walls = ["render_wall"] if "render_wall_s" in turns[0] else []
+                    for k in [*turns[0]["modes"], *walls]:
                         key = "render_wall_s" if k == "render_wall" else f"{k}_ms"
                         label = "render spp 8 wall (s)" if k == "render_wall" else k
                         result["trees"][t]["median_ms"][f"{shape} {label}"] = sorted(
