@@ -143,7 +143,17 @@ raises, so the script exits nonzero and prints no result line.
    first terminal depth, counted on the tile's records), float operations
    (`shade_pre`'s: the plain version's tally, `plain_ops`) and 32-bit
    integer operations (the threefry draws of `camera_rays` and `shade_pre`,
-   `DRAW_OPS` each), each term printed and the one that bounds named
+   `DRAW_OPS` each), each term printed and the one that bounds named.
+   Then shade_post and fold at their edges (`post_fold_edges`): lane
+   counts 1, 3, 4, 5, 6, 4,096 and 4,097 (their rows at depth > 0 off the
+   vector's grid where its lanes do not divide b) and views that start off
+   it, 0, 1, 4 and 40 light samples and shadows off, records 1, 8 and 20
+   deep, on adversarial inputs (`post_case`, `fold_records`: NaN, ±inf, ±1e30 and
+   the clamps' edges; the fold's first terminal depth at every depth and
+   none), bitwise against the plain versions with the ray count; both
+   instances of shade_post (`wavefront.VECTOR_LANES` lanes a thread, and
+   1) must launch, each where the lane count and the alignment say, and
+   the fold once a case
 13. (h) the lockstep kernel K1b (`csrc/mega_lockstep.cu`, `render_mega(...,
    regen=False)`) and the lane-strided sharded render:
    (h1) `mega_lockstep<4, false>` against its plain version on the card on
@@ -235,6 +245,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -1318,7 +1329,8 @@ def wavefront_main():
                f"{wall:.3f} s, render "
                f"{stats['elapsed_s']:.3f} s, {stats['rays']} rays, {stats['rays_per_s']:.4e} "
                f"rays/s, {stats['wavelength_paths_per_s']:.4e} wavelength-paths/s, "
-               f"routes {sorted({r for _, r in wf.calls})}, launches {launched}, intersector "
+               f"routes {sorted({r for _, r in wf.calls})}, launches {launched} (by instance "
+               f"{dict(wf.by_instance)}), intersector "
                f"{by_mode}, megakernel launches {mk.trace_block.launches}")
     reset_counts()
     t1 = time.monotonic()
@@ -1680,6 +1692,174 @@ def time_fold(label, rec, b):
                                           f"folded a lane)")
 
 
+# (l): shade_post's and fold's edges: lane counts around shade_post's
+# vector instance's lanes a thread (`wavefront.VECTOR_LANES`: a lane count
+# they do not divide takes the scalar instance, whose record rows at depth
+# > 0 start off the vector's grid), a view that starts off it, light-sample
+# counts (0: no shadow rows), record depths (over one chunk of the fold's
+# flag search: 20)
+EDGE_LANES = (1, 3, 4, 5, 6, 4096, 4097)
+EDGE_SAMPLES = (0, 1, 4, 40)
+EDGE_DEPTHS = (1, 8, 20)
+
+
+def _spiked(rng, n, lo, hi, spikes, rate=0.25):
+    """n float32 uniform in [lo, hi), a `rate` of them one of `spikes`."""
+    x = rng.uniform(lo, hi, n).astype(np.float32)
+    m = rng.random(n) < rate
+    x[m] = rng.choice(np.asarray(spikes, np.float32), int(m.sum()))
+    return x
+
+
+def post_case(b, s, seed, shadows=True):
+    """shade_post's inputs for b lanes at s light samples (numpy, from
+    `seed`): contributions with 0, -0, the clamp's 15 and 5, NaN and ±inf
+    among them; shadow t below, equal to and above each threshold, and NaN;
+    fac with 1, 0 and NaN; flags at random; next prims from -1 up into a
+    7-row emissive table holding 0.5, the float above it and NaN.
+    `shadows=False`: no shadow t (the pack's shadows off)."""
+    rng = np.random.default_rng(seed)
+    n = s * b
+    thr = rng.uniform(0.0, 10.0, n).astype(np.float32)
+    sh_t = thr + rng.choice(np.float32([-1.0, 0.0, 0.0, 1.0]), n)
+    sh_t[rng.random(n) < 0.1] = np.nan
+    emissive = np.float32([[0.0], [1.0], [0.5], [np.nextafter(np.float32(0.5), 1)], [np.nan],
+                           [2.0], [0.0]])
+    return {
+        "contrib": _spiked(rng, n, -0.5, 8.0, [0.0, -0.0, 15.0, 5.0, np.nan, np.inf, -np.inf]),
+        "thr": thr, "sh_t": sh_t if shadows else None,
+        "fac": _spiked(rng, b, -1.0, 4.0, [1.0, 1.0, 0.0, np.nan]),
+        "leaf_pre": _spiked(rng, b, -1.0, 20.0, [np.nan, 15.0]),
+        "env_c": _spiked(rng, b, 0.0, 5.0, [0.0, 5.0, np.nan]),
+        "w": _spiked(rng, b, 0.0, 3.0, [0.0, np.inf, np.nan]),
+        "at_vertex": rng.random(b) < 0.7, "rr_kill": rng.random(b) < 0.2,
+        "nxt_prim": rng.integers(-1, len(emissive), b).astype(np.int32),
+        "prim_emissive": emissive,
+    }
+
+
+def fold_records(depth, b, seed):
+    """Adversarial records for the fold (numpy, from `seed`; each (depth,
+    b)): the lanes' first terminal depths f cover every depth and `depth`
+    (no terminal depth), shuffled, so a thread's lanes differ; the flags
+    after f at random; before f, l_dir with the direct clamp's edges 0 and
+    15 and w with 0, 1 and 5 among uniform values (w 1 on a leaf of 5
+    lands on the indirect clamp's edge); at f, a leaf with 0, -0, 5 and 15
+    among them; after f, and in the leaf at every depth but f, NaN, ±inf
+    and ±1e30 among uniform values. No -0 in l_dir: torch.clamp keeps -0
+    where XLA's clip gives +0, so -0 would compare by value only."""
+    rng = np.random.default_rng(seed)
+    first = rng.permutation(np.arange(b) % (depth + 1))
+    d = np.arange(depth)[:, None]
+    after, at = d > first, d == first
+    junk = [np.nan, np.inf, -np.inf, 1e30, -1e30]
+
+    def plane(lo, hi, spikes):
+        x = _spiked(rng, depth * b, lo, hi, spikes).reshape(depth, b)
+        bad = _spiked(rng, depth * b, -2.0, 20.0, junk, rate=0.5).reshape(depth, b)
+        return x, bad
+
+    l_dir, bad = plane(-2.0, 20.0, [0.0, 15.0])
+    l_dir = np.where(after, bad, l_dir)
+    w, bad = plane(0.0, 3.0, [0.0, 1.0, 5.0])
+    w = np.where(after, bad, w)
+    leaf, bad = plane(-1.0, 20.0, [0.0, -0.0, 5.0, 15.0])
+    leaf = np.where(at, leaf, bad)
+    terminal = at | (after & (rng.random((depth, b)) < 0.5))
+    return {"l_dir": l_dir, "w": w, "leaf": leaf, "terminal": terminal}
+
+
+def _lane_view(x, dev, offset):
+    """`x` (numpy) as a tensor on `dev`, a view `offset` elements into a
+    buffer of its own (offset 1: its rows start off the 16-byte grid)."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    buf = torch.empty(offset + t.numel(), dtype=t.dtype, device=dev)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def post_edge(b, s, seed, dev, shadows=True, offset=0, depth=2):
+    """shade_post's kernel route and plain version on `post_case(b, s,
+    seed, shadows)` (its planes `offset` elements into their buffers),
+    each writing row `depth` of its own 3-deep records and adding to its
+    own ray count (7 to start): returns [(name, got, want)] over the next
+    alive, every record plane (all rows: the others untouched) and the ray
+    count."""
+    case = post_case(b, s, seed, shadows)
+    t = {k: (None if v is None else _lane_view(v, dev, offset)) for k, v in case.items()}
+    pack = SimpleNamespace(prim_emissive=t["prim_emissive"], n_dir_sample=s,
+                           n_emitters=int(s > 0))
+    pre = wfr.PreOut(p_new=None, wi=None, p_dl=None, ws=None,
+                     **{k: t[k] for k in ("thr", "contrib", "fac", "leaf_pre", "env_c", "w",
+                                          "at_vertex", "rr_kill")})
+    out = []
+    for route in ("cuda", "plain"):
+        rec = wfr.new_records(3, b, dev)
+        rays = torch.full((), 7, dtype=torch.int64, device=dev)
+        alive = wf.shade_post(pack, pre, t["sh_t"], t["nxt_prim"], rec, depth, rays,
+                              route=route)
+        out.append((alive, *rec, rays))
+    names = ("alive", *wfr.Records._fields, "rays")
+    return [(f"shade_post {name}", g, w) for name, g, w in zip(names, *out)]
+
+
+def fold_edge(depth, b, seed, dev, offset=0):
+    """fold's kernel route and plain version on `fold_records(depth, b,
+    seed)` (each plane `offset` elements into its buffer): [(name, got,
+    want)]."""
+    rec = wfr.Records(**{k: _lane_view(v, dev, offset)
+                         for k, v in fold_records(depth, b, seed).items()})
+    return [("fold radiance", wf.fold(rec, route="cuda"), wf.fold(rec, route="plain"))]
+
+
+def edge_instance(b, offset):
+    """shade_post's instance for an edge case, as its C entry picks it:
+    ("shade_post", lanes a thread), the vector instance's lanes where they
+    divide b and the planes start on its grid (offset 0), else 1."""
+    lanes = wf.VECTOR_LANES
+    return "shade_post", lanes if b % lanes == 0 and not offset else 1
+
+
+def post_fold_edges():
+    """(l): shade_post and fold bitwise against their plain versions at
+    their edges (`EDGE_LANES` x `EDGE_SAMPLES`, shadows off at 4 samples,
+    x `EDGE_DEPTHS` for the fold, and each at 4,096 lanes through views
+    offset by one element); both instances of shade_post must launch, each
+    where the lane count and the rows' alignment say, and the fold once a
+    case."""
+    t0 = time.monotonic()
+    before = collections.Counter(wf.by_instance)
+    cases = [("shade_post", dict(b=b, s=s), post_edge, (b, s, 10 * b + s, DEV))
+             for b in EDGE_LANES for s in EDGE_SAMPLES]
+    cases += [("shade_post", dict(b=b, s=4, shadows=False), post_edge,
+               (b, 4, b, DEV, False)) for b in EDGE_LANES]
+    cases.append(("shade_post", dict(b=4096, s=4, offset=1), post_edge, (4096, 4, 3, DEV, True, 1)))
+    cases += [("fold", dict(b=b, depth=depth), fold_edge, (depth, b, 10 * b + depth, DEV))
+              for b in EDGE_LANES for depth in EDGE_DEPTHS]
+    cases.append(("fold", dict(b=4096, depth=8, offset=1), fold_edge, (8, 4096, 5, DEV, 1)))
+    for kernel, what, fn, args in cases:
+        was, was_fold = collections.Counter(wf.by_instance), wf.launches["fold"]
+        for name, got, want in fn(*args):
+            same_bits(f"(l) edges {what}", name, got, want)
+        ran = wf.by_instance - was
+        if kernel == "shade_post":
+            instance = edge_instance(what["b"], what.get("offset", 0))
+            check(ran == collections.Counter({instance: 1}),
+                  f"(l) edges {what}: launched {dict(ran)}, not {instance}")
+        else:
+            check(not ran and wf.launches["fold"] == was_fold + 1,
+                  f"(l) edges {what}: {wf.launches['fold'] - was_fold} fold launches")
+    ran = wf.by_instance - before
+    check(all(ran["shade_post", v] > 0 for v in (wf.VECTOR_LANES, 1)),
+          f"(l) edges: not every shade_post instance launched: {dict(ran)}")
+    phase("l", f"shade_post and fold at their edges ({len(cases)} cases: lanes "
+               f"{EDGE_LANES}, light samples {EDGE_SAMPLES} and shadows off, fold depths "
+               f"{EDGE_DEPTHS}, adversarial records, views off the vectors' grid) bitwise equal to "
+               f"their plain versions, ray counts equal; launches by instance {dict(ran)}; "
+               f"{time.monotonic() - t0:.1f} s")
+
+
 def lens_lamp_demo():
     """The DEMO seen through a thin lens (focused at 800, aperture radius 8)
     with an emissive sphere beside its area light: the camera's lens draws
@@ -1695,7 +1875,8 @@ def wavefront_kernels(soldier):
     """(l): the four wavefront kernels bitwise against their plain versions
     on the DEMO (timed), the sky-lit DEMO, DEMO + soldier (the walk), the
     DEMO at 40 light samples and the DEMO through a thin lens with an
-    emissive sphere."""
+    emissive sphere; then shade_post and fold at their edges
+    (`post_fold_edges`)."""
     t0 = time.monotonic()
     timing = kernels_vs_plain_trace("(l) DEMO", demo_scene(), 1, timed=True)
     sky = demo_scene()
@@ -1709,6 +1890,7 @@ def wavefront_kernels(soldier):
     check(lens.camera.use_dof and lens.compile().n_sph_emitters == 1,
           "the thin-lens DEMO: one emissive sphere")
     kernels_vs_plain_trace("(l) DEMO, thin lens and an emissive sphere", lens, 5)
+    post_fold_edges()
     phase("l", f"{time.monotonic() - t0:.1f} s")
     return timing
 

@@ -1,6 +1,6 @@
 // The wavefront engine's kernels: the camera rays, the two shading halves of
 // a bounce around the intersector (csrc/intersect_prims.cu), and the reverse
-// clamp fold. One thread per lane.
+// clamp fold. One thread a lane; shade_post takes two (below).
 //
 // They replace no Pallas kernel: they are what XLA compiles under `jit` of
 // mcpt_tpu's wavefront, `camera.py:55-107` (`generate_rays_c`) and
@@ -24,6 +24,22 @@
 // key op, and no other op, runs on the host a bounce. Every lane runs every
 // bounce, dead ones too, as in JAX, so the records match lane for lane; the
 // fold reads a lane's records only up to its first terminal depth.
+//
+// shade_post and fold do a few float operations a lane and are bound by
+// their bytes: shade_post 84 B a lane at 4 light samples, the fold about
+// 20 B a lane on the DEMO's records, but some 56 B a lane of 32-byte
+// sectors, since the lanes that share a sector end at different depths. At
+// a tile's 196,608 lanes that is a few microseconds of DRAM, the same order
+// as a cold launch's fixed chain of dependent reads (about 3 us on the H100:
+// the kernel's first loads, then shade_post's gather of the next hits'
+// emissive flags and its atomic, the fold's flags and then its records).
+// So both issue every load of a thread before its first use. shade_post
+// takes 2 lanes a thread with one 8-byte access a plane (flags as one 2-byte
+// word), where the lane count and the rows' alignment let it, else a scalar
+// instance of the same body, and sums its ray count over the warp and the
+// block before one atomic a block. The fold, one lane a thread, reads its
+// flags 8 depths at a time and then the records below the first terminal
+// depth together: two round trips for the DEMO's paths.
 //
 // Each kernel equals its plain version (kernels/wavefront_ref.py) bit for bit
 // on the card: built with -fmad=false and without fast math, the same float32
@@ -150,6 +166,81 @@ __global__ void __launch_bounds__(kPreThreads) shade_pre_kernel(PreArgs P) {
   P.rr_kill[i] = v.rr_kill;
 }
 
+// ---- V consecutive lanes a thread -------------------------------------------
+
+// shade_post comes in two instances of one body: kLanes = 2 lanes a thread,
+// each float or int plane read and written with one 8-byte access a thread
+// and each flag plane with one 2-byte access, or 1 lane a thread. (4 lanes a
+// thread with 16-byte accesses measured 1-3% slower, at 90 registers; 1 lane
+// 1-5% slower: mega_ab.py on the H100. The fold keeps one: 2 lanes were as
+// fast cold and 0.0008 ms faster back to back, 4 lanes 7-9% slower.) The C
+// entry takes kLanes when the lane count is even and every row it is given
+// is aligned to its access (the tile's and the train step's shapes), and 1
+// otherwise (an odd lane count, whose rows at depth > 0 or sample k > 0
+// start off the 8-byte grid, or a view that starts there).
+// kernels/wavefront.py's VECTOR_LANES repeats kLanes for the checks that
+// predict the instance.
+constexpr int kLanes = 2;
+
+// the types of one access of V lanes: floats, ints, flag bytes
+template <int V>
+struct Lanes;
+template <>
+struct Lanes<1> {
+  using F = float;
+  using I = int;
+  using B = unsigned char;
+};
+template <>
+struct Lanes<2> {
+  using F = float2;
+  using I = int2;
+  using B = unsigned short;
+};
+
+template <typename T>
+__device__ __forceinline__ void unpack(T t, T (&x)[1]) {
+  x[0] = t;
+}
+template <typename T, typename T2>
+__device__ __forceinline__ void unpack(T2 t, T (&x)[2]) {
+  x[0] = t.x;
+  x[1] = t.y;
+}
+
+template <int V>
+__device__ __forceinline__ void load_lanes(const float* p, size_t i, float (&x)[V]) {
+  unpack(__ldg(reinterpret_cast<const typename Lanes<V>::F*>(p + i)), x);
+}
+
+template <int V>
+__device__ __forceinline__ void load_lanes(const int* p, size_t i, int (&x)[V]) {
+  unpack(__ldg(reinterpret_cast<const typename Lanes<V>::I*>(p + i)), x);
+}
+
+template <int V>
+__device__ __forceinline__ void store_lanes(float* p, size_t i, const float (&x)[V]) {
+  if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p + i) = make_float2(x[0], x[1]);
+  } else {
+    p[i] = x[0];
+  }
+}
+
+// The flags of lanes i .. i + V - 1, lane j's in byte j (a bool is one byte,
+// 0 or 1).
+template <int V>
+__device__ __forceinline__ unsigned int load_flags(const bool* p, size_t i) {
+  return __ldg(reinterpret_cast<const typename Lanes<V>::B*>(p + i));
+}
+
+template <int V>
+__device__ __forceinline__ void store_flags(bool* p, size_t i, unsigned int w) {
+  *reinterpret_cast<typename Lanes<V>::B*>(p + i) = static_cast<typename Lanes<V>::B>(w);
+}
+
+__device__ __forceinline__ bool flag(unsigned int w, int j) { return ((w >> (8 * j)) & 0xffu) != 0u; }
+
 // ---- shade_post (the rest of the bounce body) -------------------------------
 
 struct PostArgs {
@@ -162,40 +253,119 @@ struct PostArgs {
   int b, s, n_emissive;
 };
 
-__global__ void __launch_bounds__(kWfThreads) shade_post_kernel(PostArgs A) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = i < A.b;
-  bool at_vertex = false;
-  if (in) {
-    // visibility: no hit strictly closer than the light sample; the S-sum
-    // from k = 0 up
-    float total = 0.0f;
-    for (int k = 0; k < A.s; ++k) {
-      const int r = k * A.b + i;
-      float c = A.contrib[r];
-      if (A.sh_t != nullptr && !(A.sh_t[r] >= A.thr[r])) c = 0.0f;
-      total = k == 0 ? c : total + c;
+constexpr int kPostThreads = 256;
+// light-sample rows whose loads a thread has in flight at once
+constexpr int kPostRows = 4;
+
+template <int V>
+struct PostRows {
+  float c[kPostRows][V], t[kPostRows][V], h[kPostRows][V];  // contrib, thr, sh_t
+};
+
+// Issues the loads of the light-sample rows k0 .. k0 + kPostRows - 1 that
+// exist: contrib, and thr and sh_t where the shadows are on.
+template <int V>
+__device__ __forceinline__ void load_post_rows(const PostArgs& A, int k0, size_t i,
+                                               PostRows<V>& R) {
+#pragma unroll
+  for (int u = 0; u < kPostRows; ++u) {
+    if (k0 + u < A.s) {
+      const size_t r = static_cast<size_t>(k0 + u) * A.b + i;
+      load_lanes<V>(A.contrib, r, R.c[u]);
+      if (A.sh_t != nullptr) {
+        load_lanes<V>(A.thr, r, R.t[u]);
+        load_lanes<V>(A.sh_t, r, R.h[u]);
+      }
     }
-    const float l_dir = A.fac[i] * total;
-    const int np = A.nxt_prim[i];
-    const bool nxt_emissive = np >= 0 && np < A.n_emissive && A.emissive[np] > 0.5f;
-    at_vertex = A.at_vertex[i];
-    const bool rr_kill = A.rr_kill[i];
-    const bool cont = at_vertex && !rr_kill && np >= 0 && !nxt_emissive;
-    // a roulette kill keeps the raw l_dir (Scene.cpp:129,156)
-    const float vertex_leaf = rr_kill ? l_dir : t_clamp(l_dir, 0.0f, kClampDirect) + A.env_c[i];
-    A.l_dir[i] = l_dir;
-    A.w_rec[i] = A.w[i];
-    A.leaf[i] = at_vertex ? vertex_leaf : A.leaf_pre[i];
-    A.terminal[i] = !cont;
-    A.alive[i] = cont;
   }
-  // the bounce's rays: 1 + S a vertex, summed a block, one atomic a block
-  const int vertices = __syncthreads_count(in && at_vertex);
-  if (threadIdx.x == 0 && vertices > 0) {
-    atomicAdd(A.rays, static_cast<unsigned long long>(vertices) *
-                          static_cast<unsigned long long>(1 + A.s));
+}
+
+// The bounce's rays, 1 + S a vertex: a thread's vertices summed over its
+// warp, then over the block's warps, and one atomicAdd a block. An integer
+// sum, so exact in any order.
+__device__ __forceinline__ void add_rays(unsigned long long* rays, unsigned int vertices,
+                                         int per_vertex) {
+  __shared__ unsigned int warp_sums[kPostThreads / 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  vertices = __reduce_add_sync(0xffffffffu, vertices);
+  if (lane == 0) warp_sums[warp] = vertices;
+  __syncthreads();
+  if (warp == 0) {
+    const unsigned int v =
+        __reduce_add_sync(0xffffffffu, lane < kPostThreads / 32 ? warp_sums[lane] : 0u);
+    if (lane == 0 && v > 0u) {
+      atomicAdd(rays, static_cast<unsigned long long>(v) *
+                          static_cast<unsigned long long>(per_vertex));
+    }
   }
+}
+
+// V lanes a thread. Every load of a thread's lanes is issued before the
+// first use: the seven lane planes, the first kPostRows light-sample rows;
+// then the gather of the next hits' emissive flags, which waits on nxt_prim
+// alone; then the S sum from k = 0 up, further rows kPostRows at a time.
+// The second launch bound, the blocks a SM its registers leave room for:
+// the scalar instance 6 (at most 40 registers), so that a tile's 768 blocks
+// of one lane a thread run in one wave on 132 SMs (left to itself it takes
+// 54, 4 blocks a SM, and ran 5% slower than a one-lane body that keeps
+// nothing in flight, at an odd lane count); the vector instance 5, what its
+// own 48 registers give (with a floor of 1 it took 70 and ran 6% slower back
+// to back at 442,368 lanes). mega_ab.py on the H100.
+template <int V>
+__global__ void __launch_bounds__(kPostThreads, V == 1 ? 6 : 5)
+    shade_post_kernel(PostArgs A) {
+  const size_t i = (static_cast<size_t>(blockIdx.x) * kPostThreads + threadIdx.x) * V;
+  unsigned int vertices = 0u;
+  if (i < static_cast<size_t>(A.b)) {  // V > 1 only for b % V == 0: all of a thread's lanes
+    float fac[V], leaf_pre[V], env_c[V], w[V], emis[V], total[V];
+    int np[V];
+    load_lanes<V>(A.fac, i, fac);
+    load_lanes<V>(A.leaf_pre, i, leaf_pre);
+    load_lanes<V>(A.env_c, i, env_c);
+    load_lanes<V>(A.w, i, w);
+    load_lanes<V>(A.nxt_prim, i, np);
+    const unsigned int at = load_flags<V>(A.at_vertex, i), rr = load_flags<V>(A.rr_kill, i);
+    PostRows<V> R;
+    load_post_rows<V>(A, 0, i, R);
+    for (int j = 0; j < V; ++j) {
+      emis[j] = np[j] >= 0 && np[j] < A.n_emissive ? __ldg(A.emissive + np[j]) : 0.0f;
+      total[j] = 0.0f;
+    }
+    // visibility: no hit strictly closer than the light sample
+    for (int k0 = 0; k0 < A.s; k0 += kPostRows) {
+      if (k0 > 0) load_post_rows<V>(A, k0, i, R);
+#pragma unroll
+      for (int u = 0; u < kPostRows; ++u) {
+        if (k0 + u < A.s) {
+          for (int j = 0; j < V; ++j) {
+            float c = R.c[u][j];
+            if (A.sh_t != nullptr && !(R.h[u][j] >= R.t[u][j])) c = 0.0f;
+            total[j] = k0 + u == 0 ? c : total[j] + c;
+          }
+        }
+      }
+    }
+    float l_dir[V], leaf[V];
+    unsigned int terminal = 0u, alive = 0u;
+    for (int j = 0; j < V; ++j) {
+      l_dir[j] = fac[j] * total[j];
+      const bool at_vertex = flag(at, j), rr_kill = flag(rr, j);
+      const bool cont = at_vertex && !rr_kill && np[j] >= 0 && !(emis[j] > 0.5f);
+      // a roulette kill keeps the raw l_dir (Scene.cpp:129,156)
+      const float vertex_leaf =
+          rr_kill ? l_dir[j] : t_clamp(l_dir[j], 0.0f, kClampDirect) + env_c[j];
+      leaf[j] = at_vertex ? vertex_leaf : leaf_pre[j];
+      terminal |= static_cast<unsigned int>(!cont) << (8 * j);
+      alive |= static_cast<unsigned int>(cont) << (8 * j);
+      vertices += at_vertex ? 1u : 0u;
+    }
+    store_lanes<V>(A.l_dir, i, l_dir);
+    store_lanes<V>(A.w_rec, i, w);
+    store_lanes<V>(A.leaf, i, leaf);
+    store_flags<V>(A.terminal, i, terminal);
+    store_flags<V>(A.alive, i, alive);
+  }
+  add_rays(A.rays, vertices, 1 + A.s);
 }
 
 // ---- fold (the reverse clamp scan) ------------------------------------------
@@ -207,21 +377,59 @@ struct FoldArgs {
   int b, depth;
 };
 
-// A terminal record replaces whatever the depths after it folded to, so the
-// lane's value needs only its records up to its first terminal depth f: the
-// thread finds f reading the flags forward, starts from leaf_f (0 where no
-// depth is terminal) and folds the l_dir and w of the depths before f,
-// bitwise the full reverse scan.
+// depths of flags, and then of records, whose loads a thread has in flight
+// at once (4 depths of records measured 6-12% slower)
+constexpr int kFoldDepths = 8;
+
+// A terminal record replaces whatever the depths after it folded to, so a
+// lane's value needs only its records up to its first terminal depth f. One
+// lane a thread. The thread reads its flags kFoldDepths depths at a time,
+// the chunk's loads issued together, takes the first set one from the
+// chunk's bit mask, and reads the next chunk only where none is set. Then it
+// issues the loads of leaf_f (0 where no depth is terminal) and of the l_dir
+// and w of the depths below f, kFoldDepths depths at a time from the top,
+// and folds them in registers: bitwise the full reverse scan, and no record
+// at or after f (but leaf_f) reaches the value.
 __global__ void __launch_bounds__(kWfThreads) fold_kernel(FoldArgs A) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= A.b) return;
-  int f = 0;
-  while (f < A.depth && !A.terminal[static_cast<size_t>(f) * A.b + i]) ++f;
-  float radiance = f < A.depth ? A.leaf[static_cast<size_t>(f) * A.b + i] : 0.0f;
-  for (int dd = f - 1; dd >= 0; --dd) {
-    const size_t q = static_cast<size_t>(dd) * A.b + i;
-    radiance = t_clamp(A.l_dir[q], 0.0f, kClampDirect) +
-               t_clamp(A.w[q] * radiance, 0.0f, kClampIndirect);
+  const size_t b = static_cast<size_t>(A.b);
+  const unsigned char* flags = reinterpret_cast<const unsigned char*>(A.terminal);
+  int f = A.depth;
+  for (int d0 = 0; d0 < A.depth; d0 += kFoldDepths) {
+    unsigned char t[kFoldDepths];
+#pragma unroll
+    for (int u = 0; u < kFoldDepths; ++u) {
+      t[u] = d0 + u < A.depth ? __ldg(flags + static_cast<size_t>(d0 + u) * b + i) : 0;
+    }
+    unsigned int set = 0u;  // bit u: depth d0 + u is terminal
+#pragma unroll
+    for (int u = 0; u < kFoldDepths; ++u) set |= static_cast<unsigned int>(t[u] != 0) << u;
+    if (set != 0u) {
+      f = d0 + __ffs(set) - 1;
+      break;
+    }
+  }
+  float radiance = f < A.depth ? __ldg(A.leaf + static_cast<size_t>(f) * b + i) : 0.0f;
+  for (int hi = f; hi > 0;) {
+    const int lo = max(hi - kFoldDepths, 0);
+    float l[kFoldDepths], w[kFoldDepths];
+#pragma unroll
+    for (int u = 0; u < kFoldDepths; ++u) {
+      if (lo + u < hi) {
+        const size_t q = static_cast<size_t>(lo + u) * b + i;
+        l[u] = __ldg(A.l_dir + q);
+        w[u] = __ldg(A.w + q);
+      }
+    }
+#pragma unroll
+    for (int u = kFoldDepths - 1; u >= 0; --u) {
+      if (lo + u < hi) {
+        radiance = t_clamp(l[u], 0.0f, kClampDirect) +
+                   t_clamp(w[u] * radiance, 0.0f, kClampIndirect);
+      }
+    }
+    hi = lo;
   }
   A.out[i] = radiance;
 }
@@ -229,6 +437,20 @@ __global__ void __launch_bounds__(kWfThreads) fold_kernel(FoldArgs A) {
 inline int wf_blocks(int n) { return (n + kWfThreads - 1) / kWfThreads; }
 
 inline int wf_status() { return static_cast<int>(cudaGetLastError()); }
+
+inline bool aligned(const void* p, unsigned int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0u;
+}
+
+// Launches shade_post's instance V over A.b lanes and reports V in *lanes.
+template <int V>
+int launch_post(const PostArgs& A, void* stream, int* lanes) {
+  constexpr int per_block = kPostThreads * V;
+  shade_post_kernel<V><<<(A.b + per_block - 1) / per_block, kPostThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(A);
+  *lanes = V;
+  return wf_status();
+}
 
 }  // namespace
 
@@ -285,9 +507,12 @@ int mcpt_wf_shade_pre(const void* const* in, void* const* out, const int* ip, co
   return wf_status();
 }
 
+// shade_post takes a sixth argument, where it reports the instance it
+// launched: its lanes a thread, kLanes or 1 (0 for no launch).
 int mcpt_wf_shade_post(const void* const* in, void* const* out, const int* ip, const float* fp,
-                       void* stream) {
+                       void* stream, int* lanes) {
   (void)fp;
+  *lanes = 0;
   PostArgs A;
   A.sh_t = static_cast<const float*>(in[0]);
   A.thr = static_cast<const float*>(in[1]);
@@ -311,8 +536,18 @@ int mcpt_wf_shade_post(const void* const* in, void* const* out, const int* ip, c
   A.n_emissive = ip[2];
   if (A.b < 0 || A.s < 0) return -1;
   if (A.b == 0) return 0;
-  shade_post_kernel<<<wf_blocks(A.b), kWfThreads, 0, static_cast<cudaStream_t>(stream)>>>(A);
-  return wf_status();
+  // the rows read: the lane planes, and the sample rows where S > 0 (thr and
+  // sh_t only with shadows)
+  const bool shadows = A.s > 0 && A.sh_t != nullptr;
+  constexpr unsigned int kF = 4 * kLanes, kB = kLanes;  // an access's bytes
+  const bool vec =
+      A.b % kLanes == 0 && aligned(A.fac, kF) && aligned(A.leaf_pre, kF) &&
+      aligned(A.env_c, kF) && aligned(A.w, kF) && aligned(A.nxt_prim, kF) &&
+      aligned(A.at_vertex, kB) && aligned(A.rr_kill, kB) && (A.s == 0 || aligned(A.contrib, kF)) &&
+      (!shadows || (aligned(A.thr, kF) && aligned(A.sh_t, kF))) && aligned(A.l_dir, kF) &&
+      aligned(A.w_rec, kF) && aligned(A.leaf, kF) && aligned(A.terminal, kB) &&
+      aligned(A.alive, kB);
+  return vec ? launch_post<kLanes>(A, stream, lanes) : launch_post<1>(A, stream, lanes);
 }
 
 int mcpt_wf_fold(const void* const* in, void* const* out, const int* ip, const float* fp,

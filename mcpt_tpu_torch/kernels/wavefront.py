@@ -19,7 +19,11 @@ with. The route `"plain (autograd)"` is autograd through the plain forward
 ops, the tests' oracle of the hand-written reverse modes, taken only inside
 `with autograd_oracle():` (or by an explicit `route=`). `launches[name]`
 counts the kernel launches, and `calls[(name, route)]` every call by route,
-which is where a render's route is read.
+which is where a render's route is read. `shade_post` comes in two
+instances, `VECTOR_LANES` lanes a thread with one vector access a plane or
+1 lane a thread, which its C entry picks by the lane count and the rows'
+alignment and reports; `by_instance[(kernel, lanes)]` counts its launches
+by instance.
 """
 
 import collections
@@ -40,8 +44,16 @@ BWD_KERNELS = ("shade_pre_bwd", "shade_post_bwd", "fold_bwd")
 ROUTES = ("cuda", "plain", "plain (autograd)")
 # the pack tensors a gradient may reach (`diff.apply_params` rebuilds them)
 TRAINABLE = ("mat_fat", "emt_fat")
-# kernel launches by name, and calls by (name, route)
+# the kernels whose C entries report the instance they launched (its lanes
+# a thread, in a sixth argument), and the lanes a thread of their vector
+# instance: csrc/wavefront.cu's kLanes, repeated here for the checks that
+# predict the instance (chip_smoke.edge_instance), which fail if the two
+# drift apart; the other instance takes 1
+INSTANCED = ("shade_post",)
+VECTOR_LANES = 2
+# kernel launches by name, by instance, and calls by (name, route)
 launches = collections.Counter()
+by_instance = collections.Counter()
 calls = collections.Counter()
 _plain = False  # set inside `plain_route()`
 _oracle = False  # set inside `autograd_oracle()`
@@ -51,7 +63,8 @@ def _bind(names):
     def bind(lib):
         for name in names:
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 5
+            fn.argtypes = [ctypes.c_void_p] * (
+                6 if name.removeprefix("mcpt_wf_") in INSTANCED else 5)
             fn.restype = ctypes.c_int
 
     return bind
@@ -68,6 +81,7 @@ def load_library(source=SOURCE):
 
 def reset_counts():
     launches.clear()
+    by_instance.clear()
     calls.clear()
 
 
@@ -151,24 +165,30 @@ def _ptr(name, x, dev, dtype, shape=None):
 def _launch(fn_name, kernel, dev, ins, outs, ipar, fpar):
     """One call of the C entry `fn_name` on `dev`'s current stream; counts
     a launch of `kernel` where the entry made one (it makes none for zero
-    lanes). A refused launch raises."""
+    lanes), and of the instance it reports (`INSTANCED`). A refused launch
+    raises."""
     lib = load_library(BWD_SOURCE if kernel in BWD_KERNELS else SOURCE)
     in_p = (ctypes.c_void_p * len(ins))(*ins)
     out_p = (ctypes.c_void_p * len(outs))(*outs)
     ip = (ctypes.c_int * len(ipar))(*(int(v) for v in ipar))
     fp = (ctypes.c_float * max(len(fpar), 1))(*(float(v) for v in fpar))
+    instanced = kernel in INSTANCED
+    lanes = ctypes.c_int(0)
+    extra = (ctypes.byref(lanes),) if instanced else ()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = getattr(lib, fn_name)(ctypes.cast(in_p, ctypes.c_void_p),
                                        ctypes.cast(out_p, ctypes.c_void_p),
                                        ctypes.cast(ip, ctypes.c_void_p),
-                                       ctypes.cast(fp, ctypes.c_void_p), stream)
+                                       ctypes.cast(fp, ctypes.c_void_p), stream, *extra)
     if status < 0:
         raise RuntimeError(f"{kernel}: the kernel refuses its arguments ({status})")
     if status > 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {status}")
     if ipar[0] > 0:
         launches[kernel] += 1
+    if lanes.value:
+        by_instance[kernel, lanes.value] += 1
 
 
 def _key_ptr(key, dev):

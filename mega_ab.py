@@ -50,7 +50,19 @@ a tree cannot be loaded beside another):
   with the L2 evicted before each launch (the median of 20, `cold_ms`) and
   back to back (the median of 5 means of 10). shade_pre's outputs must
   equal the parent's; shade_pre_bwd's gradients may differ from another
-  design's in their last bits, so only its own plain version holds it.
+  design's in their last bits, so only its own plain version holds it;
+- `shade_post`, `fold`: the bounce's second half at the same two shapes'
+  depth-0 bounce (the tree's shade_pre, the fan's t and the next hit), and
+  the fold on the records of their 8 bounces traced by the tree's kernels:
+  each tree's sources built (ptxas lines printed), the kernel bitwise
+  against the tree's own plain version (shade_post's records row, next
+  alive and ray count; the radiance), its outputs equal to the parent's,
+  then timed cold and back to back as the vertex kernels are; the
+  instance a tree's C entry reports it launched is printed where it
+  reports one. shade_post also runs on the tile's first 196,605 lanes (an
+  odd count: the scalar instance, its sample rows copied off the 8-byte
+  grid), and each tree's wrapper's host time a call is timed at 0 lanes
+  (the checks and the C entry, which launches nothing: `host_us`).
 Each intersector call is timed with CUDA events (the median of 9 means of
 40 launches, queued behind a spin of the device: `queued_ms`), each render by the host's wall clock after a warm-up render
 at spp 1; on a tree's first turn the spp 1 render runs under
@@ -99,9 +111,11 @@ ROOT = Path(__file__).resolve().parent
 AB_DIR = kbuild.BUILD_DIR / "ab"
 SOURCES = {True: ("megakernel.cu", "mcpt_mega_trace"),
            False: ("mega_lockstep.cu", "mcpt_mega_lockstep")}
-WAVEFRONT = ("wavefront DEMO", "wavefront DEMO + soldier", "shade_pre", "shade_pre_bwd")
-# the vertex kernels' shapes: the DEMO's depth-0 vertices of a 256x256 tile
-# (196,608 lanes) and of the 384x384 train step (442,368 lanes)
+WAVEFRONT = ("wavefront DEMO", "wavefront DEMO + soldier", "shade_pre", "shade_pre_bwd",
+             "shade_post", "fold")
+# the vertex kernels' and shade_post's and fold's shapes: the DEMO's depth-0
+# vertices of a 256x256 tile (196,608 lanes) and of the 384x384 train step
+# (442,368 lanes)
 VERTEX_SIDES = (256, 384)
 
 
@@ -427,6 +441,198 @@ def vertex_turn(out, shape):
     Path(f"{out}.json").write_text(json.dumps(res))
 
 
+def post_fold_turn(out, shape):
+    """One turn of `shade_post` or `fold` on the tree first on the import
+    path, at each of VERTEX_SIDES: the DEMO's lanes traced by the tree's
+    kernels for up to 8 bounces (shade_pre, the intersector's fan and
+    nearest query, shade_post), then shade_post on the depth-0 bounce's
+    inputs into fresh records, or the fold on the traced records, bitwise
+    against the tree's plain version, its outputs to `out`.npz (held
+    against the parent's), timed cold (`cold_ms`) and back to back
+    (`queued_ms`); shade_post also on the tile's first b - 3 lanes (odd),
+    and the wrapper's host time a call at 0 lanes (`host_us`)."""
+    import numpy as np
+
+    from mcpt_tpu_torch import prng
+    from mcpt_tpu_torch.intersect import intersect_c, occlude_t_c
+    from mcpt_tpu_torch.kernels import wavefront as wf
+    from mcpt_tpu_torch.kernels import wavefront_ref as wfr
+    from mcpt_tpu_torch.parallel import replicate_pack
+
+    t0 = time.monotonic()
+    kbuild.build(wf.SOURCE, True, summary=lambda log: [
+        f"[ptxas] {wf.SOURCE.name} {line}" for line in kbuild.ptxas_lines(log)])
+    print(f"[build] {wf.SOURCE.name} {time.monotonic() - t0:.1f} s", flush=True)
+    scene = demo_scene()
+    (pack, method), = replicate_pack(scene.compile(), ["cuda"]).values()
+    res, answers = {"modes": {}}, {}
+    for side in VERTEX_SIDES:
+        cam = dataclasses.replace(scene.camera, width=side, height=side)
+        key = prng.key(21, "cuda")
+        o, d = wf.camera_rays(cam, torch.arange(side * side, device="cuda"), key, 3)
+        b, s = o[0].numel(), wfr.n_samples(pack)
+        chan = torch.arange(b, device="cuda") % 3
+        lam = torch.tensor([0.7, 0.5461, 0.4358], device="cuda")[chan]
+        alive = torch.ones(b, dtype=torch.bool, device="cuda")
+        hit = intersect_c(pack, o, d, method=method)
+        rec = wfr.new_records(8, b, "cuda")
+        rays = torch.zeros((), dtype=torch.int64, device="cuda")
+        for depth in range(8):
+            pre = wf.shade_pre(pack, o, d, hit, alive, depth, key, lam, chan)
+            sh_t = occlude_t_c(pack, pre.p_dl, pre.ws, method=method, fan=s)
+            nxt = intersect_c(pack, pre.p_new, pre.wi, method=method)
+            if depth == 0:
+                post_args = (pack, pre, sh_t, nxt.prim)
+            alive = wf.shade_post(pack, pre, sh_t, nxt.prim, rec, depth, rays)
+            o, d, hit = pre.p_new, pre.wi, nxt
+            if not bool(alive.any()):
+                break
+        checked = {}
+        if shape == "shade_post":
+            cases = [(b, post_args)]
+            if side == VERTEX_SIDES[0]:
+                cases.append((b - 3, post_lanes(post_args, s, b - 3)))
+            for n, args in cases:
+                runs = []
+                for post in (wf.shade_post, wfr.shade_post):
+                    row, cnt = wfr.new_records(1, n, "cuda"), torch.zeros_like(rays)
+                    runs.append([post(*args, row, 0, cnt), *(x[0] for x in row), cnt])
+                scratch, cnt = wfr.new_records(1, n, "cuda"), torch.zeros_like(rays)
+                checked[n] = (runs, ("alive", *wfr.Records._fields, "rays"),
+                              lambda args=args, scratch=scratch, cnt=cnt:
+                              wf.shade_post(*args, scratch, 0, cnt))
+            empty, none = wfr.new_records(1, 0, "cuda"), post_lanes(post_args, s, 0)
+            idle = lambda: wf.shade_post(*none, empty, 0, rays)
+        else:
+            checked[b] = (([wf.fold(rec)], [wfr.fold(rec)]), ("radiance",), lambda: wf.fold(rec))
+            empty = wfr.new_records(8, 0, "cuda")
+            idle = lambda: wf.fold(empty)
+        timed = {}
+        for n, ((got, want), names, fn) in checked.items():
+            for name, g, w in zip(names, got, want):
+                view = (lambda x: x.view(torch.int32)) if g.dtype == torch.float32 \
+                    else (lambda x: x)
+                if not torch.equal(view(g), view(w)):
+                    raise AssertionError(f"{shape} at {n} lanes: {name} differs from its plain "
+                                         f"version on {int((view(g) != view(w)).sum())} entries")
+                answers[f"{n}_{name}"] = g.cpu().numpy()
+            torch.cuda.synchronize()
+            instance = {f"{k[0]}<{k[1]}>": v for k, v in getattr(wf, "by_instance", {}).items()
+                        if k[0] == shape}
+            res["modes"][f"{n} lanes"] = ("bitwise equal to its plain version"
+                                          + (f", instances {instance}" if instance else ""))
+            timed[f"{n} lanes"] = fn
+        if side == VERTEX_SIDES[0]:
+            timed.update(post_fold_scaling(shape, b, s, post_args, rec))
+            res["host_us"] = host_us(idle)
+        for label, f in timed.items():
+            res["modes"].setdefault(label, "timed")
+            cold_ms(f, 5)  # warm: the host's first calls, the card's clocks
+            res[f"{label}_ms"] = cold_ms(f)
+            res[f"{label} warm_ms"] = sorted(queued_ms(f, 10) for _ in range(5))[2]
+    np.savez(f"{out}.npz", **answers)
+    Path(f"{out}.json").write_text(json.dumps(res))
+
+
+def post_lanes(post_args, s, n):
+    """shade_post's arguments (`post_args`, at s light samples) cut to
+    their first n lanes: the sample rows copied to n lanes a row, so that
+    row k starts at k·n·4 bytes, as the tracer lays them out for n lanes."""
+    pack, pre, sh_t, prim = post_args
+    b = pre.fac.shape[0]
+    rows = lambda x: x.view(s, b)[:, :n].contiguous().view(-1)
+    pre = pre._replace(**{f: rows(getattr(pre, f)) for f in ("thr", "contrib")},
+                       **{f: getattr(pre, f)[:n] for f in
+                          ("fac", "leaf_pre", "env_c", "w", "at_vertex", "rr_kill")})
+    return pack, pre, None if sh_t is None else rows(sh_t), prim[:n]
+
+
+def host_us(fn, calls=5000, reps=7):
+    """The host's microseconds a call of fn (a wrapper called at 0 lanes,
+    which launches nothing): the median of `reps` means of `calls` calls."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    return sorted(times)[reps // 2]
+
+
+def post_fold_scaling(shape, b, s, post_args, rec):
+    """What bounds `shade_post` or `fold` at the tile's shape, by its time
+    at other lane counts on the same inputs: the first 4 lanes (one block:
+    the launch and its chain of dependent reads), the tile's b lanes
+    repeated 4 and 16 times (the slope: the bytes' rate), and a library
+    sum reading as many bytes as the kernel moves at b lanes (what one
+    launch that streams those bytes takes, timed the same way; for the
+    fold, the bytes of the sectors it touches, `fold_sector_bytes`), and
+    the two CUDA events with nothing between them."""
+    from mcpt_tpu_torch.kernels import wavefront as wf
+    from mcpt_tpu_torch.kernels import wavefront_ref as wfr
+
+    def lanes(x, k, per=1):  # each of the `per` planes of x: its first 4 lanes, or k copies
+        x = x.reshape(per, -1)
+        return (x[:, :4] if k == 0 else x.repeat(1, k)).reshape(-1).contiguous()
+
+    def at(k):
+        n = 4 if k == 0 else b * k
+        if shape == "fold":
+            rk = wfr.Records(*(x[:, :4].contiguous() if k == 0 else x.repeat(1, k)
+                               for x in rec))
+            return n, lambda: wf.fold(rk)
+        pack, pre, sh_t, prim = post_args
+        pk = pre._replace(**{f: lanes(getattr(pre, f), k, s) for f in ("thr", "contrib")},
+                          **{f: lanes(getattr(pre, f), k) for f in
+                             ("fac", "leaf_pre", "env_c", "w", "at_vertex", "rr_kill")})
+        sk, nk = lanes(sh_t, k, s), lanes(prim, k)
+        row, cnt = wfr.new_records(1, n, "cuda"), torch.zeros((), dtype=torch.int64,
+                                                               device="cuda")
+        return n, lambda: wf.shade_post(pack, pk, sk, nk, row, 0, cnt)
+
+    out = {}
+    for k in (0, 4, 16):
+        n, f = at(k)
+        out[f"{n} lanes" + (f" (the tile's x{k})" if k else "")] = f
+    if shape == "shade_post":
+        nbytes = b * (12 * s + 16 + 2 + 4 + 12 + 2)
+    else:
+        term = rec.terminal
+        depth = term.shape[0]
+        first = torch.where(term.any(0), term.to(torch.int32).argmax(0), depth).to(torch.int64)
+        needed = (int(torch.clamp(first + 1, max=depth).sum()) + 4 * int((first < depth).sum())
+                  + 8 * int(first.sum()) + 4 * b)
+        nbytes = fold_sector_bytes(term)  # what the DRAM moves for it
+    buf = torch.ones(nbytes // 4, dtype=torch.float32, device="cuda")
+    what = "" if shape == "shade_post" else (f", the fold's 32-byte sectors (its bound counts "
+                                             f"{needed / 1e6:.2f} MB)")
+    out[f"library sum of {nbytes / 1e6:.2f} MB{what}"] = lambda: buf.sum()
+    out["no launch (the two events alone)"] = lambda: None
+    return out
+
+
+def fold_sector_bytes(term):
+    """The bytes of the 32-byte sectors that the fold reads and writes on
+    records with these terminal flags (D, B), each sector once: at each
+    depth d the flags' sector (32 lanes) where a lane of it still searches
+    at d's chunk of 8 depths, the leaf's sector (8 lanes) where a lane of it
+    ends at d, the l_dir and w sectors where a lane of it folds d, and the
+    output. The bound counts only the bytes each lane needs; a sector is
+    moved whole for any lane of it."""
+    depth, b = term.shape
+    first = torch.where(term.any(0), term.to(torch.int32).argmax(0), depth)
+    d = torch.arange(depth, device=term.device)[:, None]
+
+    def sectors(mask, lanes):
+        pad = -b % lanes
+        m = torch.nn.functional.pad(mask.to(torch.uint8), (0, pad)).reshape(depth, -1, lanes)
+        return 32 * int(m.any(-1).sum())
+
+    return (sectors(first >= d - d % 8, 32) + sectors(first == d, 8)
+            + 2 * sectors(first > d, 8) + 4 * b)
+
+
 def wavefront_turn(out, shape, profile, sass=None):
     """One turn of a wavefront shape in this process, on the tree first on
     the import path: writes its answers and image to `out`.npz and its
@@ -442,6 +648,8 @@ def wavefront_turn(out, shape, profile, sass=None):
 
     if shape in ("shade_pre", "shade_pre_bwd"):
         return vertex_turn(out, shape)
+    if shape in ("shade_post", "fold"):
+        return post_fold_turn(out, shape)
     cam = dataclasses.replace(demo_scene().camera, width=1920, height=1080)
     if shape == "wavefront DEMO":
         scene = demo_scene()
@@ -564,6 +772,8 @@ def wavefront_ab(roots, shapes, rounds, result, sass=None):
                     else:
                         timed += ", back to back " + ", ".join(
                             f"{k} {res[f'{k} warm_ms']:.4f} ms" for k in res["modes"])
+                    if "host_us" in res:
+                        timed += f", the wrapper at 0 lanes {res['host_us']:.2f} us a call (host)"
                     print(f"[ab] {t} {shape} turn {r + 1}: {timed}; "
                           f"{time.monotonic() - t0:.1f} s; bitwise equal to the parent's",
                           flush=True)
@@ -590,6 +800,9 @@ def wavefront_ab(roots, shapes, rounds, result, sass=None):
                         label = "render spp 8 wall (s)" if k == "render_wall" else k
                         result["trees"][t]["median_ms"][f"{shape} {label}"] = sorted(
                             x[key] for x in turns)[len(turns) // 2]
+                    if "host_us" in turns[0]:
+                        result["trees"][t]["median_ms"][f"{shape} host us a call, 0 lanes"] = \
+                            sorted(x["host_us"] for x in turns)[len(turns) // 2]
 
 
 def main():

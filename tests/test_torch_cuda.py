@@ -24,7 +24,10 @@ Trees deeper than the walks' local stack take the deep instances, bitwise
 their plain versions; the wavefront's backward kernels
 (`csrc/wavefront_bwd.cu`) equal their plain versions bitwise, the train
 step runs them (no `plain (autograd)` call), and its gradients repeat bit
-for bit.
+for bit. shade_post and the fold equal their plain versions bitwise at their
+edges (odd lane counts, views off the vector's grid, 0 to 40 light samples,
+adversarial records), shade_post through the instance the lane count and
+the alignment call for.
 """
 
 import ctypes
@@ -1033,6 +1036,48 @@ def test_wavefront_kernels_bitwise(cuda_card, tmp_path, name):
                                   early_exit=False)
     assert torch.equal(_bits(r_k), _bits(rad)) and torch.equal(_bits(r_k), _bits(r_p))
     assert int(st_k.rays) == int(st_p.rays) == int(rays) + b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,shadows", [(0, True), (1, True), (4, True), (40, True), (4, False)])
+@pytest.mark.parametrize("b,offset", [(1, 0), (3, 0), (4, 0), (5, 0), (6, 0), (4096, 0),
+                                      (4097, 0), (4096, 1)])
+def test_shade_post_edges_bitwise(cuda_card, b, offset, s, shadows):
+    """shade_post on the card against its plain version on adversarial
+    inputs (`chip_smoke.post_case`: NaN, ±inf, ±0 and the clamp's edges,
+    shadow t equal to its threshold) at ragged lane counts, 0 to 40 light
+    samples and with shadows off, writing row 2 of three records: every
+    record row, the next alive and the ray count bitwise; the vector
+    instance where its lanes divide b and the planes start on its grid, the
+    scalar one elsewhere (`chip_smoke.edge_instance`)."""
+    import collections
+
+    import chip_smoke as cs
+    from mcpt_tpu_torch.kernels import wavefront as WF
+
+    was = collections.Counter(WF.by_instance)
+    for name, got, want in cs.post_edge(b, s, 10 * b + s, "cuda", shadows, offset):
+        assert torch.equal(_bits(got), _bits(want)), name
+    assert WF.by_instance - was == collections.Counter({cs.edge_instance(b, offset): 1})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 8, 20])
+@pytest.mark.parametrize("b,offset", [(1, 0), (3, 0), (4, 0), (5, 0), (6, 0), (4096, 0),
+                                      (4097, 0), (4096, 1)])
+def test_fold_adversarial_records_bitwise(cuda_card, b, offset, depth):
+    """The fold on the card against its plain version on adversarial
+    records (`chip_smoke.fold_records`: the first terminal depth at every
+    depth and none, NaN, ±inf and ±1e30 after it, the clamps' edges
+    before it), bitwise, in one launch."""
+    import chip_smoke as cs
+    from mcpt_tpu_torch.kernels import wavefront as WF
+
+    was = WF.launches["fold"]
+    for name, got, want in cs.fold_edge(depth, b, 10 * b + depth, "cuda", offset):
+        assert torch.equal(_bits(got), _bits(want)), name
+        assert bool(torch.isfinite(got).all())
+    assert WF.launches["fold"] == was + 1
 
 
 @pytest.mark.gpu

@@ -31,7 +31,7 @@ import mcpt_tpu.builtin_scenes as JB
 from mcpt_tpu.integrator import trace_paths as jax_trace_paths
 
 import mcpt_tpu_torch.intersect as I
-from chip_smoke import cornell_x4, write_lathe_obj
+from chip_smoke import EDGE_DEPTHS, cornell_x4, fold_records, write_lathe_obj
 from mcpt_tpu_torch import integrator, prng
 from mcpt_tpu_torch.bsdf import (
     eval_bsdf_c,
@@ -376,6 +376,77 @@ def test_halves_one_bounce_fields():
     assert torch.equal(rec.terminal[1], ~cont)
     assert bool(rec.terminal[0].all() and rec.terminal[2].all())
     assert float(rec.leaf[0].abs().sum()) == 0.0 and float(rec.leaf[2].abs().sum()) == 0.0
+
+
+def test_halves_ragged_lanes_bitwise_to_the_frozen_bounce():
+    """At an odd lane count (15: on the card, shade_post's scalar
+    instance, whose record rows at depth > 0 start off the vector's 8-byte
+    grid), shade_post through its wrapper writes row 1 of three records
+    bitwise as the pre-split integrator's bounce makes it, leaves rows 0
+    and 2 as they were and counts its rays."""
+    sc = demo_scene()
+    pack = pack_to(sc.compile(), "cpu")
+    o, d, lam, chan = _lanes(sc, 5, 1, 4)
+    b, s = o[0].shape[0], pack.n_dir_sample
+    assert b % WF.VECTOR_LANES != 0
+    hit = integrator._detach_hit(intersect_c(pack, o, d, method="dense"))
+    alive = torch.ones(b, dtype=torch.bool)
+    key = prng.key(3)
+    pre = WF.shade_pre(pack, o, d, hit, alive, 1, key, lam, chan)
+    sh_t = occlude_t_c(pack, pre.p_dl, pre.ws, method="dense", fan=s)
+    nxt = integrator._detach_hit(intersect_c(pack, pre.p_new, pre.wi, method="dense"))
+    rec = ref.new_records(3, b, "cpu")
+    rays = torch.full((), 5, dtype=torch.int64)
+    cont = WF.shade_post(pack, pre, sh_t, nxt.prim, rec, 1, rays)
+    (_, _, _, want_cont), want = _frozen_bounce(pack, o, d, hit, alive, 1, key, lam, chan,
+                                                "dense")
+    assert torch.equal(cont, want_cont)
+    for k, f in enumerate(ref.Records._fields):
+        assert torch.equal(getattr(rec, f)[1].view(torch.int32 if k < 3 else torch.bool),
+                           want[k].view(torch.int32 if k < 3 else torch.bool)), f
+    fresh = ref.new_records(3, b, "cpu")
+    assert all(torch.equal(getattr(rec, f)[r], getattr(fresh, f)[r])
+               for f in ref.Records._fields for r in (0, 2))
+    assert int(rays) == 5 + int(want[4])
+
+
+def _jax_fold(rec):
+    """The reverse clamp scan of mcpt_tpu/integrator.py:347-360, as it
+    writes it (a closure inside `trace_paths_c` there)."""
+    from mcpt_tpu.constants import CLAMP_DIRECT as J_DIRECT
+    from mcpt_tpu.constants import CLAMP_INDIRECT as J_INDIRECT
+
+    def fold(l_next, r):
+        l_dir, w, leaf, terminal = r
+        l_here = jnp.where(
+            terminal,
+            leaf,
+            jnp.clip(l_dir, 0.0, J_DIRECT)
+            + jnp.clip(w * l_next, 0.0, J_INDIRECT),
+        )
+        return l_here, None
+
+    b = rec["leaf"].shape[1]
+    radiance, _ = jax.lax.scan(
+        fold, jnp.zeros(b, jnp.float32),
+        tuple(jnp.asarray(rec[k]) for k in ("l_dir", "w", "leaf", "terminal")), reverse=True)
+    return np.asarray(radiance)
+
+
+@pytest.mark.parametrize("depth", EDGE_DEPTHS)
+@pytest.mark.parametrize("b", [1, 3, 5, 4097])
+def test_fold_bitwise_to_jax_on_adversarial_records(depth, b):
+    """`wavefront_ref.fold`, which the card's fold is held to, equals JAX's
+    reverse scan bitwise on adversarial records (`chip_smoke.fold_records`:
+    the first terminal depth at every depth and none, NaN, ±inf and ±1e30
+    after it, the clamps' edges before it); nothing after a lane's first
+    terminal depth reaches its value."""
+    rec = fold_records(depth, b, 100 * depth + b)
+    got = ref.fold(ref.Records(*(torch.from_numpy(rec[k]) for k in ref.Records._fields)))
+    want = _jax_fold(rec)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    assert np.isfinite(want).all()
 
 
 @pytest.mark.parametrize("name,method", [("demo sky", "dense"), ("demo emissive sphere", "dense")])
