@@ -93,15 +93,23 @@ raises, so the script exits nonzero and prints no result line.
    alone on the component planes, and `intersect_tris` on (B, 3) rows
    (its two transposing copies included) checked and timed beside it
 11b. (d-deep) trees deeper than the walks' local stack: the x4 box with its
-   tree replaced by chains of BVH_STACK + 1 and 64 levels (`chain_pack`),
-   through the deep instances `mega_regen_deep<4, false>`,
-   `mega_lockstep_deep<4>` and the generic ones at 7 light samples, and
-   the 64-level chain under the sky through `mega_regen_deep<4, true>` and
+   tree replaced by the chain of BVH_STACK + 1 levels, whose walks hold one
+   stack entry, and by interior-first chains of 48 and 64 levels, whose
+   walks push a leaf a level (47 and 63 entries: `chain_pack`), through the
+   deep instances `mega_regen_deep<4, false>`, `mega_lockstep_deep<4>` and
+   the generic ones at 7 light samples, and the 64-level interior-first
+   chain under the sky through `mega_regen_deep<4, true>` and
    `mega_regen_deep<-16, true>` (64x48, spp 2, mb 6), each bitwise against
-   its plain version and against the box on its own shallow tree (ray
-   counts and radiance equal on every lane); K3's deep walk, nearest and
-   occlusion, on 196,608 rays bitwise against its plain version;
-   `render_mega` of the 64-level chain (both kernels, at 4 and 7 light
+   its plain version, against the box on its own shallow tree and (the
+   interior-first chains) against the chain of as many levels (ray counts
+   and radiance equal on every lane); the stack's cost: `mega_regen_deep<4,
+   false>` and `mega_lockstep_deep<4>` timed at a launch that fills the card
+   (DEEP_LANES lanes of the 1080p box, spp 1, mb 8) on the 64-level chain
+   and interior-first chain, which hold the same leaves, bitwise
+   against the plain version on every DEEP_STRIDE-th lane, whose tally,
+   scaled, gives the bound; K3's deep walk, nearest and occlusion, on
+   196,608 rays on both, bitwise against its plain version; `render_mega`
+   of the 64-level interior-first chain (both kernels, at 4 and 7 light
    samples, and the regenerating kernel under the sky: each deep instance
    must launch) and `render_radiance` with method auto, which must take the
    deep walk
@@ -153,7 +161,14 @@ raises, so the script exits nonzero and prints no result line.
    none), bitwise against the plain versions with the ray count; both
    instances of shade_post (`wavefront.VECTOR_LANES` lanes a thread, and
    1) must launch, each where the lane count and the alignment say, and
-   the fold once a case
+   the fold once a case. Before them the camera rays at theirs
+   (`camera_edges`): pixel counts 1, 3, 4, 5, 43, 256, 257, 4,096, 4,099, a
+   tile's ids at an offset, ids to both sides of 2^31 and below 0, a view
+   of the ids off the 16-byte grid, at 1 and 3 lanes a pixel, pinhole and
+   thin lens, bitwise, each through the instance the lane count calls for
+   (`wavefront.CAMERA_VECTOR` floats a store, or 1), both of which must
+   launch. The camera's bound counts its work a pixel (`OPS_PER['camera']`
+   and 2 draws, 4 through a thin lens), whose ray its lanes repeat
 13. (h) the lockstep kernel K1b (`csrc/mega_lockstep.cu`, `render_mega(...,
    regen=False)`) and the lane-strided sharded render:
    (h1) `mega_lockstep<4, false>` against its plain version on the card on
@@ -349,6 +364,7 @@ OPS_PER = {
     "woop_origin": 18, "sph_origin": 10,
     "env": 60, "camera": 40, "vertex": 800,
     "row": 0,  # a BVH row load: bytes, which `bound` counts once per table
+    "stack": 0,  # the walks' stack high-water mark, no operation
 }
 PEAK_F32 = 67e12  # float32 outside the tensor cores, H100 SXM
 # 32-bit integer operations, H100 SXM: 64 INT32 lanes an SM (add, logical,
@@ -744,13 +760,27 @@ def cornell_x4(sky=True):
     return sc
 
 
-def chain_pack(levels, sphere_leaves=False, sky=False):
+def chain_pack(levels, sphere_leaves=False, sky=False, interior_first=False):
     """The x4 box's pack (under the sky if `sky`) with its flat BVH replaced
-    by a chain of `levels` levels: interior node j has a leaf and interior
-    node j + 1 as children (DFS preorder: interior nodes at even, leaves at
-    odd indices, the last leaf last). The triangles are spread over the
-    leaves, or with `sphere_leaves` over every other leaf; leaves left over
-    hold a sphere only. Every box is the scene's, so every walk is exact."""
+    by a chain of `levels` levels, k = levels - 1 interior nodes in DFS
+    preorder with their miss links. By default interior node j has a leaf
+    as child 0 and interior node j + 1 as child 1 (interior nodes at even,
+    leaves at odd indices, the last leaf last): the near-first walks, which
+    take child 0 on equal entry t, push the interior child, test the leaf
+    and pop, so their stack never holds more than one entry. With
+    `interior_first` child 0 is interior node j + 1 and child 1 the leaf
+    (interior nodes 0 .. k - 1, then the last one's two leaves, then the
+    leaves of k - 2 down to 0): the walks push one leaf a level and their
+    stack reaches k entries. The triangles are spread over the leaves in
+    DFS order, or with `sphere_leaves` over every other leaf, whose others
+    hold a sphere only (an empty child, which no walk enters or pushes); a
+    leaf left without a triangle where there are more leaves than
+    triangles takes one again (a repeat has its row, so the tie rule keeps
+    the first hit), so that both forms hold the same leaves. The last leaf
+    also holds every sphere, as the box's own tree holds them in its
+    leaves: the kernels' walks test spheres apart, but the `bvh` method
+    finds them through the leaves. Every box is the scene's, so every walk
+    is exact and a nearest walk visits every row and leaf."""
     pack = cornell_x4(sky=sky).compile(cluster_threshold=8)
     prims = np.asarray(pack.bvh_prims)
     tris = np.sort(prims[(prims >= 0) & (prims < pack.t_pad)])
@@ -758,37 +788,61 @@ def chain_pack(levels, sphere_leaves=False, sky=False):
     slots = range(0, k + 1, 2 if sphere_leaves else 1)
     groups = [np.array([pack.t_pad])] * (k + 1)
     for j, g in zip(slots, np.array_split(tris, len(slots))):
-        groups[j] = g if g.size else groups[j]
+        groups[j] = g if g.size else tris[[j % tris.size]]
+    groups[k] = np.union1d(groups[k], prims[prims >= pack.t_pad])  # the spheres
     n = 2 * k + 1
-    leaf_ix = [2 * j + 1 for j in range(k)] + [2 * k]
+    ix = np.arange(n)
+    if interior_first:
+        leaf_ix = list(range(k, n))
+        # interior j > 0 ends where the leaf of j - 1 (at 2k - j + 1) starts;
+        # leaf i is followed by leaf i + 1; the root and the last leaf end the walk
+        miss = np.where(ix < k, 2 * k - ix + 1, ix + 1)
+        miss[0] = miss[n - 1] = -1
+    else:
+        leaf_ix = [2 * j + 1 for j in range(k)] + [2 * k]
+        miss = np.where(ix % 2 == 1, ix + 1, -1)
     start = np.full(n, -1, np.int32)
     count = np.zeros(n, np.int32)
     start[leaf_ix] = np.cumsum([0] + [g.size for g in groups[:-1]])
     count[leaf_ix] = [g.size for g in groups]
-    miss = np.where(np.arange(n) % 2 == 1, np.arange(n) + 1, -1).astype(np.int32)
     lo = np.minimum(np.asarray(pack.bvh_min).min(0), np.asarray(pack.bvh_max).min(0))
     hi = np.maximum(np.asarray(pack.bvh_min).max(0), np.asarray(pack.bvh_max).max(0))
     return dataclasses.replace(
         pack, bvh_min=np.tile(lo, (n, 1)).astype(np.float32),
-        bvh_max=np.tile(hi, (n, 1)).astype(np.float32), bvh_miss=miss,
+        bvh_max=np.tile(hi, (n, 1)).astype(np.float32), bvh_miss=miss.astype(np.int32),
         bvh_leaf_start=start, bvh_leaf_count=count,
         bvh_prims=np.concatenate(groups).astype(np.int32),
     )
 
 
+# (d-deep): the deep megakernels' timed launch, the first block of a 1080p
+# render of the x4 box, and the plain version's stride in it
+DEEP_LANES = 2**20
+DEEP_STRIDE = 256
+
+
 def deep_trees():
-    """(d-deep): trees of BVH_STACK + 1 and 64 levels (`chain_pack`, the x4
-    box's triangles on a chain), whose walks keep their stack in device
-    memory: the deep megakernel instances (regen and lockstep, S = 4 and
-    the generic light-count instance at 7 samples; the regen kernel's env
-    instances on the 64-level chain under the sky) against their plain
-    versions bitwise, and against the same box on its own shallow tree
-    (ray counts and radiance equal on every lane: both walks are exact);
-    K3's deep walk, nearest and occlusion, bitwise against its plain
-    version; then each deep instance's main path (`render_mega` of the
-    64-level chain, and the wavefront's `render_radiance` with method auto,
-    which must take the deep walk). Returns {row name: (launches,
-    measurements)} for the kernels line."""
+    """(d-deep): trees deeper than the walks' local stack, whose walks keep
+    their stack in device memory. The chain of BVH_STACK + 1 levels and the
+    interior-first chain of 48 and 64 levels (`chain_pack`; its walks' stack
+    reaches levels - 1 entries), without and (64) with the sky: the deep
+    megakernel instances (regen and lockstep, S = 4 and the generic
+    light-count instance at 7 samples; the env instances under the sky)
+    against their plain versions bitwise at 64x48, spp 2, mb 6, and against
+    the same box on its own shallow tree and, the interior-first chains, on
+    the chain of as many levels (ray counts and radiance equal on every
+    lane: every walk is exact). Then what the stack costs: on the 64-level
+    chain and interior-first chain, which hold the same leaves,
+    `mega_regen_deep<4, false>` and `mega_lockstep_deep<4>` timed at a
+    launch that fills the card (DEEP_LANES lanes of the 1080p box, spp 1,
+    mb 8), bitwise against the plain version on every DEEP_STRIDE-th lane,
+    whose tally (scaled) gives the bound; K3's deep walk, nearest and
+    occlusion, on 196,608 rays, bitwise against its plain version. Then
+    each deep instance's main path (`render_mega` of the 64-level
+    interior-first chain, and the wavefront's `render_radiance` with method
+    auto, which must take the deep walk). Returns {row name: (launches,
+    measurements)} for the kernels line: the megakernels' S = 4 rows from
+    the full launch on the interior-first chain."""
     t0 = time.monotonic()
     sc = cornell_x4(sky=False)
     cam = dataclasses.replace(sc.camera, width=64, height=48)
@@ -799,31 +853,83 @@ def deep_trees():
     at = {}
     # the env instances under the sky: the regenerating kernel only (the
     # lockstep kernel takes no env map)
-    for sky, levels in ((False, BVH_STACK + 1), (False, 64), (True, 64)):
-        deep = SceneTables.from_pack(chain_pack(levels, sky=sky), device=DEV)
+    for form, levels, sky in (("chain", BVH_STACK + 1, False), ("interior-first", 48, False),
+                              ("interior-first", 64, False), ("interior-first", 64, True)):
+        inner = form == "interior-first"
+        deep = SceneTables.from_pack(chain_pack(levels, sky=sky, interior_first=inner),
+                                     device=DEV)
+        chain = SceneTables.from_pack(chain_pack(levels, sky=sky), device=DEV) if inner else None
         own = shallow[sky]
         check(deep.bvh_depth == levels and deep.use_env == sky and mk.deep(deep)
-              and not mk.deep(own), f"(d-deep) chain of {levels} levels: depth {deep.bvh_depth}")
+              and not mk.deep(own), f"(d-deep) {form} of {levels} levels: depth {deep.bvh_depth}")
+        label = f"(d-deep) {form} {levels}{' sky' if sky else ''}"
         for regen in (True, False) if not sky else (True,):
             for n_dir in (FAN, 7):
-                deep.n_dir_sample = own.n_dir_sample = n_dir
-                m = kernel_vs_plain(deep, cam, 2, 6, 11,
-                                    f"(d-deep) chain {levels}{' sky' if sky else ''}",
-                                    every_lane=True, regen=regen)
+                for t in (deep, own, chain):
+                    if t is not None:
+                        t.n_dir_sample = n_dir
+                m = kernel_vs_plain(deep, cam, 2, 6, 11, label, every_lane=True, regen=regen)
                 inst = mk.trace_block.last_instance
                 check("_deep<" in inst, f"(d-deep) launched {inst}")
                 r, ry = mk.trace_block(deep, cs, 11, 0, 2, n, 6, regen=regen)
-                r2, ry2 = mk.trace_block(own, cs, 11, 0, 2, n, 6, regen=regen)
-                check(torch.equal(ry, ry2) and torch.equal(r, r2),
-                      f"(d-deep) {inst} on {levels} levels differs from "
-                      f"{mk.trace_block.last_instance} on the box's own tree")
-                phase("d-deep", f"{inst}, {levels} levels: ray counts and radiance equal on "
-                                f"every lane to {mk.trace_block.last_instance} on the box's own "
-                                f"{own.bvh_depth}-level tree")
+                for name, t in (("the box's own tree", own), (f"the chain of {levels} levels",
+                                                               chain)):
+                    if t is None:
+                        continue
+                    r2, ry2 = mk.trace_block(t, cs, 11, 0, 2, n, 6, regen=regen)
+                    check(torch.equal(ry, ry2) and torch.equal(r, r2),
+                          f"{label}: {inst} differs from {mk.trace_block.last_instance} on {name}")
+                phase("d-deep", f"{inst}, {form} of {levels} levels: ray counts and radiance "
+                                f"equal on every lane to the box's own {own.bvh_depth}-level "
+                                f"tree{' and to the chain' if inner else ''}")
                 at[inst] = m
-        deep.n_dir_sample = own.n_dir_sample = FAN
+    # what the stack costs: the same leaves with the stack at 1 entry
+    # (the chain) and at 63 (the interior-first chain), at a full launch
+    big = cam_static(dataclasses.replace(sc.camera, width=1920, height=1080))
+    sub = DEEP_LANES // DEEP_STRIDE
+    cost = {}
+    for regen in (True, False):
+        for form in ("chain", "interior-first"):
+            tables = SceneTables.from_pack(chain_pack(64, interior_first=form != "chain"),
+                                           device=DEV)
+
+            def kern(tables=tables, regen=regen):
+                return mk.trace_block(tables, big, 7, 0, 1, DEEP_LANES, 8, regen=regen)
+
+            r, ry = kern()
+            inst = mk.trace_block.last_instance
+            ops = collections.Counter()
+            plain = trace_block_ref if regen else trace_block_lockstep_ref
+            t1 = time.monotonic()
+            r2, ry2 = plain(tables, big, 7, 0, 1, sub, 8, ops=ops, lane_stride=DEEP_STRIDE)
+            torch.cuda.synchronize()
+            plain_ms = (time.monotonic() - t1) * 1e3
+            check(torch.equal(ry[::DEEP_STRIDE], ry2) and torch.equal(r[::DEEP_STRIDE], r2),
+                  f"(d-deep) {inst} on the {form} at {DEEP_LANES} lanes: not bitwise equal to "
+                  f"the plain version on every {DEEP_STRIDE}th lane")
+            stack = ops.pop("stack", 0)
+            scaled = collections.Counter({k: v * DEEP_STRIDE for k, v in ops.items()})
+            bound_ms, bound_by = bound(tables, scaled, DEEP_LANES)
+            ms = cuda_ms(kern, 3, windows=3)
+            cost[regen, form] = ms
+            info = mk.instance_info(tables, big, 8, regen=regen)
+            phase("kernel", f"(d-deep) {inst}, {form} of 64 levels, {DEEP_LANES} lanes of the "
+                            f"1920x1080 box, spp 1, mb 8: kernel {ms:.3f} ms, bound "
+                            f"{bound_ms:.4f} ms ({bound_by}; the plain tally of every "
+                            f"{DEEP_STRIDE}th lane x {DEEP_STRIDE}: {dict(scaled)}), share "
+                            f"{bound_ms / ms:.4f}; plain {plain_ms:.1f} ms on those {sub} lanes, "
+                            f"bitwise equal there, its stack high-water mark {stack}; "
+                            f"{info['registers']} registers, {info['blocks_per_sm']} blocks of "
+                            f"{info['threads']} per SM")
+            if form != "chain":
+                at[inst] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": 0.0,
+                            "bound_ms": bound_ms, "bound_by": bound_by}
+        phase("d-deep", f"{'mega_regen_deep' if regen else 'mega_lockstep_deep'}<4>: the "
+                        f"interior-first chain against the chain, 64 levels, {DEEP_LANES} "
+                        f"lanes: {cost[regen, 'interior-first']:.3f} ms against "
+                        f"{cost[regen, 'chain']:.3f} ms, the stack's pushes and pops "
+                        f"{cost[regen, 'interior-first'] - cost[regen, 'chain']:+.3f} ms")
     # K3's deep walk on 196,608 rays through the box
-    pack = pack_to(chain_pack(64), DEV, walk=True)
     gen = torch.Generator(device=DEV).manual_seed(13)
     lo = torch.tensor([0.0, 0.0, -800.0], device=DEV)
     hi = torch.tensor([2224.0, 2195.2, 2236.8], device=DEV)
@@ -832,36 +938,52 @@ def deep_trees():
                                       dim=1)
     oc, dc = tuple(o[:, k].contiguous() for k in range(3)), tuple(d[:, k].contiguous()
                                                                   for k in range(3))
-    for occ in (False, True):
-        mode = ("occlusion" if occ else "nearest") + " deep walk"
+    answers = {}
+    for form in ("chain", "interior-first"):
+        pack = pack_to(chain_pack(64, interior_first=form != "chain"), DEV, walk=True)
+        for occ in (False, True):
+            mode = ("occlusion" if occ else "nearest") + " deep walk"
 
-        def kernel():
-            return ip.intersect_prims_c(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc,
-                                        occlusion=occ, walk=pack.walk)
+            def kernel(pack=pack, occ=occ):
+                return ip.intersect_prims_c(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc,
+                                            occlusion=occ, walk=pack.walk)
 
-        kernel()
-        check(ip.intersect_prims_c.last_mode == mode,
-              f"(d-deep) the intersector reported {ip.intersect_prims_c.last_mode!r}")
-        ms = cuda_ms(kernel, 10, windows=5)
-        got = kernel()
-        ops = collections.Counter()
-        t1 = time.monotonic()
-        want = intersect_walk_ref(pack.walk.bvh, pack.walk.leaf, pack.sph_geom, pack.n_tris, oc,
-                                  dc, occlusion=occ, ops=ops, depth=pack.walk.depth)
-        torch.cuda.synchronize()
-        plain_ms = (time.monotonic() - t1) * 1e3
-        err = bitwise(f"(d-deep) K3 {mode}", got, want, "the plain deep walk")
-        tables = table_bytes(pack.walk.bvh, pack.walk.leaf, pack.sph_geom)
-        bound_ms, bound_by = roofline(sum(OPS_PER[k] * v for k, v in ops.items()),
-                                      oc[0].numel() * (24 + (4 if occ else 16)) + tables)
-        phase("kernel", f"(d-deep) K3 [{mode}], {pack.walk.depth} levels, {oc[0].numel()} rays: "
-                        f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms "
-                        f"({bound_by}; {dict(ops)}), share {bound_ms / ms:.4f}; bitwise equal "
-                        f"on every ray to the plain version")
-        at[f"intersect_prims<{mode}>"] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                                          "bound_ms": bound_ms, "bound_by": bound_by}
+            kernel()
+            check(ip.intersect_prims_c.last_mode == mode,
+                  f"(d-deep) the intersector reported {ip.intersect_prims_c.last_mode!r}")
+            ms = cuda_ms(kernel, 10, windows=5)
+            got = kernel()
+            ops = collections.Counter()
+            t1 = time.monotonic()
+            want = intersect_walk_ref(pack.walk.bvh, pack.walk.leaf, pack.sph_geom, pack.n_tris,
+                                      oc, dc, occlusion=occ, ops=ops, depth=pack.walk.depth)
+            torch.cuda.synchronize()
+            plain_ms = (time.monotonic() - t1) * 1e3
+            err = bitwise(f"(d-deep) K3 {mode}, {form}", got, want, "the plain deep walk")
+            answers.setdefault(occ, got)
+            bitwise(f"(d-deep) K3 {mode}, {form}", got, answers[occ], "the chain's answers")
+            stack = ops.pop("stack", 0)
+            tables = table_bytes(pack.walk.bvh, pack.walk.leaf, pack.sph_geom)
+            bound_ms, bound_by = roofline(sum(OPS_PER[k] * v for k, v in ops.items()),
+                                          oc[0].numel() * (24 + (4 if occ else 16)) + tables)
+            phase("kernel", f"(d-deep) K3 [{mode}], {form} of {pack.walk.depth} levels, "
+                            f"{oc[0].numel()} rays: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+                            f"bound {bound_ms:.5f} ms ({bound_by}; {dict(ops)}), share "
+                            f"{bound_ms / ms:.4f}, stack high-water mark {stack}; bitwise equal "
+                            f"on every ray to the plain version and the chain's answers")
+            cost[occ, form] = ms
+            if form != "chain":
+                at[f"intersect_prims<{mode}>"] = {"ms": ms, "plain_ms": plain_ms,
+                                                  "max_abs_err": err, "bound_ms": bound_ms,
+                                                  "bound_by": bound_by}
+        if form != "chain":
+            phase("d-deep", "K3's deep walk, the interior-first chain against the chain, 64 "
+                            "levels: " + ", ".join(
+                                f"{'occlusion' if occ else 'nearest'} "
+                                f"{cost[occ, form]:.4f} against {cost[occ, 'chain']:.4f} ms"
+                                for occ in (False, True)))
     # the main paths
-    host = {sky: chain_pack(64, sky=sky) for sky in (False, True)}
+    host = {sky: chain_pack(64, sky=sky, interior_first=True) for sky in (False, True)}
     launches = collections.Counter()
     for regen, n_dir, sky in ((True, FAN, False), (True, 7, False), (False, FAN, False),
                               (False, 7, False), (True, FAN, True), (True, 7, True)):
@@ -872,9 +994,10 @@ def deep_trees():
                               regen=regen)
         launches.update(mk.trace_block.by_instance)
         check(np.isfinite(img).all() and img.mean() > 0, "(d-deep) render_mega image")
-        phase("d-deep", f"render_mega of the 64-level chain, 48x48 spp 4 mb 8, n_dir {n_dir}, "
-                        f"regen {regen}, sky {sky}: launches {dict(mk.trace_block.by_instance)}, "
-                        f"{st['rays']} rays, image mean {img.mean():.4f}")
+        phase("d-deep", f"render_mega of the 64-level interior-first chain, 48x48 spp 4 mb 8, "
+                        f"n_dir {n_dir}, regen {regen}, sky {sky}: launches "
+                        f"{dict(mk.trace_block.by_instance)}, {st['rays']} rays, image mean "
+                        f"{img.mean():.4f}")
     reset_counts()
     img, _ = render_radiance(host[False], dataclasses.replace(sc.camera, width=128, height=128),
                              1, 2,
@@ -883,9 +1006,9 @@ def deep_trees():
     check(set(by_mode) == {"nearest deep walk", "occlusion deep walk"},
           f"(d-deep) the wavefront's auto took {by_mode}")
     launches.update(by_mode)
-    phase("d-deep", f"render_radiance (method auto) of the 64-level chain, 128x128 spp 1 mb 8: "
-                    f"intersector launches {by_mode}, image mean {img.mean():.4f}; "
-                    f"{time.monotonic() - t0:.1f} s")
+    phase("d-deep", f"render_radiance (method auto) of the 64-level interior-first chain, "
+                    f"128x128 spp 1 mb 8: intersector launches {by_mode}, image mean "
+                    f"{img.mean():.4f}; {time.monotonic() - t0:.1f} s")
     rows = {k: (launches.get(k.removeprefix("intersect_prims<").removesuffix(">"),
                              launches.get(k, 0)), m) for k, m in at.items()}
     check(all(n > 0 for n, _ in rows.values()),
@@ -1112,6 +1235,7 @@ def walk_vs_plain(label, pack, oc, dc, occ, swept):
     torch.cuda.synchronize()
     walk_ms = (time.monotonic() - t0) * 1e3
     bitwise(label, [None if x is None else x[sub] for x in got], plain, "the plain walk")
+    stack = ops.pop("stack", 0)  # a high-water mark, not a count
     per_ray = {k: v / sub.numel() for k, v in ops.items()}
     flops = n * sum(OPS_PER[k] * v for k, v in per_ray.items())
     tables = sum(x.numel() * x.element_size() for x in (walk.bvh, walk.leaf, sph))
@@ -1121,7 +1245,8 @@ def walk_vs_plain(label, pack, oc, dc, occ, swept):
                     f"(tiled {swept['ms']:.4f} ms, {swept['ms'] / ms:.2f}x), bound "
                     f"{bound_ms:.5f} ms ({bound_by}; the sweep's own {swept['bound_ms']:.4f}), "
                     f"share {bound_ms / ms:.4f}; plain walk on {sub.numel()} rays {walk_ms:.1f} "
-                    f"ms, per ray {({k: round(v, 4) for k, v in per_ray.items()})}; bitwise "
+                    f"ms, per ray {({k: round(v, 4) for k, v in per_ray.items()})}, "
+                    f"stack high-water mark {stack}; bitwise "
                     f"equal on every ray to the plain version and the tiled mode")
     return {"ms": ms, "plain_ms": swept["plain_ms"], "max_abs_err": err, "bound_ms": bound_ms,
             "bound_by": bound_by}
@@ -1630,15 +1755,17 @@ def time_halves(label, args, post_args, rec, rays, cam, ids, k_cam, b, s):
     kernel ms, plain ms and the bound (each input read once, each output
     written once: the lane planes, the tables the lanes read, the fan).
     shade_pre's float operations are its plain version's (`plain_ops`), its
-    integer operations the threefry hashes a lane runs (`vertex_iops`); the
-    camera's, `OPS_PER['camera']` and its 2 draws a lane (4 through a thin
-    lens)."""
+    integer operations the threefry hashes a lane runs (`vertex_iops`). The
+    camera's work is a pixel's, whose ray its lanes repeat:
+    `OPS_PER['camera']` float operations and 2 draws (4 through a thin
+    lens) a pixel; its bytes, a pixel's id (8 B) and the key read, and 6
+    floats written to each of its lanes."""
     pack = args[0]
     p_px = ids.numel()
     cam_row = kernel_row(label, "camera_rays", lambda: wf.camera_rays(cam, ids, k_cam, 3),
                          lambda: wfr.camera_rays(cam, ids, k_cam, 3),
-                         b * OPS_PER["camera"], 8 * p_px + 16 + 24 * b,
-                         iops=b * (4 if cam.use_dof else 2) * DRAW_OPS)
+                         p_px * OPS_PER["camera"], 8 * p_px + 16 + 24 * b,
+                         iops=p_px * (4 if cam.use_dof else 2) * DRAW_OPS)
     pre_row = kernel_row(label, "shade_pre", lambda: wf.shade_pre(*args),
                          lambda: wfr.shade_pre(*args), None, vertex_bytes(pack, b, s),
                          iops=vertex_iops(b, s))
@@ -1821,6 +1948,70 @@ def edge_instance(b, offset):
     return "shade_post", lanes if b % lanes == 0 and not offset else 1
 
 
+# (l): camera_rays' edges, (pixels, first id, view offset): lane counts
+# around its vector instance's floats a store (`wavefront.CAMERA_VECTOR`: a
+# lane count it does not divide takes the scalar instance) and around its
+# 256-thread blocks, a tile's ids at an offset (as `_render_tile` passes
+# them), ids to both sides of 2^31 and below 0 (the 64-bit division), ids
+# through a view off the 16-byte grid; each at 1 and 3 lanes a pixel,
+# pinhole and thin lens
+CAMERA_EDGES = ((1, 0, 0), (3, 0, 0), (4, 0, 0), (5, 0, 0), (43, 0, 0), (256, 0, 0),
+                (257, 0, 0), (4096, 0, 0), (4099, 0, 0), (4096, 3 * TILE_PX, 0),
+                (8, 2**31 - 4, 0), (8, -6, 0), (4096, 0, 1))
+
+
+def edge_camera(dof):
+    """The 1920x1080 DEMO camera, through the thin lens of `lens_lamp_demo`
+    if `dof`."""
+    sc = lens_lamp_demo() if dof else demo_scene()
+    return dataclasses.replace(sc.camera, width=1920, height=1080)
+
+
+def camera_edge(pixels, first, offset, per, dof, dev):
+    """camera_rays' kernel route and plain version on ids first .. first +
+    pixels - 1 (a view `offset` elements into its buffer) of `edge_camera`:
+    [(name, got, want)] over the six planes."""
+    ids = _lane_view(np.arange(first, first + pixels, dtype=np.int64), dev, offset)
+    key = torch.tensor([0x2A, 0xC0FFEE], dtype=torch.int64, device=dev)
+    cam = edge_camera(dof)
+    got = sum(wf.camera_rays(cam, ids, key, per, route="cuda"), ())
+    want = sum(wf.camera_rays(cam, ids, key, per, route="plain"), ())
+    return [(f"camera_rays plane {k}", g, w) for k, (g, w) in enumerate(zip(got, want))]
+
+
+def camera_instance(pixels, per):
+    """camera_rays' instance for an edge case, as its C entry picks it:
+    ("camera_rays", floats a store), the vector instance's where they divide
+    the lane count (the wrapper's planes then start on its grid), else 1."""
+    v = wf.CAMERA_VECTOR
+    return "camera_rays", v if pixels * per % v == 0 else 1
+
+
+def camera_edges():
+    """(l): camera_rays bitwise against its plain version at `CAMERA_EDGES`
+    x 1 and 3 lanes a pixel x pinhole and thin lens, each through the
+    instance `camera_instance` names; both instances must launch."""
+    t0 = time.monotonic()
+    before = collections.Counter(wf.by_instance)
+    cases = [(edge, per, dof) for edge in CAMERA_EDGES for per in (1, 3) for dof in (False, True)]
+    for (pixels, first, offset), per, dof in cases:
+        what = f"{pixels} pixels from id {first} (view offset {offset}), {per} lanes a pixel, " \
+               f"{'thin lens' if dof else 'pinhole'}"
+        was = collections.Counter(wf.by_instance)
+        for name, got, want in camera_edge(pixels, first, offset, per, dof, DEV):
+            same_bits(f"(l) camera edges {what}", name, got, want)
+        ran, instance = wf.by_instance - was, camera_instance(pixels, per)
+        check(ran == collections.Counter({instance: 1}),
+              f"(l) camera edges {what}: launched {dict(ran)}, not {instance}")
+    ran = wf.by_instance - before
+    check(all(ran["camera_rays", v] > 0 for v in (wf.CAMERA_VECTOR, 1)),
+          f"(l) camera edges: not every camera_rays instance launched: {dict(ran)}")
+    phase("l", f"camera_rays at its edges ({len(cases)} cases: (pixels, first id, view offset) "
+               f"{CAMERA_EDGES} x 1 and 3 lanes a pixel x pinhole and thin lens) bitwise equal to "
+               f"its plain version; launches by instance {dict(ran)}; "
+               f"{time.monotonic() - t0:.1f} s")
+
+
 def post_fold_edges():
     """(l): shade_post and fold bitwise against their plain versions at
     their edges (`EDGE_LANES` x `EDGE_SAMPLES`, shadows off at 4 samples,
@@ -1875,8 +2066,8 @@ def wavefront_kernels(soldier):
     """(l): the four wavefront kernels bitwise against their plain versions
     on the DEMO (timed), the sky-lit DEMO, DEMO + soldier (the walk), the
     DEMO at 40 light samples and the DEMO through a thin lens with an
-    emissive sphere; then shade_post and fold at their edges
-    (`post_fold_edges`)."""
+    emissive sphere; then camera_rays, shade_post and fold at their edges
+    (`camera_edges`, `post_fold_edges`)."""
     t0 = time.monotonic()
     timing = kernels_vs_plain_trace("(l) DEMO", demo_scene(), 1, timed=True)
     sky = demo_scene()
@@ -1890,6 +2081,7 @@ def wavefront_kernels(soldier):
     check(lens.camera.use_dof and lens.compile().n_sph_emitters == 1,
           "the thin-lens DEMO: one emissive sphere")
     kernels_vs_plain_trace("(l) DEMO, thin lens and an emissive sphere", lens, 5)
+    camera_edges()
     post_fold_edges()
     phase("l", f"{time.monotonic() - t0:.1f} s")
     return timing

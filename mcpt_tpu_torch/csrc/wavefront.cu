@@ -1,6 +1,7 @@
 // The wavefront engine's kernels: the camera rays, the two shading halves of
 // a bounce around the intersector (csrc/intersect_prims.cu), and the reverse
-// clamp fold. One thread a lane; shade_post takes two (below).
+// clamp fold. One thread a lane in shade_pre and the fold; camera_rays takes
+// pixels, shade_post two lanes (below).
 //
 // They replace no Pallas kernel: they are what XLA compiles under `jit` of
 // mcpt_tpu's wavefront, `camera.py:55-107` (`generate_rays_c`) and
@@ -16,10 +17,11 @@
 // thresholds and contributions, the NEE weight, leaf terms and the indirect
 // weight out; the post half reads those back with the fan's t and the next
 // hit, and writes the depth's records), against a few thousand float
-// operations of shading and, in camera_rays and shade_pre, the threefry
-// hashes of the draws, which bound those two (about 1,600 integer
-// operations a lane at 4 samples). So each half reads a lane's state once,
-// keeps the shading in registers, and derives the bounce's keys on the
+// operations of shading and, in shade_pre, the threefry hashes of the
+// draws, which bound it (about 1,600 integer operations a lane at 4
+// samples); camera_rays is bound by its bytes, 24 B a lane written and 8 B
+// a pixel read. So each half reads a lane's state once, keeps the shading
+// in registers, and derives the bounce's keys on the
 // device from the path key's words (threefry2x32 of prng.py, in uint32): no
 // key op, and no other op, runs on the host a bounce. Every lane runs every
 // bounce, dead ones too, as in JAX, so the records match lane for lane; the
@@ -63,43 +65,91 @@ constexpr int kPreThreads = 512;
 struct CamArgs {
   const long long* ids;
   const long long* key;
-  float* out[6];  // o0 o1 o2 d0 d1 d2
-  int n, per, width, height, dof;
+  float* out[6];  // o0 o1 o2 d0 d1 d2, P·per lanes each
+  int p, per, width, height, dof;
   float aspect, scale, om[9], pos[3], focal, aperture;
 };
 
-__global__ void __launch_bounds__(kWfThreads) camera_rays_kernel(CamArgs A) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= A.n) return;
-  const int pi = l / A.per;
-  const long long id = A.ids[pi];
-  const long long w = A.width;
-  long long q = id / w, r = id - q * w;  // floor division, as torch's
+// camera_rays: one thread a pixel, whose id is read once, its (i, j) derived
+// once and its draws hashed once (the lane-a-thread kernel before it hashed a
+// pixel's draws for each of its per lanes). Each thread puts its pixel's ray
+// in shared memory; then the block writes its pixels' lanes, each ray to its
+// per consecutive lanes, consecutive threads to consecutive vectors, so that
+// a warp's store is one contiguous run. The vector instance stores kCamVec
+// floats (16 bytes) at a time where P·per is a multiple of kCamVec and the
+// six planes start on the 16-byte grid (plane k starts at k·P·per·4 bytes);
+// the scalar instance of the same body stores one. kernels/wavefront.py's
+// CAMERA_VECTOR repeats kCamVec for the checks that predict the instance.
+// Measured on the H100 (mega_ab.py, a tile's 65,536 pixels at 3 lanes, cold):
+// 4 pixels a thread storing their own lanes (16-byte stores per vectors
+// apart across a warp) ran 40% slower than the lane-a-thread kernel before
+// it, which this one beats by 8-9%; staged as here, 2 and 4 pixels a thread
+// (16-byte id loads, blocks of 128 and 64) ran 2% and 15% slower than one.
+// Each instance forced at the same shapes: at 65,536 pixels they take the
+// same time; at 147,456 pixels the 16-byte stores run 4-6% faster back to
+// back (3 lanes through a thin lens, 1 lane through a pinhole) and 3.5%
+// cold (the thin lens), and they are nowhere slower beyond the spread
+// between turns.
+constexpr int kCamThreads = 256;
+constexpr int kCamVec = 4;
+
+// the vector of V floats (V = 1 or 4)
+template <int V>
+struct CamVec;
+template <>
+struct CamVec<1> {
+  using F = float;
+  __device__ static F make(const float (&e)[1]) { return e[0]; }
+};
+template <>
+struct CamVec<4> {
+  using F = float4;
+  __device__ static F make(const float (&e)[4]) { return make_float4(e[0], e[1], e[2], e[3]); }
+};
+
+// The pixel (i, j) = (id mod W, id div W) as floats, the division floored
+// as torch's: an id in [0, 2^31) by an unsigned 32-bit division, any other
+// by the 64-bit one (the same integers, so the same floats). Measured
+// against the 64-bit division alone (mega_ab.py, H100): the same time cold,
+// 1-3% faster back to back.
+__device__ __forceinline__ void pixel_ij(long long id, int width, float& fi, float& fj) {
+  if (id >= 0 && id <= 0x7fffffffLL) {
+    const unsigned int u = static_cast<unsigned int>(id), w = static_cast<unsigned int>(width);
+    const unsigned int q = u / w;
+    fi = static_cast<float>(u - q * w);
+    fj = static_cast<float>(q);
+    return;
+  }
+  const long long w = width;
+  long long q = id / w, r = id - q * w;
   if (r != 0 && (r < 0) != (w < 0)) {
     r += w;
     q -= 1;
   }
-  const float fi = static_cast<float>(r), fj = static_cast<float>(q);
-  const Key k = load_key(A.key);
-  const uint32_t base = 4u * static_cast<uint32_t>(pi);
-  const float u0 = uniform_at(k, base), u1 = uniform_at(k, base + 1u);
-  const float x = (1.0f - 2.0f * (fi + u0) / static_cast<float>(A.width)) * A.aspect * A.scale;
-  const float y = (1.0f - 2.0f * (fj + u1) / static_cast<float>(A.height)) * A.scale;
-  float o[3], dir[3];
+  fi = static_cast<float>(r);
+  fj = static_cast<float>(q);
+}
+
+// One pixel's ray from its (i, j) and draws u (u[2], u[3] read through a
+// thin lens only): o in r[0..2], d in r[3..5].
+__device__ __forceinline__ void pixel_ray(const CamArgs& A, float fi, float fj,
+                                          const float (&u)[4], float (&r)[6]) {
+  const float x = (1.0f - 2.0f * (fi + u[0]) / static_cast<float>(A.width)) * A.aspect * A.scale;
+  const float y = (1.0f - 2.0f * (fj + u[1]) / static_cast<float>(A.height)) * A.scale;
+  float dir[3];
   if (A.dof) {
-    const float u2 = uniform_at(k, base + 2u), u3 = uniform_at(k, base + 3u);
-    const float rr = A.aperture * sqrtf(u2);
-    const float theta = kTwoPi * u3;
+    const float rr = A.aperture * sqrtf(u[2]);
+    const float theta = kTwoPi * u[3];
     const float dx = rr * cosf(theta), dy = rr * sinf(theta);
     const float zero = 0.0f;
     for (int c = 0; c < 3; ++c) {
-      o[c] = A.pos[c] + (A.om[3 * c] * dx + A.om[3 * c + 1] * dy + A.om[3 * c + 2] * zero);
+      r[c] = A.pos[c] + (A.om[3 * c] * dx + A.om[3 * c + 1] * dy + A.om[3 * c + 2] * zero);
     }
     dir[0] = x * A.focal - dx;
     dir[1] = y * A.focal - dy;
     dir[2] = 1.0f * A.focal;
   } else {
-    for (int c = 0; c < 3; ++c) o[c] = A.pos[c];
+    for (int c = 0; c < 3; ++c) r[c] = A.pos[c];
     dir[0] = x;
     dir[1] = y;
     dir[2] = 1.0f;
@@ -107,8 +157,57 @@ __global__ void __launch_bounds__(kWfThreads) camera_rays_kernel(CamArgs A) {
   const float inv = 1.0f / sqrtf(dir[0] * dir[0] + dir[1] * dir[1] + dir[2] * dir[2]);
   const float dn[3] = {dir[0] * inv, dir[1] * inv, dir[2] * inv};
   for (int c = 0; c < 3; ++c) {
-    A.out[c][l] = o[c];
-    A.out[3 + c][l] = A.om[3 * c] * dn[0] + A.om[3 * c + 1] * dn[1] + A.om[3 * c + 2] * dn[2];
+    r[3 + c] = A.om[3 * c] * dn[0] + A.om[3 * c + 1] * dn[1] + A.om[3 * c + 2] * dn[2];
+  }
+}
+
+// Pixel p of `ids` (a block's kCamThreads from b0 on, one a thread) draws
+// uniform_at(key, 4·p + c) as prng.uniform(key, (P, 4)) lays them out. The
+// block's lanes of a plane are then written V floats a vector, lane l
+// holding the block's pixel l / per.
+template <int V>
+__global__ void __launch_bounds__(kCamThreads) camera_rays_kernel(CamArgs A) {
+  __shared__ float rays[6][kCamThreads];
+  const size_t b0 = static_cast<size_t>(blockIdx.x) * kCamThreads;
+  const int t = threadIdx.x;
+  const long long left = static_cast<long long>(A.p) - static_cast<long long>(b0);
+  const int n_px = left < kCamThreads ? static_cast<int>(left) : kCamThreads;
+  if (t < n_px) {
+    const long long id = __ldg(A.ids + b0 + t);
+    const Key k = load_key(A.key);
+    const uint32_t base = 4u * static_cast<uint32_t>(b0 + t);
+    float u[4];
+    u[0] = uniform_at(k, base);
+    u[1] = uniform_at(k, base + 1u);
+    if (A.dof) {
+      u[2] = uniform_at(k, base + 2u);
+      u[3] = uniform_at(k, base + 3u);
+    }
+    float fi, fj, r[6];
+    pixel_ij(id, A.width, fi, fj);
+    pixel_ray(A, fi, fj, u, r);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) rays[c][t] = r[c];
+  }
+  __syncthreads();
+  const size_t l0 = b0 * static_cast<size_t>(A.per);
+  const int n_vec = n_px * A.per / V;  // whole vectors: V divides P·per and kCamThreads
+  for (int v = t; v < n_vec; v += kCamThreads) {
+    int px = v * V / A.per, rep = v * V - px * A.per;  // lane v·V's pixel, its lanes before
+    float e[6][V];
+#pragma unroll
+    for (int x = 0; x < V; ++x) {
+#pragma unroll
+      for (int c = 0; c < 6; ++c) e[c][x] = rays[c][px];
+      if (++rep == A.per) {
+        rep = 0;
+        ++px;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      reinterpret_cast<typename CamVec<V>::F*>(A.out[c] + l0)[v] = CamVec<V>::make(e[c]);
+    }
   }
 }
 
@@ -460,13 +559,16 @@ int launch_post(const PostArgs& A, void* stream, int* lanes) {
 // nothing.
 extern "C" {
 
+// camera_rays takes a sixth argument, where it reports the instance it
+// launched: the floats of its stores, kCamVec or 1 (0 for no launch).
 int mcpt_wf_camera(const void* const* in, void* const* out, const int* ip, const float* fp,
-                   void* stream) {
+                   void* stream, int* floats) {
+  *floats = 0;
   CamArgs A;
   A.ids = static_cast<const long long*>(in[0]);
   A.key = static_cast<const long long*>(in[1]);
   for (int k = 0; k < 6; ++k) A.out[k] = static_cast<float*>(out[k]);
-  A.n = ip[0];
+  A.p = ip[0];
   A.per = ip[1];
   A.width = ip[2];
   A.height = ip[3];
@@ -477,9 +579,18 @@ int mcpt_wf_camera(const void* const* in, void* const* out, const int* ip, const
   for (int k = 0; k < 3; ++k) A.pos[k] = fp[11 + k];
   A.focal = fp[14];
   A.aperture = fp[15];
-  if (A.n < 0 || A.per < 1 || A.width < 1 || A.height < 1) return -1;
-  if (A.n == 0) return 0;
-  camera_rays_kernel<<<wf_blocks(A.n), kWfThreads, 0, static_cast<cudaStream_t>(stream)>>>(A);
+  if (A.p < 0 || A.per < 1 || A.width < 1 || A.height < 1) return -1;
+  if (A.p == 0) return 0;
+  bool vec = static_cast<long long>(A.p) * A.per % kCamVec == 0;
+  for (int k = 0; k < 6; ++k) vec = vec && aligned(A.out[k], 4 * kCamVec);
+  const int blocks = (A.p + kCamThreads - 1) / kCamThreads;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    camera_rays_kernel<kCamVec><<<blocks, kCamThreads, 0, s>>>(A);
+  } else {
+    camera_rays_kernel<1><<<blocks, kCamThreads, 0, s>>>(A);
+  }
+  *floats = vec ? kCamVec : 1;
   return wf_status();
 }
 

@@ -113,8 +113,9 @@ def intersect_walk_ref(bvh, leaf_sc, sph, sph_base, oc, dc, occlusion=False, ops
     sweep's first minimum), u and v from that row. Occlusion: the same
     winner's t alone. Tallies under `ops` (a Counter) the rows loaded
     (`row`), box tests (`slab`), triangle tests (`woop`) and sphere tests
-    (`sph`). `depth`, the tree's levels, sizes the walk's stack above
-    BVH_STACK (the kernel's deep walk)."""
+    (`sph`), and keeps the stack's high-water mark (`stack`). `depth`, the
+    tree's levels, sizes the walk's stack above BVH_STACK (the kernel's
+    deep walk)."""
     b = oc[0].shape[0]
     best_t, best_i, best_u, best_v = _no_hit(b, oc[0].device)
     inv = [1.0 / x for x in dc]

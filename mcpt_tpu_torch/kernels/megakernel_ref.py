@@ -531,7 +531,8 @@ class _Walk:
     a stack of (link, cnt, key) entries, BVH_STACK of them or, for a tree of
     more levels, one a level (`tables.bvh_depth`: the kernels' deep
     instances, which keep it in device memory). Each row a ray loads counts
-    one under `row` in `ops`."""
+    one under `row` in `ops`, and `stack` keeps the most entries a ray's
+    stack has held (its high-water mark, not a sum)."""
 
     def __init__(self, tables, live, key, ops=None):
         self.nodes = tables.bvh
@@ -574,6 +575,8 @@ class _Walk:
         for st, v in zip(self.stack, (link, cnt, key)):
             st[lanes, sp] = v
         self.sp[lanes] = sp + 1
+        if self.ops is not None and lanes.numel():
+            self.ops["stack"] = max(self.ops["stack"], int(sp.max()) + 1)
 
     def take(self, at, link, cnt, key):
         """Walking rays `at` (a mask) go on to item (link, cnt) with `key`."""

@@ -22,8 +22,10 @@ counts the kernel launches, and `calls[(name, route)]` every call by route,
 which is where a render's route is read. `shade_post` comes in two
 instances, `VECTOR_LANES` lanes a thread with one vector access a plane or
 1 lane a thread, which its C entry picks by the lane count and the rows'
-alignment and reports; `by_instance[(kernel, lanes)]` counts its launches
-by instance.
+alignment and reports; `camera_rays` (one pixel a thread, its draws hashed
+once) in two, `CAMERA_VECTOR` floats a store or 1, picked by the lane count
+and the output planes' alignment; `by_instance[(kernel, lanes a thread or
+floats a store)]` counts their launches by instance.
 """
 
 import collections
@@ -44,13 +46,15 @@ BWD_KERNELS = ("shade_pre_bwd", "shade_post_bwd", "fold_bwd")
 ROUTES = ("cuda", "plain", "plain (autograd)")
 # the pack tensors a gradient may reach (`diff.apply_params` rebuilds them)
 TRAINABLE = ("mat_fat", "emt_fat")
-# the kernels whose C entries report the instance they launched (its lanes
-# a thread, in a sixth argument), and the lanes a thread of their vector
-# instance: csrc/wavefront.cu's kLanes, repeated here for the checks that
-# predict the instance (chip_smoke.edge_instance), which fail if the two
-# drift apart; the other instance takes 1
-INSTANCED = ("shade_post",)
+# the kernels whose C entries report the instance they launched (in a sixth
+# argument: shade_post its lanes a thread, camera_rays the floats of its
+# stores), and those of their vector instances: csrc/wavefront.cu's kLanes
+# and kCamVec, repeated here for the checks that predict the instance
+# (chip_smoke.edge_instance, camera_instance), which fail if the two drift
+# apart; the other instance takes 1
+INSTANCED = ("shade_post", "camera_rays")
 VECTOR_LANES = 2
+CAMERA_VECTOR = 4
 # kernel launches by name, by instance, and calls by (name, route)
 launches = collections.Counter()
 by_instance = collections.Counter()
@@ -199,13 +203,15 @@ def camera_rays(camera, pixel_ids, key, lanes_per_pixel: int = 1, route=None):
     """Primary rays of the flat pixel ids with the draws of
     `prng.uniform(key, (P, 4))`, each repeated for `lanes_per_pixel`
     consecutive lanes (`wavefront_ref.camera_rays`). Returns (o, d),
-    3-tuples of (P·lanes_per_pixel,) float32."""
+    3-tuples of (P·lanes_per_pixel,) float32. The kernel hashes each
+    pixel's draws once and writes its ray to its lanes."""
     dev = pixel_ids.device
     if _route("camera_rays", dev, route) != "cuda":
         return ref.camera_rays(camera, pixel_ids, key, lanes_per_pixel)
-    n = pixel_ids.shape[0] * lanes_per_pixel
-    if 4 * pixel_ids.shape[0] >= 1 << 32:
-        raise ValueError(f"{pixel_ids.shape[0]} pixels: draw indices past 2^32")
+    p = pixel_ids.shape[0]
+    n = p * lanes_per_pixel
+    if 4 * p >= 1 << 32:
+        raise ValueError(f"{p} pixels: draw indices past 2^32")
     out = torch.empty((6, n), dtype=torch.float32, device=dev)
     # aspect, scale, the orientation's rows, position, focal distance, aperture
     fpar = [np.float32(camera.width / float(camera.height)),
@@ -215,7 +221,7 @@ def camera_rays(camera, pixel_ids, key, lanes_per_pixel: int = 1, route=None):
     _launch("mcpt_wf_camera", "camera_rays", dev,
             [_ptr("pixel_ids", pixel_ids, dev, torch.int64), _key_ptr(key, dev)],
             [out[k].data_ptr() for k in range(6)],
-            [n, lanes_per_pixel, camera.width, camera.height, int(bool(camera.use_dof))], fpar)
+            [p, lanes_per_pixel, camera.width, camera.height, int(bool(camera.use_dof))], fpar)
     return (out[0], out[1], out[2]), (out[3], out[4], out[5])
 
 

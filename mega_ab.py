@@ -62,7 +62,14 @@ a tree cannot be loaded beside another):
   reports one. shade_post also runs on the tile's first 196,605 lanes (an
   odd count: the scalar instance, its sample rows copied off the 8-byte
   grid), and each tree's wrapper's host time a call is timed at 0 lanes
-  (the checks and the C entry, which launches nothing: `host_us`).
+  (the checks and the C entry, which launches nothing: `host_us`);
+- `camera_rays`: the camera alone at 65,536 and 147,456 pixels (196,608
+  and 442,368 lanes at 3 a pixel), through the DEMO's pinhole at 3 lanes
+  and 1 a pixel and conf.json's thin lens at 3, and at 65,535 pixels (at 3
+  lanes not a multiple of 4), each bitwise against the tree's own plain
+  version and the parent's planes, timed cold and back to back, with the
+  instance the tree's C entry reports; each tree's first turn profiles the
+  1080p DEMO wavefront render at spp 2 (device ms a camera_rays launch).
 Each intersector call is timed with CUDA events (the median of 9 means of
 40 launches, queued behind a spin of the device: `queued_ms`), each render by the host's wall clock after a warm-up render
 at spp 1; on a tree's first turn the spp 1 render runs under
@@ -112,7 +119,7 @@ AB_DIR = kbuild.BUILD_DIR / "ab"
 SOURCES = {True: ("megakernel.cu", "mcpt_mega_trace"),
            False: ("mega_lockstep.cu", "mcpt_mega_lockstep")}
 WAVEFRONT = ("wavefront DEMO", "wavefront DEMO + soldier", "shade_pre", "shade_pre_bwd",
-             "shade_post", "fold")
+             "shade_post", "fold", "camera_rays")
 # the vertex kernels' and shade_post's and fold's shapes: the DEMO's depth-0
 # vertices of a 256x256 tile (196,608 lanes) and of the 384x384 train step
 # (442,368 lanes)
@@ -633,6 +640,82 @@ def fold_sector_bytes(term):
             + 2 * sectors(first > d, 8) + 4 * b)
 
 
+def conf_camera(width, height):
+    """conf.json's camera (a thin lens) at width x height."""
+    from mcpt_tpu_torch.camera import Camera
+
+    cc = json.loads((ROOT / "conf.json").read_text())["camera"]
+    return Camera(width=width, height=height, fov=float(cc["fov"]),
+                  position=tuple(cc["position"]), target=tuple(cc["target"]),
+                  up=tuple(cc["up"]), use_dof=bool(cc["useDOF"]),
+                  focal_distance=float(cc["focusDistance"]),
+                  aperture_radius=float(cc["apertureRadius"]))
+
+
+def camera_turn(out, profile):
+    """One turn of `camera_rays` on the tree first on the import path: the
+    tree's wavefront sources built (every kernel's ptxas line printed), then
+    at each of VERTEX_SIDES' pixel counts (65,536 and 147,456: 196,608 and
+    442,368 lanes at 3 a pixel) the ids 0 .. P - 1 at 3 lanes a pixel and 1
+    through the DEMO's pinhole, and at 3 through conf.json's thin lens; at
+    the tile's count less one (its lanes not a multiple of 4) at 3 through
+    the pinhole: each bitwise against the tree's own plain version, its planes
+    to `out`.npz (held against the parent's), timed cold (`cold_ms`) and
+    back to back (`queued_ms`). On the first turn the 1080p DEMO wavefront
+    render, spp 2, runs under `chip_smoke.device_profile` (its device ms a
+    launch of camera_rays)."""
+    import numpy as np
+
+    from mcpt_tpu_torch import prng
+    from mcpt_tpu_torch.kernels import wavefront as wf
+    from mcpt_tpu_torch.render import render_radiance
+
+    t0 = time.monotonic()
+    kbuild.build(wf.SOURCE, True, summary=lambda log: [
+        f"[ptxas] {wf.SOURCE.name} {line}" for line in kbuild.ptxas_lines(log)])
+    print(f"[build] {wf.SOURCE.name} {time.monotonic() - t0:.1f} s", flush=True)
+    scene = demo_scene()
+    key = prng.key(21, "cuda")
+    cases = []
+    for side in VERTEX_SIDES:
+        p = side * side
+        pin = dataclasses.replace(scene.camera, width=side, height=side)
+        cases += [(f"{p} px x3 pinhole", pin, p, 3), (f"{p} px x1 pinhole", pin, p, 1),
+                  (f"{p} px x3 thin lens", conf_camera(1920, 1080), p, 3)]
+        if side == VERTEX_SIDES[0]:
+            cases.append((f"{p - 1} px x3 pinhole", pin, p - 1, 3))
+    res, answers = {"modes": {}}, {}
+    for label, cam, p, per in cases:
+        ids = torch.arange(p, device="cuda")
+        fn = lambda cam=cam, ids=ids, per=per: wf.camera_rays(cam, ids, key, per)
+        before = dict(getattr(wf, "by_instance", {}))
+        got = sum(fn(), ())
+        want = sum(wf.camera_rays(cam, ids, key, per, route="plain"), ())
+        for k, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError(f"camera_rays {label}: plane {k} differs from its plain "
+                                     f"version on {int((g != w).sum())} lanes")
+            answers[f"{label} {k}"] = g.cpu().numpy()
+        torch.cuda.synchronize()
+        ran = {f"{k[0]}<{k[1]}>": v - before.get(k, 0)
+               for k, v in getattr(wf, "by_instance", {}).items()
+               if k[0] == "camera_rays" and v != before.get(k, 0)}
+        res["modes"][label] = ("bitwise equal to its plain version"
+                               + (f", instances {ran}" if ran else ""))
+        cold_ms(fn, 5)  # warm: the host's first calls, the card's clocks
+        res[f"{label}_ms"] = cold_ms(fn)
+        res[f"{label} warm_ms"] = sorted(queued_ms(fn, 10) for _ in range(5))[2]
+    if profile:
+        cam = dataclasses.replace(scene.camera, width=1920, height=1080)
+        render_radiance(scene, cam, 1, 0, max_bounces=8, device="cuda")  # warm-up
+        chip_smoke.device_profile("camera_rays: the 1080p DEMO wavefront, spp 2", lambda:
+                                  render_radiance(scene, cam, 2, 0, max_bounces=8,
+                                                  device="cuda"),
+                                  kernel="camera_rays", count=lambda: wf.launches["camera_rays"])
+    np.savez(f"{out}.npz", **answers)
+    Path(f"{out}.json").write_text(json.dumps(res))
+
+
 def wavefront_turn(out, shape, profile, sass=None):
     """One turn of a wavefront shape in this process, on the tree first on
     the import path: writes its answers and image to `out`.npz and its
@@ -650,6 +733,8 @@ def wavefront_turn(out, shape, profile, sass=None):
         return vertex_turn(out, shape)
     if shape in ("shade_post", "fold"):
         return post_fold_turn(out, shape)
+    if shape == "camera_rays":
+        return camera_turn(out, profile)
     cam = dataclasses.replace(demo_scene().camera, width=1920, height=1080)
     if shape == "wavefront DEMO":
         scene = demo_scene()

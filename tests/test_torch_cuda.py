@@ -21,13 +21,17 @@ over one card listed three times equal the single render bitwise. The
 training path's gradients through the intersector equal those through its
 plain version bitwise, and the hybrid train step launches both kernels.
 Trees deeper than the walks' local stack take the deep instances, bitwise
-their plain versions; the wavefront's backward kernels
+their plain versions, on chains whose walks hold one stack entry and on
+interior-first chains whose walks fill their stack; the wavefront's backward kernels
 (`csrc/wavefront_bwd.cu`) equal their plain versions bitwise, the train
 step runs them (no `plain (autograd)` call), and its gradients repeat bit
 for bit. shade_post and the fold equal their plain versions bitwise at their
 edges (odd lane counts, views off the vector's grid, 0 to 40 light samples,
 adversarial records), shade_post through the instance the lane count and
-the alignment call for.
+the alignment call for; the camera rays likewise (lane counts around its
+vector instance's floats a store and its blocks, ids at a tile's offset,
+past 2^31 and below 0, a view off the 16-byte grid; 1 and 3 lanes a pixel;
+pinhole and thin lens).
 """
 
 import ctypes
@@ -423,7 +427,8 @@ def test_intersect_walk_signed_zero_ties(cuda_card, occlusion):
 def test_intersect_walk_refuses_a_deep_tree(cuda_card):
     """Nothing is refused any more: a tree of BVH_STACK levels fills the
     shallow walk's local stack and takes that walk, a deeper one takes the
-    deep walk (its stack in device memory); each is bitwise its plain
+    deep walk (its stack in device memory; the interior-first chains of 48
+    and 64 levels push 47 and 63 entries); each is bitwise its plain
     version and the sweep in both modes, and a wavefront render through the
     kernel equals the `bvh` method's within the repo's bound (both exact;
     the intersectors' ULPs differ); the C entry still refuses deep tables
@@ -439,8 +444,9 @@ def test_intersect_walk_refuses_a_deep_tree(cuda_card):
     ref_img, _ = render_radiance(deep, cam, 1, 2, max_bounces=2, method="bvh", device="cuda")
     assert np.isfinite(img).all() and img.mean() > 0
     assert (np.abs(img - ref_img) > 1e-3).mean() < 0.02
-    for levels in (BVH_STACK, BVH_STACK + 1, 64):
-        pack = pack_to(chain_pack(levels), "cuda", walk=True)
+    for levels, inner in ((BVH_STACK, False), (BVH_STACK + 1, False), (64, False), (48, True),
+                          (64, True)):
+        pack = pack_to(chain_pack(levels, interior_first=inner), "cuda", walk=True)
         assert pack.walk.depth == levels
         oc, dc = _cuda_rays(256, 0.0, 500.0, ((0.0, 0.0, 0.0), (500.0, 500.0, 500.0)), 7)
         for occlusion in (False, True):
@@ -699,12 +705,14 @@ def test_any_light_count_bitwise(cuda_card, n_dir, bvh, regen):
 @pytest.mark.gpu
 @pytest.mark.parametrize("regen", [True, False])
 def test_deep_bvh_refused_for_the_card(cuda_card, regen):
-    """Nothing is refused any more: trees of BVH_STACK + 1 and 64 levels
-    take the deep instances (their walk stacks in device memory), which
-    equal the plain version bitwise on every lane and the same box on its
-    own shallow tree (both walks exact), at 4 light samples and at 7 and 40
-    (the generic instances); the regenerating kernel's under the sky too
-    (its env instances; the lockstep kernel takes no env map)."""
+    """Nothing is refused any more: trees of BVH_STACK + 1 and 64 levels,
+    and interior-first chains of 48 and 64 levels (whose walks' stacks hold
+    47 and 63 entries), take the deep instances (their walk stacks in device
+    memory), which equal the plain version bitwise on every lane and the
+    same box on its own shallow tree (both walks exact), at 4 light samples
+    and at 7 and (the chains) 40 (the generic instances); the regenerating
+    kernel's under the sky too (its env instances; the lockstep kernel takes
+    no env map)."""
     from chip_smoke import chain_pack, cornell_x4
 
     plain = trace_block_ref if regen else trace_block_lockstep_ref
@@ -713,10 +721,11 @@ def test_deep_bvh_refused_for_the_card(cuda_card, regen):
         shallow = SceneTables.from_pack(sc.compile(cluster_threshold=8), device="cuda")
         cs = cam_static(dataclasses.replace(sc.camera, width=W, height=H))
         n = W * H * 3
-        for levels in (BVH_STACK + 1, 64):
-            deep = SceneTables.from_pack(chain_pack(levels, sky=sky), device="cuda")
+        for levels, inner in ((BVH_STACK + 1, False), (64, False), (48, True), (64, True)):
+            deep = SceneTables.from_pack(chain_pack(levels, sky=sky, interior_first=inner),
+                                         device="cuda")
             assert deep.use_env == sky
-            for n_dir in (4, 7, 40):
+            for n_dir in (4, 7) if inner else (4, 7, 40):
                 deep.n_dir_sample = shallow.n_dir_sample = n_dir
                 r, ry = K.trace_block(deep, cs, 5, 0, 2, n, 5, regen=regen)
                 s_inst = {4: 4, 7: -16, 40: -32}[n_dir]
@@ -734,19 +743,22 @@ def test_deep_bvh_refused_for_the_card(cuda_card, regen):
 def test_sphere_only_leaves_on_the_card(cuda_card, regen):
     """A tree whose every other leaf holds a sphere only (empty children in
     the node table): both kernels' BVH instances equal the plain version
-    bitwise on every lane, ray counts included."""
+    bitwise on every lane, ray counts included; on a chain of 12 levels and
+    of BVH_STACK + 8, whose walks take the deep instances."""
     from chip_smoke import chain_pack, cornell_x4
 
-    tables = SceneTables.from_pack(chain_pack(12, sphere_leaves=True), device="cuda")
     cs = cam_static(dataclasses.replace(cornell_x4(sky=False).camera, width=W, height=H))
     n = W * H * 3
-    r, ry = K.trace_block(tables, cs, 21, 0, 2, n, 6, regen=regen)
-    torch.cuda.synchronize()
-    assert K.trace_block.last_instance.endswith("true>")
     plain = trace_block_ref if regen else trace_block_lockstep_ref
-    r2, ry2 = plain(tables, cs, 21, 0, 2, n, 6)
-    assert torch.equal(ry, ry2)
-    assert torch.equal(r, r2), f"{(r != r2).sum().item()} of {n} lanes differ"
+    for levels in (12, BVH_STACK + 8):
+        tables = SceneTables.from_pack(chain_pack(levels, sphere_leaves=True), device="cuda")
+        r, ry = K.trace_block(tables, cs, 21, 0, 2, n, 6, regen=regen)
+        torch.cuda.synchronize()
+        inst = K.trace_block.last_instance
+        assert inst.endswith("true>") if levels <= BVH_STACK else "_deep<" in inst
+        r2, ry2 = plain(tables, cs, 21, 0, 2, n, 6)
+        assert torch.equal(ry, ry2)
+        assert torch.equal(r, r2), f"{(r != r2).sum().item()} of {n} lanes differ"
 
 
 @pytest.mark.gpu
@@ -1036,6 +1048,32 @@ def test_wavefront_kernels_bitwise(cuda_card, tmp_path, name):
                                   early_exit=False)
     assert torch.equal(_bits(r_k), _bits(rad)) and torch.equal(_bits(r_k), _bits(r_p))
     assert int(st_k.rays) == int(st_p.rays) == int(rays) + b
+
+
+def _camera_edges():
+    from chip_smoke import CAMERA_EDGES
+
+    return CAMERA_EDGES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dof", [False, True])
+@pytest.mark.parametrize("per", [1, 3])
+@pytest.mark.parametrize("pixels,first,offset", _camera_edges())
+def test_camera_rays_edges_bitwise(cuda_card, pixels, first, offset, per, dof):
+    """camera_rays on the card against its plain version, all six planes
+    bitwise (`chip_smoke.camera_edge`), through the instance its C entry
+    picks: the vector one where its floats a store divide the lane count,
+    the scalar one elsewhere (`chip_smoke.camera_instance`)."""
+    import collections
+
+    import chip_smoke as cs
+    from mcpt_tpu_torch.kernels import wavefront as WF
+
+    was = collections.Counter(WF.by_instance)
+    for name, got, want in cs.camera_edge(pixels, first, offset, per, dof, "cuda"):
+        assert got.shape == (pixels * per,) and torch.equal(_bits(got), _bits(want)), name
+    assert WF.by_instance - was == collections.Counter({cs.camera_instance(pixels, per): 1})
 
 
 @pytest.mark.gpu

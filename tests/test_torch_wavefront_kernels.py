@@ -28,6 +28,7 @@ import pytest
 import torch
 
 import mcpt_tpu.builtin_scenes as JB
+from mcpt_tpu.camera import generate_rays_c as jax_generate_rays_c
 from mcpt_tpu.integrator import trace_paths as jax_trace_paths
 
 import mcpt_tpu_torch.intersect as I
@@ -275,19 +276,38 @@ def test_host_keys_equal_the_device_keys():
                 torch.tensor(pair)).tolist()
 
 
-@pytest.mark.parametrize("dof,per", [(False, 3), (True, 3)])
-def test_camera_rays_lanes_repeat_the_pixel_ray(dof, per):
+@pytest.mark.parametrize("dof", [False, True])
+@pytest.mark.parametrize("per", [1, 3])
+@pytest.mark.parametrize("w,h,first,pixels", [(9, 5, 0, 45), (9, 5, 0, 1), (9, 5, 0, 5),
+                                              (9, 5, 0, 43), (1920, 1080, 3 * 65536, 43)])
+def test_camera_rays_lanes_repeat_the_pixel_ray(w, h, first, pixels, per, dof):
     """The camera's plain version on the CPU (the wrapper's route) gives
-    each of a pixel's `per` lanes the pixel's one ray (held to JAX's
-    `generate_rays_c` by test_torch_wavefront.py)."""
+    each of a pixel's `per` lanes the pixel's one ray, at pixel counts of
+    1, 5 and 4k + 3 (lane counts that the card's 16-byte stores do not
+    divide) and 45, and for a tile's ids at an offset (as `_render_tile`
+    passes them); each ray is JAX's `generate_rays_c` on the same ids, as
+    test_torch_wavefront.py holds it (bitwise through a pinhole; the thin
+    lens's sin/cos and XLA's FMAs move its rays by a few ULPs)."""
     sc = demo_scene()
-    cam = dataclasses.replace(sc.camera, width=9, height=5, use_dof=dof, focal_distance=800.0,
+    cam = dataclasses.replace(sc.camera, width=w, height=h, use_dof=dof, focal_distance=800.0,
                               aperture_radius=8.0)
-    ids = torch.arange(45)
+    ids = torch.arange(first, first + pixels)
     o, d = WF.camera_rays(cam, ids, prng.key(2), per)
     o1, d1 = WF.camera_rays(cam, ids, prng.key(2))
     for a, b in zip(o + d, o1 + d1):
-        assert a.shape == (45 * per,) and torch.equal(_bits(a), _bits(b.repeat_interleave(per)))
+        assert a.shape == (pixels * per,)
+        assert torch.equal(_bits(a), _bits(b.repeat_interleave(per)))
+    cam_j = dataclasses.replace(JB.demo_scene().camera, width=w, height=h, use_dof=dof,
+                                focal_distance=800.0, aperture_radius=8.0)
+    oj, dj = jax_generate_rays_c(cam_j, jnp.asarray(ids.numpy().astype(np.int32)),
+                                 jax.random.key(2))
+    for k in range(3):
+        if dof:
+            np.testing.assert_allclose(o1[k].numpy(), np.asarray(oj[k]), rtol=0, atol=1e-4)
+            np.testing.assert_allclose(d1[k].numpy(), np.asarray(dj[k]), rtol=0, atol=2e-6)
+        else:
+            np.testing.assert_array_equal(o1[k].numpy(), np.asarray(oj[k]))
+            np.testing.assert_array_equal(d1[k].numpy(), np.asarray(dj[k]))
 
 
 # ---------------------------------------------------------------------------
