@@ -94,21 +94,29 @@ raises, so the script exits nonzero and prints no result line.
    (its two transposing copies included) checked and timed beside it
 11b. (d-deep) trees deeper than the walks' local stack: the x4 box with its
    tree replaced by the chain of BVH_STACK + 1 levels, whose walks hold one
-   stack entry, and by interior-first chains of 48 and 64 levels, whose
-   walks push a leaf a level (47 and 63 entries: `chain_pack`), through the
+   stack entry, and by interior-first chains of 48, 64 and 128 levels,
+   whose walks push a leaf a level (47, 63 and 127 entries: `chain_pack`;
+   in the megakernels every entry in device memory, in K3 past the
+   two-tier stack's shared DEEP_TIER entries runs of DEEP_RUN go out to
+   device memory and back, csrc/deep_stack.cuh), through the
    deep instances `mega_regen_deep<4, false>`, `mega_lockstep_deep<4>` and
-   the generic ones at 7 light samples, and the 64-level interior-first
-   chain under the sky through `mega_regen_deep<4, true>` and
-   `mega_regen_deep<-16, true>` (64x48, spp 2, mb 6), each bitwise against
-   its plain version, against the box on its own shallow tree and (the
-   interior-first chains) against the chain of as many levels (ray counts
-   and radiance equal on every lane); the stack's cost: `mega_regen_deep<4,
-   false>` and `mega_lockstep_deep<4>` timed at a launch that fills the card
-   (DEEP_LANES lanes of the 1080p box, spp 1, mb 8) on the 64-level chain
+   the generic ones at 7 light samples, and each tree under the sky
+   through `mega_regen_deep<4, true>` and `mega_regen_deep<-16, true>`
+   (DEEP_CHECK: 32x24, spp 2, mb 3), each bitwise against its plain version, against
+   the box on its own shallow tree and (the interior-first chains) against
+   the chain of as many levels (ray counts and radiance equal on every
+   lane), and K3's deep walk on each tree (196,608 rays), bitwise against
+   its plain version and those trees' walks; the stack's cost:
+   `mega_regen_deep<4, false>` and `mega_lockstep_deep<4>` timed at a
+   launch that fills the card (DEEP_LANES lanes of the 1080p box, spp 1,
+   mb 8) on the 64-level chain
    and interior-first chain, which hold the same leaves, bitwise
    against the plain version on every DEEP_STRIDE-th lane, whose tally,
-   scaled, gives the bound; K3's deep walk, nearest and occlusion, on
-   196,608 rays on both, bitwise against its plain version; `render_mega`
+   scaled, gives the bound, printed beside the kernel's time with the
+   stack's device bytes; K3's deep walk, nearest and occlusion, on 196,608
+   rays on both, bitwise against its plain version, printed with the
+   entries its two-tier stack moves out and back (`spill`, `fill`) and its
+   device bytes; `render_mega`
    of the 64-level interior-first chain (both kernels, at 4 and 7 light
    samples, and the regenerating kernel under the sky: each deep instance
    must launch) and `render_radiance` with method auto, which must take the
@@ -273,7 +281,8 @@ from mcpt_tpu_torch.builtin_scenes import _mesh, demo_scene
 from mcpt_tpu_torch.camera import Camera
 from mcpt_tpu_torch.config import build_scene, load_config
 from mcpt_tpu_torch.entry import dryrun_multichip
-from mcpt_tpu_torch.constants import BVH_STACK, EPSILON, REL_EPS, T_MAX, WAVELEN_UM
+from mcpt_tpu_torch.constants import (BVH_STACK, EPSILON, REL_EPS, T_MAX, WAVELEN_UM,
+                                      spill_entries)
 from mcpt_tpu_torch.film import tonemap
 from mcpt_tpu_torch.integrator import trace_paths_c
 from mcpt_tpu_torch.intersect import intersect_c, intersect_dense, occlude_t_c
@@ -365,6 +374,9 @@ OPS_PER = {
     "env": 60, "camera": 40, "vertex": 800,
     "row": 0,  # a BVH row load: bytes, which `bound` counts once per table
     "stack": 0,  # the walks' stack high-water mark, no operation
+    # entries K3's deep walk's two-tier stack moves out to device memory and
+    # back (csrc/deep_stack.cuh): bytes, no operation
+    "spill": 0, "fill": 0,
 }
 PEAK_F32 = 67e12  # float32 outside the tensor cores, H100 SXM
 # 32-bit integer operations, H100 SXM: 64 INT32 lanes an SM (add, logical,
@@ -819,25 +831,53 @@ def chain_pack(levels, sphere_leaves=False, sky=False, interior_first=False):
 # render of the x4 box, and the plain version's stride in it
 DEEP_LANES = 2**20
 DEEP_STRIDE = 256
+# (d-deep): the every-lane checks of each deep instance on each tree (width,
+# height, spp, mb): two samples a lane, so that a lane's walks reuse its
+# stack. On the 33- to 128-level trees at 64x48 and 6 bounces the phase
+# took 745 s, 660 s of it plain versions, and the script passed its 1,200;
+# at this size the phase took 372 s and the script 850 (PERF.md)
+DEEP_CHECK = (32, 24, 2, 3)
+
+
+def deep_rays(device):
+    """K3's rays of (d-deep) and of `mega_ab.py --shapes deep`: 196,608 (3
+    tiles of pixels) from seed 13, origins in the x4 box's bounds and
+    directions uniform on the sphere, as (x, y, z) planes of origins and of
+    directions."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    lo = torch.tensor([0.0, 0.0, -800.0], device=device)
+    hi = torch.tensor([2224.0, 2195.2, 2236.8], device=device)
+    o = lo + (hi - lo) * torch.rand((3 * TILE_PX, 3), generator=gen, device=device)
+    d = torch.nn.functional.normalize(
+        torch.randn((3 * TILE_PX, 3), generator=gen, device=device), dim=1)
+    return tuple(tuple(x[:, k].contiguous() for k in range(3)) for x in (o, d))
 
 
 def deep_trees():
     """(d-deep): trees deeper than the walks' local stack, whose walks keep
-    their stack in device memory. The chain of BVH_STACK + 1 levels and the
-    interior-first chain of 48 and 64 levels (`chain_pack`; its walks' stack
-    reaches levels - 1 entries), without and (64) with the sky: the deep
-    megakernel instances (regen and lockstep, S = 4 and the generic
-    light-count instance at 7 samples; the env instances under the sky)
-    against their plain versions bitwise at 64x48, spp 2, mb 6, and against
-    the same box on its own shallow tree and, the interior-first chains, on
-    the chain of as many levels (ray counts and radiance equal on every
-    lane: every walk is exact). Then what the stack costs: on the 64-level
+    their stack in device memory (the megakernels' deep instances) or its
+    top DEEP_TIER entries in shared memory and the rest in device memory
+    (K3's, csrc/deep_stack.cuh). The chain of BVH_STACK + 1 levels
+    and the interior-first chain of 48, 64 and 128 levels (`chain_pack`; its
+    walks' stack reaches levels - 1 entries), each without and with the
+    sky: the deep megakernel instances (regen and lockstep, S = 4 and the
+    generic light-count instance at 7 samples; the env instances under the
+    sky) against their plain versions bitwise at DEEP_CHECK (32x24, spp 2,
+    mb 3), and
+    against the same box on its own shallow tree and, the interior-first
+    chains, on the chain of as many levels (ray counts and radiance equal
+    on every lane: every walk is exact); K3's deep walk on each tree,
+    nearest and occlusion, on 196,608 rays through the box, bitwise against
+    its plain version, the box's own tree's walk and the chain's. Then
+    what the stack costs: on the 64-level
     chain and interior-first chain, which hold the same leaves,
     `mega_regen_deep<4, false>` and `mega_lockstep_deep<4>` timed at a
     launch that fills the card (DEEP_LANES lanes of the 1080p box, spp 1,
     mb 8), bitwise against the plain version on every DEEP_STRIDE-th lane,
-    whose tally (scaled) gives the bound; K3's deep walk, nearest and
-    occlusion, on 196,608 rays, bitwise against its plain version. Then
+    whose tally (scaled) gives the bound, printed with the stack's device
+    bytes; K3's deep walk, nearest and occlusion, on those rays, timed,
+    with the entries its stack moves to device memory and back (`spill`,
+    `fill`) and its device bytes. Then
     each deep instance's main path (`render_mega` of the 64-level
     interior-first chain, and the wavefront's `render_radiance` with method
     auto, which must take the deep walk). Returns {row name: (launches,
@@ -845,44 +885,80 @@ def deep_trees():
     the full launch on the interior-first chain."""
     t0 = time.monotonic()
     sc = cornell_x4(sky=False)
-    cam = dataclasses.replace(sc.camera, width=64, height=48)
+    cam = dataclasses.replace(sc.camera, width=DEEP_CHECK[0], height=DEEP_CHECK[1])
     cs = cam_static(cam)
     n = cam.width * cam.height * 3
+    spp, mb = DEEP_CHECK[2:]
     shallow = {sky: SceneTables.from_pack(cornell_x4(sky=sky).compile(cluster_threshold=8),
                                           device=DEV) for sky in (False, True)}
     at = {}
-    # the env instances under the sky: the regenerating kernel only (the
-    # lockstep kernel takes no env map)
-    for form, levels, sky in (("chain", BVH_STACK + 1, False), ("interior-first", 48, False),
-                              ("interior-first", 64, False), ("interior-first", 64, True)):
+    # K3's rays: 196,608 through the box, for the trees' checks and the timed walks
+    oc, dc = deep_rays(DEV)
+
+    def k3(pack, occ):
+        return ip.intersect_prims_c(pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc,
+                                    occlusion=occ, walk=pack.walk)
+
+    own_walk = pack_to(cornell_x4(sky=False).compile(cluster_threshold=8), DEV, walk=True)
+    k3_own = {occ: k3(own_walk, occ) for occ in (False, True)}
+    for form, levels in (("chain", BVH_STACK + 1), ("interior-first", 48),
+                         ("interior-first", 64), ("interior-first", 128)):
         inner = form == "interior-first"
-        deep = SceneTables.from_pack(chain_pack(levels, sky=sky, interior_first=inner),
-                                     device=DEV)
-        chain = SceneTables.from_pack(chain_pack(levels, sky=sky), device=DEV) if inner else None
-        own = shallow[sky]
-        check(deep.bvh_depth == levels and deep.use_env == sky and mk.deep(deep)
-              and not mk.deep(own), f"(d-deep) {form} of {levels} levels: depth {deep.bvh_depth}")
-        label = f"(d-deep) {form} {levels}{' sky' if sky else ''}"
-        for regen in (True, False) if not sky else (True,):
-            for n_dir in (FAN, 7):
-                for t in (deep, own, chain):
-                    if t is not None:
-                        t.n_dir_sample = n_dir
-                m = kernel_vs_plain(deep, cam, 2, 6, 11, label, every_lane=True, regen=regen)
-                inst = mk.trace_block.last_instance
-                check("_deep<" in inst, f"(d-deep) launched {inst}")
-                r, ry = mk.trace_block(deep, cs, 11, 0, 2, n, 6, regen=regen)
-                for name, t in (("the box's own tree", own), (f"the chain of {levels} levels",
-                                                               chain)):
-                    if t is None:
-                        continue
-                    r2, ry2 = mk.trace_block(t, cs, 11, 0, 2, n, 6, regen=regen)
-                    check(torch.equal(ry, ry2) and torch.equal(r, r2),
-                          f"{label}: {inst} differs from {mk.trace_block.last_instance} on {name}")
-                phase("d-deep", f"{inst}, {form} of {levels} levels: ray counts and radiance "
-                                f"equal on every lane to the box's own {own.bvh_depth}-level "
-                                f"tree{' and to the chain' if inner else ''}")
-                at[inst] = m
+        # the env instances under the sky: the regenerating kernel only (the
+        # lockstep kernel takes no env map)
+        for sky in (False, True):
+            deep = SceneTables.from_pack(chain_pack(levels, sky=sky, interior_first=inner),
+                                         device=DEV)
+            chain = (SceneTables.from_pack(chain_pack(levels, sky=sky), device=DEV) if inner
+                     else None)
+            own = shallow[sky]
+            check(deep.bvh_depth == levels and deep.use_env == sky and mk.deep(deep)
+                  and not mk.deep(own),
+                  f"(d-deep) {form} of {levels} levels: depth {deep.bvh_depth}")
+            label = f"(d-deep) {form} {levels}{' sky' if sky else ''}"
+            for regen in (True, False) if not sky else (True,):
+                for n_dir in (FAN, 7):
+                    for t in (deep, own, chain):
+                        if t is not None:
+                            t.n_dir_sample = n_dir
+                    m = kernel_vs_plain(deep, cam, spp, mb, 11, label, every_lane=True,
+                                        regen=regen)
+                    inst = mk.trace_block.last_instance
+                    check("_deep<" in inst, f"(d-deep) launched {inst}")
+                    r, ry = mk.trace_block(deep, cs, 11, 0, spp, n, mb, regen=regen)
+                    for name, t in (("the box's own tree", own),
+                                    (f"the chain of {levels} levels", chain)):
+                        if t is None:
+                            continue
+                        r2, ry2 = mk.trace_block(t, cs, 11, 0, spp, n, mb, regen=regen)
+                        check(torch.equal(ry, ry2) and torch.equal(r, r2),
+                              f"{label}: {inst} differs from {mk.trace_block.last_instance} "
+                              f"on {name}")
+                    phase("d-deep", f"{inst}, {form} of {levels} levels: ray counts and "
+                                    f"radiance equal on every lane to the box's own "
+                                    f"{own.bvh_depth}-level tree"
+                                    f"{' and to the chain' if inner else ''}")
+                    at[inst] = m
+        # K3's deep walk on the same tree: its plain version, the chain's and
+        # the box's own tree's answers on every ray
+        pack = pack_to(chain_pack(levels, interior_first=inner), DEV, walk=True)
+        chain = pack_to(chain_pack(levels), DEV, walk=True) if inner else None
+        for occ in (False, True):
+            mode = ("occlusion" if occ else "nearest") + " deep walk"
+            got = k3(pack, occ)
+            check(ip.intersect_prims_c.last_mode == mode,
+                  f"(d-deep) the intersector reported {ip.intersect_prims_c.last_mode!r}")
+            want = intersect_walk_ref(pack.walk.bvh, pack.walk.leaf, pack.sph_geom, pack.n_tris,
+                                      oc, dc, occlusion=occ, depth=pack.walk.depth)
+            label = f"(d-deep) K3 {mode}, {form} of {levels} levels"
+            bitwise(label, got, want, "the plain deep walk")
+            bitwise(label, got, k3_own[occ], "the box's own tree's walk")
+            if chain is not None:
+                bitwise(label, got, k3(chain, occ), "the chain's deep walk")
+            phase("d-deep", f"intersect_walk_deep<{str(occ).lower()}>, {form} of {levels} "
+                            f"levels, {oc[0].numel()} rays: bitwise equal on every ray to its "
+                            f"plain version, the box's own {own_walk.walk.depth}-level tree"
+                            f"{' and the chain' if inner else ''}")
     # what the stack costs: the same leaves with the stack at 1 entry
     # (the chain) and at 63 (the interior-first chain), at a full launch
     big = cam_static(dataclasses.replace(sc.camera, width=1920, height=1080))
@@ -913,6 +989,7 @@ def deep_trees():
             ms = cuda_ms(kern, 3, windows=3)
             cost[regen, form] = ms
             info = mk.instance_info(tables, big, 8, regen=regen)
+            area = mk.walk_stack(tables, DEEP_LANES)
             phase("kernel", f"(d-deep) {inst}, {form} of 64 levels, {DEEP_LANES} lanes of the "
                             f"1920x1080 box, spp 1, mb 8: kernel {ms:.3f} ms, bound "
                             f"{bound_ms:.4f} ms ({bound_by}; the plain tally of every "
@@ -921,6 +998,10 @@ def deep_trees():
                             f"bitwise equal there, its stack high-water mark {stack}; "
                             f"{info['registers']} registers, {info['blocks_per_sm']} blocks of "
                             f"{info['threads']} per SM")
+            phase("d-deep", f"{inst}, {form} of 64 levels: its stack, every entry in device "
+                            f"memory, {area.numel() * 4} bytes for {DEEP_LANES} lanes "
+                            f"({area.numel() * 4 / DEEP_LANES:.0f} a lane), high-water mark "
+                            f"{stack}, in {ms:.3f} ms")
             if form != "chain":
                 at[inst] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": 0.0,
                             "bound_ms": bound_ms, "bound_by": bound_by}
@@ -929,15 +1010,7 @@ def deep_trees():
                         f"lanes: {cost[regen, 'interior-first']:.3f} ms against "
                         f"{cost[regen, 'chain']:.3f} ms, the stack's pushes and pops "
                         f"{cost[regen, 'interior-first'] - cost[regen, 'chain']:+.3f} ms")
-    # K3's deep walk on 196,608 rays through the box
-    gen = torch.Generator(device=DEV).manual_seed(13)
-    lo = torch.tensor([0.0, 0.0, -800.0], device=DEV)
-    hi = torch.tensor([2224.0, 2195.2, 2236.8], device=DEV)
-    o = lo + (hi - lo) * torch.rand((3 * TILE_PX, 3), generator=gen, device=DEV)
-    d = torch.nn.functional.normalize(torch.randn((3 * TILE_PX, 3), generator=gen, device=DEV),
-                                      dim=1)
-    oc, dc = tuple(o[:, k].contiguous() for k in range(3)), tuple(d[:, k].contiguous()
-                                                                  for k in range(3))
+    # K3's deep walk on the 196,608 rays
     answers = {}
     for form in ("chain", "interior-first"):
         pack = pack_to(chain_pack(64, interior_first=form != "chain"), DEV, walk=True)
@@ -966,11 +1039,15 @@ def deep_trees():
             tables = table_bytes(pack.walk.bvh, pack.walk.leaf, pack.sph_geom)
             bound_ms, bound_by = roofline(sum(OPS_PER[k] * v for k, v in ops.items()),
                                           oc[0].numel() * (24 + (4 if occ else 16)) + tables)
+            area = 12 * spill_entries(pack.walk.depth) * oc[0].numel()
             phase("kernel", f"(d-deep) K3 [{mode}], {form} of {pack.walk.depth} levels, "
                             f"{oc[0].numel()} rays: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
                             f"bound {bound_ms:.5f} ms ({bound_by}; {dict(ops)}), share "
                             f"{bound_ms / ms:.4f}, stack high-water mark {stack}; bitwise equal "
-                            f"on every ray to the plain version and the chain's answers")
+                            f"on every ray to the plain version and the chain's answers; the "
+                            f"two-tier stack moved {ops['spill']} entries out and {ops['fill']} "
+                            f"back, its device tier {area} bytes (every level: "
+                            f"{12 * pack.walk.depth * oc[0].numel()})")
             cost[occ, form] = ms
             if form != "chain":
                 at[f"intersect_prims<{mode}>"] = {"ms": ms, "plain_ms": plain_ms,

@@ -22,10 +22,23 @@ CLAMP_DIRECT = 15.0
 # Sentinel "miss" distance (a large finite float32).
 T_MAX = np.float32(3.0e37)
 
-# Entries of the megakernels' BVH walk stacks (csrc/mega_common.cuh kStack):
-# a walk pushes at most one entry per tree level, so
-# kernels/tables.py::bvh_tables refuses trees of more levels.
+# Entries of the kernels' BVH walk stacks (csrc/mega_common.cuh kStack): a
+# walk pushes at most one entry per tree level, so a tree of more levels
+# takes the deep instances.
 BVH_STACK = 32
+
+# K3's deep walk's two-tier stack (csrc/deep_stack.cuh kTier, kRun): the
+# top DEEP_TIER entries stay in shared memory, the rest go to the ray's
+# area of device memory DEEP_RUN at a time.
+DEEP_TIER = 8
+DEEP_RUN = 4
+
+
+def spill_entries(depth):
+    """Entries of a ray's device area for a tree of `depth` levels
+    (csrc/deep_stack.cuh `spill_entries`): those past the tier, in whole
+    runs."""
+    return -(-(depth - DEEP_TIER) // DEEP_RUN) * DEEP_RUN if depth > DEEP_TIER else 0
 
 # The three traced wavelengths in micrometers, CIE 1931 primaries
 # (reference: WaveLen.hpp:7-18). Channel order is R, G, B.

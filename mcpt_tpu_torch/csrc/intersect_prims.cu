@@ -69,7 +69,8 @@
 // and past a thousand rows the sweep is bound by its own instruction stream.
 // The walk changes the work instead: each thread walks the pack's child-pair
 // rows near-first with a stack of kStack entries (local memory; a deeper
-// tree's walk, intersect_walk_deep, keeps it in device memory), descends
+// tree's walk, intersect_walk_deep, keeps its top kTier entries in shared
+// memory and the rest in device memory, deep_stack.cuh), descends
 // rows until it holds a leaf (while-while: the warp then tests leaves
 // together), and tests the leaf's tri_sc rows, read in leaf order through the
 // read-only path, as the sweep tests them. An entry is taken while its entry
@@ -91,6 +92,8 @@
 
 #include <cuda_runtime.h>
 
+#include "deep_stack.cuh"
+
 namespace {
 
 constexpr float kEps = 1e-4f;
@@ -104,9 +107,15 @@ constexpr int kThreads = 256;
 constexpr int kRays = 4;
 // entries of a walk's per-thread stack (constants.py BVH_STACK): a walk
 // pushes at most one entry per tree level; deeper trees take
-// intersect_walk_deep, whose stack lives in device memory
+// intersect_walk_deep, whose stack goes past its shared-memory tier into device
+// memory
 constexpr int kStack = 32;
 constexpr int kWalkId = 15;  // a walk leaf row's index in tri_sc (int bits)
+// resident blocks a SM that the deep walk is held to (48 registers, as the
+// walk of the one-tier stack had): uncapped, its two-tier stack took 56-62
+// registers, 4 blocks, and the walk of a tree whose stack stays in the
+// tier ran 3% slower cold than the one-tier walk (PERF.md)
+constexpr int kDeepBlocks = 5;
 
 enum Mode { kNearest = 0, kOcclusion = 1, kTris = 2 };
 enum Form { kSweep = 0, kTiled = 1, kWalk = 2, kFan = 3, kFanTiled = 4, kDeepWalk = 5 };
@@ -444,11 +453,9 @@ __device__ __forceinline__ bool passes(float tmin, float tmax) {
 // The walk's stack: an entry is a link, a count and its entry t, pushed at
 // most once a tree level. LocalStack views kStack entries in three
 // per-thread arrays (local memory) that intersect_walk declares (held in one
-// struct, they cost its nearest mode 3 registers); DeepStack keeps one entry
-// a level in device memory (intersect_walk_deep, for a tree of more than
-// kStack levels: `stack` holds three int arrays of depth x n entries, entry e
-// of ray i at e * n + i, so that a warp's pushes and pops at one level touch
-// neighbouring words).
+// struct, they cost its nearest mode 3 registers); DeepStack, for a tree of
+// more than kStack levels (intersect_walk_deep), keeps the top kTier entries
+// in shared memory and the rest in device memory (deep_stack.cuh).
 struct LocalStack {
   int *link_, *cnt_;
   float* t_;
@@ -462,18 +469,7 @@ struct LocalStack {
   __device__ __forceinline__ int cnt(int sp) const { return cnt_[sp]; }
 };
 
-struct DeepStack {
-  int *link_, *cnt_, *t_;
-  size_t level;  // the stride between a ray's entries: the launch's rays
-  __device__ __forceinline__ void push(int sp, int link, int cnt, float t) {
-    link_[sp * level] = link;
-    cnt_[sp * level] = cnt;
-    t_[sp * level] = __float_as_int(t);
-  }
-  __device__ __forceinline__ float t(int sp) const { return __int_as_float(t_[sp * level]); }
-  __device__ __forceinline__ int link(int sp) const { return link_[sp * level]; }
-  __device__ __forceinline__ int cnt(int sp) const { return cnt_[sp * level]; }
-};
+using DeepStack = TierStack<kThreads>;
 
 // Ray i's walk, with the spheres in shared memory.
 template <bool OCC, class Stack>
@@ -572,7 +568,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <bool OCC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kDeepBlocks)
     intersect_walk_deep(Rays r, const float* __restrict__ bvh, const float* __restrict__ leaf,
                         const float* __restrict__ sph, int n_sph, int sph_base, int n, Out out,
                         int* __restrict__ stack, int depth) {
@@ -581,9 +577,8 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const size_t level = static_cast<size_t>(n);
-  int* link = stack + i;
-  DeepStack st{link, link + level * depth, link + 2 * level * depth, level};
+  // the block's stack tiers follow the spheres in shared memory
+  DeepStack st(reinterpret_cast<int*>(smem + n_sph * 4), {stack + i, n, spill_entries(depth)});
   walk_ray<OCC>(r, bvh, leaf, n_sph, sph_base, i, out, st);
 }
 
@@ -628,7 +623,7 @@ template <bool OCC>
 cudaError_t launch_walk_deep(const Rays& r, const float* bvh, const float* leaf, const float* sph,
                              int n_sph, int sph_base, int n, const Out& out, int* stack,
                              int depth, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(n_sph) * 4 * sizeof(float);
+  const size_t smem = static_cast<size_t>(n_sph) * 4 * sizeof(float) + tier_bytes(kThreads);
   cudaError_t e = allow_smem(intersect_walk_deep<OCC>, smem);
   if (e != cudaSuccess) return e;
   const int blocks = (n + kThreads - 1) / kThreads;
@@ -649,7 +644,8 @@ cudaError_t launch_walk_deep(const Rays& r, const float* bvh, const float* leaf,
 //   bvh:    null for the sweep, or float32 (n_rows >= 1, 16) child-pair rows
 //           of a tree of `depth` levels
 //   stack:  with a tree of more than kStack levels, int32 scratch of
-//           3 x depth x n entries for the walk's stack (else unused)
+//           3 x spill_entries(depth) x n entries for what the walks' stacks
+//           hold past their shared-memory tier (deep_stack.cuh; else unused)
 //   sph:    float32 (n_sph, 4) rows: center, radius (n_sph = 0: triangles only)
 //   fan:    0, or S >= 1 for the fan form of the occlusion sweep (n a
 //           multiple of S; refused with a walk or in the other modes)

@@ -47,6 +47,13 @@ constexpr int kThreads = 128;
 constexpr int kCapBlocks = 6;
 template <int S, bool BVH>
 constexpr bool kCapped = BVH && S == 4;
+// The deep S = 4 instances run capped at kDeepCapBlocks (128 registers,
+// 4-16 bytes spilled): uncapped they took 145-148 registers and 3 blocks a
+// SM, and ran 8% slower on a 64-level tree whose stack holds one entry and
+// 5-6% on one whose stack reaches 63. The generic deep instances, at
+// 247-255 registers, are not capped. K3's two-tier stack (deep_stack.cuh)
+// was tried here under the same cap and was slower (PERF.md).
+constexpr int kDeepCapBlocks = 4;
 
 // table row widths (kernels/tables.py TABLE_COLS)
 constexpr int kTri = 25, kOcc = 16, kSph = 6, kMat = 13, kEmt = 17, kEmeta = 4;

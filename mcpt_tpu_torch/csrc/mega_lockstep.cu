@@ -293,9 +293,13 @@ __global__ void __launch_bounds__(kThreads, kCapBlocks) mega_lockstep(Params P) 
   lockstep_lanes<S, BVH>(P);
 }
 // The BVH instances for a tree of more than kStack levels (mega_common.cuh
-// DeepStack).
-template <int S>
+// DeepStack), the S = 4 ones capped at kDeepCapBlocks.
+template <int S, std::enable_if_t<S != 4, int> = 0>
 __global__ void __launch_bounds__(kThreads) mega_lockstep_deep(Params P) {
+  lockstep_lanes<S, true, true>(P);
+}
+template <int S, std::enable_if_t<S == 4, int> = 0>
+__global__ void __launch_bounds__(kThreads, kDeepCapBlocks) mega_lockstep_deep(Params P) {
   lockstep_lanes<S, true, true>(P);
 }
 

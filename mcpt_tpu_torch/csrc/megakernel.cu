@@ -299,9 +299,13 @@ __global__ void __launch_bounds__(kThreads, kCapBlocks) mega_regen(Params P) {
   regen_lanes<S, ENV, BVH>(P);
 }
 // The BVH instances for a tree of more than kStack levels (mega_common.cuh
-// DeepStack).
-template <int S, bool ENV>
+// DeepStack), the S = 4 ones capped at kDeepCapBlocks.
+template <int S, bool ENV, std::enable_if_t<S != 4, int> = 0>
 __global__ void __launch_bounds__(kThreads) mega_regen_deep(Params P) {
+  regen_lanes<S, ENV, true, true>(P);
+}
+template <int S, bool ENV, std::enable_if_t<S == 4, int> = 0>
+__global__ void __launch_bounds__(kThreads, kDeepCapBlocks) mega_regen_deep(Params P) {
   regen_lanes<S, ENV, true, true>(P);
 }
 

@@ -19,7 +19,7 @@ quadratic's stable q-form, AABB slabs with ±EPSILON slack, nearest hit wins
 
 `auto` picks `kernel` on a CUDA device at any table size and tree depth
 (a tree deeper than `constants.BVH_STACK` levels takes the walk whose
-stack lives in device memory), and on the CPU `dense`
+stack goes past a shared-memory tier into device memory), and on the CPU `dense`
 up to 4096 padded triangles and `bvh` above (JAX's rule). Every function
 takes the device pack (`scene.pack_to`); vectors are 3-tuples of (B,)
 tensors in the `_c` functions and (B, 3) rows elsewhere.

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from mcpt_tpu_torch.constants import BVH_STACK
+from mcpt_tpu_torch.constants import BVH_STACK, spill_entries
 from mcpt_tpu_torch.kernels import build as _build
 from mcpt_tpu_torch.kernels.intersect_prims_ref import fan_origins, intersect_prims_ref
 
@@ -99,9 +99,9 @@ def _launch(tri, sph, sph_base, oc, dc, occlusion, walk=None, fan=0):
     lib = load_library()
     ray_ptrs = (ctypes.c_void_p * 6)(*(x.data_ptr() for x in rays))
     out_ptrs = (ctypes.c_void_p * 4)(*outs)
-    # a tree deeper than the kernel's local stack: the walk's stack in
-    # device memory, 3 x depth entries a ray
-    stack = (torch.empty(3 * depth * b, dtype=torch.int32, device=dev)
+    # a tree deeper than the kernel's local stack: the walk's stack past its
+    # shared-memory tier in device memory, 3 x spill_entries(depth) ints a ray
+    stack = (torch.empty(3 * spill_entries(depth) * b, dtype=torch.int32, device=dev)
              if walk is not None and depth > BVH_STACK else None)
     launched = (ctypes.c_int * 2)(-1, 0)
     with torch.cuda.device(dev):

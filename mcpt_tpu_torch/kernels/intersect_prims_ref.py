@@ -122,7 +122,7 @@ def intersect_walk_ref(bvh, leaf_sc, sph, sph_base, oc, dc, occlusion=False, ops
     leaf_id = leaf_sc.view(torch.int32)[:, WALK_ID].to(torch.int64)
     walk = _Walk(SimpleNamespace(bvh=bvh, leaf_tri=leaf_sc, bvh_depth=depth),
                  torch.ones(b, dtype=torch.bool, device=best_t.device),
-                 torch.zeros_like(best_t), ops)
+                 torch.zeros_like(best_t), ops, tiered=True)
     while walk.lanes.numel():
         at_leaf = walk.cnt > 0
         for m, rows in walk.leaf_rows(at_leaf):

@@ -30,6 +30,8 @@ from mcpt_tpu_torch.constants import (
     BVH_STACK,
     CLAMP_DIRECT,
     CLAMP_INDIRECT,
+    DEEP_RUN,
+    DEEP_TIER,
     EPSILON,
     REL_EPS,
     T_MAX,
@@ -530,11 +532,16 @@ class _Walk:
     `key` (the entry t of a nearest walk, or the ray mask of a fan walk) and
     a stack of (link, cnt, key) entries, BVH_STACK of them or, for a tree of
     more levels, one a level (`tables.bvh_depth`: the kernels' deep
-    instances, which keep it in device memory). Each row a ray loads counts
-    one under `row` in `ops`, and `stack` keeps the most entries a ray's
-    stack has held (its high-water mark, not a sum)."""
+    instances). Each row a ray loads counts one under `row` in `ops`, and
+    `stack` keeps the most entries a ray's stack has held (its high-water
+    mark, not a sum). With `tiered`, a deep tree's walk also tallies what
+    K3's deep walk's two-tier stack (csrc/deep_stack.cuh) moves between its
+    shared-memory tier of DEEP_TIER entries and device memory, DEEP_RUN
+    entries at a time: entries written out under `spill`, entries read
+    back under `fill`. Per ray, `lo` counts the entries below the tier.
+    (The megakernels' deep instances keep every entry in device memory.)"""
 
-    def __init__(self, tables, live, key, ops=None):
+    def __init__(self, tables, live, key, ops=None, tiered=False):
         self.nodes = tables.bvh
         self.links = tables.bvh.view(torch.int32)[:, 12:16].to(torch.int64)
         self.leaf = tables.leaf_tri
@@ -547,6 +554,9 @@ class _Walk:
         self.stack = [torch.zeros((n, depth), dtype=t.dtype, device=dev)
                       for t in (self.link, self.cnt, key)]
         self.sp = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.tiered = tiered and ops is not None and tables.bvh_depth > BVH_STACK
+        if self.tiered:
+            self.lo = torch.zeros_like(self.sp)
         self.max_leaf = int(self.links[:, 1::2].max().clamp(min=0).item())
         self.ops = ops
 
@@ -577,6 +587,11 @@ class _Walk:
         self.sp[lanes] = sp + 1
         if self.ops is not None and lanes.numel():
             self.ops["stack"] = max(self.ops["stack"], int(sp.max()) + 1)
+        if self.tiered:  # a full tier sends its oldest run out
+            lo = self.lo[lanes]
+            full = sp == lo + DEEP_TIER
+            _tally(self.ops, "spill", DEEP_RUN * int(full.sum()))
+            self.lo[lanes] = torch.where(full, lo + DEEP_RUN, lo)
 
     def take(self, at, link, cnt, key):
         """Walking rays `at` (a mask) go on to item (link, cnt) with `key`."""
@@ -597,6 +612,11 @@ class _Walk:
             idx, lanes = idx[~empty], lanes[~empty]
             sp = self.sp[lanes] - 1
             self.sp[lanes] = sp
+            if self.tiered:  # an empty tier takes the run below it back
+                lo = self.lo[lanes]
+                below = sp < lo
+                _tally(self.ops, "fill", DEEP_RUN * int(below.sum()))
+                self.lo[lanes] = torch.where(below, lo - DEEP_RUN, lo)
             e_link, e_cnt, e_key = (st[lanes, sp] for st in self.stack)
             ok, e_key = accept(lanes, e_key)
             go = idx[ok]

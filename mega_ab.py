@@ -27,7 +27,7 @@ reverse order), `--rounds` times:
   which takes conf.json's 32 light samples, at spp 4;
 - `mega_lockstep<4, false>`: the 384x384 DEMO at spp 256 (and spp 2);
 - `mega_lockstep<4, true>`: the x4 Cornell box at 384x384, spp 16.
-and four wavefront shapes, for which each tree runs in a process of its own
+and the wavefront shapes, for which each tree runs in a process of its own
 (`python -P mega_ab.py --wavefront-turn`, with the tree's root first on the
 import path: the wavefront's modules import each other by package name, so
 a tree cannot be loaded beside another):
@@ -69,7 +69,21 @@ a tree cannot be loaded beside another):
   lanes not a multiple of 4), each bitwise against the tree's own plain
   version and the parent's planes, timed cold and back to back, with the
   instance the tree's C entry reports; each tree's first turn profiles the
-  1080p DEMO wavefront render at spp 2 (device ms a camera_rays launch).
+  1080p DEMO wavefront render at spp 2 (device ms a camera_rays launch);
+- `deep K3`: K3's deep walk (`intersect_walk_deep`, nearest and occlusion)
+  at `chip_smoke.py` (d-deep)'s 196,608 rays through the box (the tree's
+  own `chip_smoke.deep_rays`, so the parent must be a tree that has it),
+  on the chain and the interior-first chain of DEEP_LEVELS (64) levels
+  (`chip_smoke.chain_pack`: the same leaves, the walks' stacks at 1 and 63
+  entries), each bitwise against the tree's own plain walk and the
+  parent's answers, timed cold and back to back.
+`--shapes deep` takes `deep K3` and the megakernels' deep instances on the
+same two trees: `mega_regen_deep<4, false>` and `mega_lockstep_deep<4>` at
+(d-deep)'s launch (2^20 lanes of the 1080p x4 box, spp 1, mb 8; each tree
+allocates their stacks with its own `walk_stack`), in this process; each
+turn times one launch after a read that evicts the L2 (cold), then three
+launches back to back. Medians are printed with their range over the
+turns.
 Each intersector call is timed with CUDA events (the median of 9 means of
 40 launches, queued behind a spin of the device: `queued_ms`), each render by the host's wall clock after a warm-up render
 at spp 1; on a tree's first turn the spp 1 render runs under
@@ -119,7 +133,12 @@ AB_DIR = kbuild.BUILD_DIR / "ab"
 SOURCES = {True: ("megakernel.cu", "mcpt_mega_trace"),
            False: ("mega_lockstep.cu", "mcpt_mega_lockstep")}
 WAVEFRONT = ("wavefront DEMO", "wavefront DEMO + soldier", "shade_pre", "shade_pre_bwd",
-             "shade_post", "fold", "camera_rays")
+             "shade_post", "fold", "camera_rays", "deep K3")
+# the `deep` set: the trees' levels (chip_smoke.chain_pack, the chain and the
+# interior-first chain), the megakernels' lanes (the first block of the
+# 1080p x4 box, chip_smoke.py (d-deep)'s) and K3's rays (3 tiles of pixels)
+DEEP_LEVELS = 64
+DEEP_FORMS = ("chain", "interior-first")
 # the vertex kernels' and shade_post's and fold's shapes: the DEMO's depth-0
 # vertices of a 256x256 tile (196,608 lanes) and of the 384x384 train step
 # (442,368 lanes)
@@ -195,7 +214,10 @@ class Library:
     def launch(self, tables, cs, seed, lane_offset, spp, n, mb):
         rad = torch.empty(n, dtype=torch.float32, device="cuda")
         rays = torch.empty(n, dtype=torch.float32, device="cuda")
-        args = self.mk.kernel_args(tables, cs, seed, lane_offset, spp, n, mb, rad, rays)
+        # a deep tree's walk stacks, as the tree's own trace_block sizes them
+        stack = self.mk.walk_stack(tables, n) if hasattr(self.mk, "walk_stack") else None
+        args = self.mk.kernel_args(tables, cs, seed, lane_offset, spp, n, mb, rad, rays,
+                                   **({} if stack is None else {"stack": stack}))
         launched = (ctypes.c_int * 4)()  # S and flags; a tree may write 3 or 4
         stream = torch.cuda.current_stream().cuda_stream
         status = self.fn(*args, stream, ctypes.cast(launched, ctypes.c_void_p))
@@ -229,6 +251,7 @@ class Shape:
     mb: int
     blocks: tuple
     seed: int = 1
+    cold: bool = False  # also time each launch after an L2 eviction, and back to back
 
 
 def blocks_of(lanes):
@@ -274,7 +297,26 @@ def shapes():
         "lockstep x4 Cornell spp 16": Shape("mega_lockstep<4, true>", False,
                                             x4.compile(cluster_threshold=8),
                                             cam_static(x4_cam), 16, 8, n384),
+        **deep_shapes(),
     }
+
+
+def deep_shapes():
+    """The megakernels' part of the `deep` set: `mega_regen_deep<4, false>`
+    and `mega_lockstep_deep<4>` at chip_smoke.py (d-deep)'s launch (its
+    DEEP_LANES lanes of the 1080p x4 box, spp 1, mb 8, seed 7) on the chain
+    and the interior-first chain of DEEP_LEVELS levels (the same leaves;
+    their walks' stacks hold 1 and DEEP_LEVELS - 1 entries)."""
+    cam = dataclasses.replace(chip_smoke.cornell_x4(sky=False).camera, width=1920, height=1080)
+    out = {}
+    for form in DEEP_FORMS:
+        pack = chip_smoke.chain_pack(DEEP_LEVELS, interior_first=form != "chain")
+        for regen, inst in ((True, "mega_regen_deep<4, false>"),
+                            (False, "mega_lockstep_deep<4>")):
+            out[f"deep {'regen' if regen else 'lockstep'} {form} {DEEP_LEVELS}"] = Shape(
+                inst, regen, pack, cam_static(cam), 1, 8, ((0, chip_smoke.DEEP_LANES),),
+                seed=7, cold=True)
+    return out
 
 
 def run_shape(lib, tables, sh):
@@ -716,6 +758,55 @@ def camera_turn(out, profile):
     Path(f"{out}.json").write_text(json.dumps(res))
 
 
+def deep_turn(out):
+    """One turn of K3's deep walk (`intersect_walk_deep`) on the tree first
+    on the import path: the tree's intersector built (its ptxas lines
+    printed), then on the chain and the interior-first chain of DEEP_LEVELS
+    levels (`chip_smoke.chain_pack`, moved as `render_radiance` moves a
+    scene: `pack_to(..., walk=True)`), nearest and occlusion, on
+    chip_smoke.py (d-deep)'s 196,608 rays through the box: bitwise against
+    the tree's own plain walk, answers to `out`.npz (held against the
+    parent's), timed cold (`cold_ms`) and back to back (`queued_ms`)."""
+    import numpy as np
+
+    from mcpt_tpu_torch.kernels import intersect_prims as ip
+    from mcpt_tpu_torch.kernels.intersect_prims_ref import intersect_walk_ref
+    from mcpt_tpu_torch.scene import pack_to
+
+    t0 = time.monotonic()
+    kbuild.build(ip.SOURCE, True, summary=lambda log: [
+        f"[ptxas] {ip.SOURCE.name} {line}" for line in kbuild.ptxas_lines(log)])
+    print(f"[build] {ip.SOURCE.name} {time.monotonic() - t0:.1f} s", flush=True)
+    oc, dc = chip_smoke.deep_rays("cuda")
+    res, answers = {"modes": {}}, {}
+    for form in DEEP_FORMS:
+        pack = pack_to(chip_smoke.chain_pack(DEEP_LEVELS, interior_first=form != "chain"),
+                       "cuda", walk=True)
+        for occ in (False, True):
+            label = f"{'occlusion' if occ else 'nearest'} {form} {DEEP_LEVELS}"
+            fn = lambda pack=pack, occ=occ: ip.intersect_prims_c(
+                pack.tri_sc, pack.sph_geom, pack.n_tris, oc, dc, occlusion=occ, walk=pack.walk)
+            got = fn()
+            mode = ip.intersect_prims_c.last_mode
+            want = intersect_walk_ref(pack.walk.bvh, pack.walk.leaf, pack.sph_geom, pack.n_tris,
+                                      oc, dc, occlusion=occ, depth=pack.walk.depth)
+            for k, (g, w) in enumerate(zip(got, want)):
+                if w is None:
+                    continue
+                view = (lambda x: x.view(torch.int32)) if g.is_floating_point() else (lambda x: x)
+                if not torch.equal(view(g), view(w)):
+                    raise AssertionError(f"K3 {label}: output {k} differs from the plain walk "
+                                         f"on {int((view(g) != view(w)).sum())} rays")
+                answers[f"{label} {k}"] = g.cpu().numpy()
+            torch.cuda.synchronize()
+            res["modes"][label] = f"{mode}, bitwise equal to the plain walk"
+            cold_ms(fn, 5)  # warm: the host's first calls, the card's clocks
+            res[f"{label}_ms"] = cold_ms(fn)
+            res[f"{label} warm_ms"] = sorted(queued_ms(fn, 10) for _ in range(5))[2]
+    np.savez(f"{out}.npz", **answers)
+    Path(f"{out}.json").write_text(json.dumps(res))
+
+
 def wavefront_turn(out, shape, profile, sass=None):
     """One turn of a wavefront shape in this process, on the tree first on
     the import path: writes its answers and image to `out`.npz and its
@@ -735,6 +826,8 @@ def wavefront_turn(out, shape, profile, sass=None):
         return post_fold_turn(out, shape)
     if shape == "camera_rays":
         return camera_turn(out, profile)
+    if shape == "deep K3":
+        return deep_turn(out)
     cam = dataclasses.replace(demo_scene().camera, width=1920, height=1080)
     if shape == "wavefront DEMO":
         scene = demo_scene()
@@ -880,11 +973,14 @@ def wavefront_ab(roots, shapes, rounds, result, sass=None):
                 for t in trees:
                     turns = result["trees"][t]["wavefront"][shape]
                     walls = ["render_wall"] if "render_wall_s" in turns[0] else []
-                    for k in [*turns[0]["modes"], *walls]:
+                    warm = [f"{k} warm" for k in turns[0]["modes"] if f"{k} warm_ms" in turns[0]]
+                    for k in [*turns[0]["modes"], *warm, *walls]:
                         key = "render_wall_s" if k == "render_wall" else f"{k}_ms"
                         label = "render spp 8 wall (s)" if k == "render_wall" else k
-                        result["trees"][t]["median_ms"][f"{shape} {label}"] = sorted(
-                            x[key] for x in turns)[len(turns) // 2]
+                        xs = sorted(x[key] for x in turns)
+                        result["trees"][t]["median_ms"][f"{shape} {label}"] = xs[len(xs) // 2]
+                        result["trees"][t].setdefault("range_ms", {})[f"{shape} {label}"] = [
+                            xs[0], xs[-1]]
                     if "host_us" in turns[0]:
                         result["trees"][t]["median_ms"][f"{shape} host us a call, 0 lanes"] = \
                             sorted(x["host_us"] for x in turns)[len(turns) // 2]
@@ -911,6 +1007,10 @@ def main():
     roots = {"parent": Path(args.parent), "new": ROOT,
              **dict((n, Path(d)) for n, d in (t.split("=", 1) for t in args.tree))}
     keep = args.shapes.split(",") if args.shapes else None
+    if keep and "deep" in keep:  # the deep set: the megakernels' shapes and K3's
+        keep = [k for k in keep if k != "deep"] + [
+            f"deep {k} {form} {DEEP_LEVELS}" for k in ("regen", "lockstep")
+            for form in DEEP_FORMS] + ["deep K3"]
     cases = shapes() if keep is None or set(keep) - set(WAVEFRONT) else {}
     if keep:
         unknown = set(keep) - set(cases) - set(WAVEFRONT)
@@ -926,8 +1026,10 @@ def main():
     if waves:
         wavefront_ab(roots, waves, args.rounds, result, args.sass)
     for t, rec in result["trees"].items():
-        print(f"[ab] {t}: medians " +
-              ", ".join(f"{k} {m:.4f}" for k, m in rec["median_ms"].items()), flush=True)
+        ranges = rec.get("range_ms", {})
+        print(f"[ab] {t}: medians " + ", ".join(
+            f"{k} {m:.4f}" + (f" ({ranges[k][0]:.4f}-{ranges[k][1]:.4f})" if k in ranges else "")
+            for k, m in rec["median_ms"].items()), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))
@@ -966,6 +1068,8 @@ def megakernel_ab(roots, cases, rounds, result):
                 raise AssertionError(f"{t} {label}: output differs from the parent's on "
                                      f"{(got[0] != ref[label][0]).sum().item()} lanes")
             rec["ms"][label] = []
+            if sh.cold:
+                rec["ms"][f"{label} back to back"] = []
         print(f"[ab] {t}: built, bitwise equal to the parent on every shape; "
               f"{json.dumps(rec['instances'])}", flush=True)
         for name, r in sorted(regs.items()):
@@ -973,19 +1077,36 @@ def megakernel_ab(roots, cases, rounds, result):
                   f"stack, {r['spill_stores']}/{r['spill_loads']} bytes spill stores/loads",
                   flush=True)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    # a read that evicts the L2 before a `cold` shape's launch
+    flush = torch.ones((256 << 20) // 4, dtype=torch.float32, device="cuda") if any(
+        sh.cold for sh in cases.values()) else None
     for r in range(rounds):
         order = trees if r % 2 == 0 else trees[::-1]
         for label, sh in cases.items():
             for t in order:
+                ms = result["trees"][t]["ms"]
+                run = lambda: run_shape(libs[t, sh.regen], tables[t, label], sh)
+                if sh.cold:
+                    flush.sum()
                 start.record()
-                run_shape(libs[t, sh.regen], tables[t, label], sh)
+                run()
                 end.record()
                 torch.cuda.synchronize()
-                result["trees"][t]["ms"][label].append(start.elapsed_time(end) / len(sh.blocks))
+                ms[label].append(start.elapsed_time(end) / len(sh.blocks))
+                if sh.cold:  # then 3 launches queued back to back
+                    start.record()
+                    for _ in range(3):
+                        run()
+                    end.record()
+                    torch.cuda.synchronize()
+                    ms[f"{label} back to back"].append(start.elapsed_time(end) / 3 /
+                                                       len(sh.blocks))
         print(f"[ab] round {r + 1}/{rounds} done", flush=True)
     for t in trees:
-        result["trees"][t]["median_ms"].update(
-            {k: sorted(x)[len(x) // 2] for k, x in result["trees"][t]["ms"].items() if x})
+        rec = result["trees"][t]
+        rec["median_ms"].update({k: sorted(x)[len(x) // 2] for k, x in rec["ms"].items() if x})
+        rec.setdefault("range_ms", {}).update(
+            {k: [min(x), max(x)] for k, x in rec["ms"].items() if x})
 
 
 if __name__ == "__main__":

@@ -427,8 +427,9 @@ def test_intersect_walk_signed_zero_ties(cuda_card, occlusion):
 def test_intersect_walk_refuses_a_deep_tree(cuda_card):
     """Nothing is refused any more: a tree of BVH_STACK levels fills the
     shallow walk's local stack and takes that walk, a deeper one takes the
-    deep walk (its stack in device memory; the interior-first chains of 48
-    and 64 levels push 47 and 63 entries); each is bitwise its plain
+    deep walk (its stack past a shared-memory tier in device memory; the
+    interior-first chains of 48, 64 and 128 levels push 47, 63 and 127
+    entries); each is bitwise its plain
     version and the sweep in both modes, and a wavefront render through the
     kernel equals the `bvh` method's within the repo's bound (both exact;
     the intersectors' ULPs differ); the C entry still refuses deep tables
@@ -445,7 +446,7 @@ def test_intersect_walk_refuses_a_deep_tree(cuda_card):
     assert np.isfinite(img).all() and img.mean() > 0
     assert (np.abs(img - ref_img) > 1e-3).mean() < 0.02
     for levels, inner in ((BVH_STACK, False), (BVH_STACK + 1, False), (64, False), (48, True),
-                          (64, True)):
+                          (64, True), (128, True)):
         pack = pack_to(chain_pack(levels, interior_first=inner), "cuda", walk=True)
         assert pack.walk.depth == levels
         oc, dc = _cuda_rays(256, 0.0, 500.0, ((0.0, 0.0, 0.0), (500.0, 500.0, 500.0)), 7)
@@ -706,10 +707,10 @@ def test_any_light_count_bitwise(cuda_card, n_dir, bvh, regen):
 @pytest.mark.parametrize("regen", [True, False])
 def test_deep_bvh_refused_for_the_card(cuda_card, regen):
     """Nothing is refused any more: trees of BVH_STACK + 1 and 64 levels,
-    and interior-first chains of 48 and 64 levels (whose walks' stacks hold
-    47 and 63 entries), take the deep instances (their walk stacks in device
-    memory), which equal the plain version bitwise on every lane and the
-    same box on its own shallow tree (both walks exact), at 4 light samples
+    and interior-first chains of 48, 64 and 128 levels (whose walks' stacks
+    hold 47, 63 and 127 entries), take the deep instances (their walk stacks
+    in device memory), which equal the plain version bitwise on every lane
+    and the same box on its own shallow tree (both walks exact), at 4 light samples
     and at 7 and (the chains) 40 (the generic instances); the regenerating
     kernel's under the sky too (its env instances; the lockstep kernel takes
     no env map)."""
@@ -721,7 +722,8 @@ def test_deep_bvh_refused_for_the_card(cuda_card, regen):
         shallow = SceneTables.from_pack(sc.compile(cluster_threshold=8), device="cuda")
         cs = cam_static(dataclasses.replace(sc.camera, width=W, height=H))
         n = W * H * 3
-        for levels, inner in ((BVH_STACK + 1, False), (64, False), (48, True), (64, True)):
+        for levels, inner in ((BVH_STACK + 1, False), (64, False), (48, True), (64, True),
+                              (128, True)):
             deep = SceneTables.from_pack(chain_pack(levels, sky=sky, interior_first=inner),
                                          device="cuda")
             assert deep.use_env == sky

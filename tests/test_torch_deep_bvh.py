@@ -4,14 +4,14 @@ deep instances (`mega_regen_deep`, `mega_lockstep_deep`,
 `intersect_walk_deep`) equal bit for bit, take the same near-first walk with
 a stack of one entry a level.
 
-- On `chip_smoke.chain_pack` trees of 33, 48 and 64 levels (the x4-scaled
+- On `chip_smoke.chain_pack` trees of 33 to 128 levels (the x4-scaled
   Cornell box of tests/test_megakernel.py:207-279 with its flat BVH replaced
   by a chain), in three forms: the chain (each interior node's child 0 a
   leaf), whose walks never hold more than one stack entry; the chain with
   `sphere_leaves` at 48 levels, whose every other leaf holds a sphere only
   (an empty child, which the walks step over), so that the walks pass 32
-  levels over empty children; and the interior-first chain at 48 and 64
-  levels (child 0 the next interior node), whose walks push a leaf a
+  levels over empty children; and the interior-first chain at 48, 64 and
+  128 levels (child 0 the next interior node), whose walks push a leaf a
   level. On each the megakernels' nearest
   walk and shadow fan (a shared walk of 4 rays, and single-ray walks as the
   generic light-count instances take them) and K3's walk (nearest and
@@ -21,6 +21,11 @@ a stack of one entry a level.
   interior-first chain of L levels every walk's stack reaches L - 1
   entries, past the local stack's 32; on the chain, with or without
   sphere-only leaves, 1.
+- What K3's deep walk's two-tier stack (csrc/deep_stack.cuh) moves to and
+  from device memory (the plain walk's `spill` and `fill` tallies): the
+  entries past its shared-memory tier, in runs, reckoned by hand from the
+  tree; the megakernels' walks, whose deep stack is all in device memory,
+  tally none.
 - The deep tree renders as JAX renders the scene: the port's `render_mega`
   plain version (regen and lockstep) on `chain_pack(33)`, `chain_pack(64)`
   and `chain_pack(64, interior_first=True)` against `mcpt_tpu`'s
@@ -51,7 +56,7 @@ from mcpt_tpu.kernels import megakernel as J
 
 import mcpt_tpu_torch.scene as TS
 from chip_smoke import chain_pack, cornell_x4
-from mcpt_tpu_torch.constants import BVH_STACK
+from mcpt_tpu_torch.constants import BVH_STACK, DEEP_RUN, DEEP_TIER
 from mcpt_tpu_torch.kernels.intersect_prims_ref import intersect_prims_ref, intersect_walk_ref
 from mcpt_tpu_torch.kernels.megakernel_ref import (
     bvh_fan,
@@ -68,7 +73,7 @@ from test_torch_bvh_walk import _edge_rays, _fields, _random_rays, _shared_edge_
 # sphere-only leaves (empty children) at 48, the interior-first chain (whose
 # walks' stacks go past 32 entries) at 48 and 64
 TREES = (("chain", 33), ("chain", 48), ("chain", 64), ("sphere-leaves", 48),
-         ("interior-first", 48), ("interior-first", 64))
+         ("interior-first", 48), ("interior-first", 64), ("interior-first", 128))
 W, H = 64, 48
 
 
@@ -198,6 +203,49 @@ def test_deep_walks_fill_their_stack(x4, walk_packs, form, levels):
     want = levels - 1 if form == "interior-first" else 1
     assert marks == dict.fromkeys(marks, want), marks
     assert form != "interior-first" or want > BVH_STACK
+
+
+@pytest.mark.parametrize("form,levels", [t for t in TREES if t[1] > BVH_STACK + 1])
+def test_deep_walks_spill_in_runs(x4, walk_packs, form, levels):
+    """What K3's deep walk's two-tier stack moves to and from device memory
+    (the plain walk's `spill` and `fill` tallies) on 16 rays aimed at
+    shared edges, all of which enter the root's box: a walk whose stack
+    reaches k entries sends max(0, k - DEEP_TIER) of them out in runs of
+    DEEP_RUN, ceil((k - DEEP_TIER) / DEEP_RUN) runs, each entry once, and
+    takes as many back, since it pops every entry (both modes). On the
+    interior-first chain k is levels - 1 (at 128 levels the tier fills and
+    empties many times over), on the chain 1. The megakernels' walks
+    (nearest, fans of 4 and 1) reach k entries too, and tally no runs: their
+    deep instances keep every entry in device memory."""
+    pack, _, _, chains = x4
+    tables, walk = chains[form, levels], walk_packs[form, levels]
+    rng = np.random.default_rng(400 + levels)
+    n = 16
+    o, d = _edge_rays(pack, rng, n)
+    delta = _shared_edge_points(pack, rng, n) - o
+    dist = np.sqrt((delta * delta).sum(1)).astype(np.float32)
+    ds = [_t3((delta / dist[:, None]).astype(np.float32))] * 4
+    dists = [torch.tensor(dist)] * 4
+    live = torch.ones(n, dtype=torch.bool)
+    k = levels - 1 if form == "interior-first" else 1
+    runs = -(-max(0, k - DEEP_TIER) // DEEP_RUN)
+    for name, tiered, run in (
+            ("nearest", False, lambda ops: bvh_nearest(tables, _t3(o), _t3(d), live, ops=ops)),
+            ("fan of 4", False, lambda ops: bvh_fan(tables, _t3(o), ds, dists, live, ops=ops)),
+            ("fan of 1", False,
+             lambda ops: bvh_fan(tables, _t3(o), ds[:1], dists[:1], live, ops=ops)),
+            *((f"K3 {'occlusion' if occ else 'nearest'}", True, lambda ops, occ=occ:
+               intersect_walk_ref(walk.walk.bvh, walk.walk.leaf, walk.sph_geom, walk.n_tris,
+                                  _t3(o), _t3(d), occlusion=occ, ops=ops,
+                                  depth=walk.walk.depth)) for occ in (False, True))):
+        ops = collections.Counter()
+        run(ops)
+        assert ops["stack"] == k, (name, ops["stack"])
+        if tiered:
+            assert ops["spill"] == n * runs * DEEP_RUN, (name, ops["spill"])
+            assert ops["fill"] == ops["spill"], (name, ops["fill"])
+        else:
+            assert ops["spill"] == ops["fill"] == 0, (name, ops)
 
 
 @pytest.fixture(scope="module")
